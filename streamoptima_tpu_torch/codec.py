@@ -1,0 +1,107 @@
+"""User-facing facade over ``TorchCodec``: metrics, text bitstream, file I/O.
+
+Counterpart of ``streamoptima_tpu.codec.VideoCodec`` for the main path::
+
+    codec = VideoCodec(cfg, y_frames, device="cuda")
+    pkg = codec.encode()                              # PSNR + SSIM per frame
+    codec.transmit_bitstream("mv.txt", "res.txt")     # text bitstream
+    frames = VideoCodec(cfg, device="cuda").decode_bitstream("mv.txt", "res.txt")
+    # or in two steps: decode(*parse_bitstream("mv.txt", "res.txt"))
+    codec.save_decoded_frames("out.yuv")
+
+The bitstream is written through ``streamoptima_tpu.bitstream.write_bitstream``
+with the array-form interchange (byte-identical to the JAX engine's files);
+the binary container waits for a later port.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from streamoptima_tpu import bitstream as BS
+from streamoptima_tpu import metrics
+from streamoptima_tpu.config import CodecConfig
+from streamoptima_tpu.io.video import VideoManager
+from streamoptima_tpu_torch.engine import TorchCodec, check_slice, frame_arrays_of
+
+
+class VideoCodec:
+    """Encode/decode facade over ``TorchCodec`` with file-level APIs."""
+
+    def __init__(self, cfg: CodecConfig, y_frames=None, *, device):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self._dec = TorchCodec(cfg, device=self.device)  # refuses configs outside the slice
+        self._enc = TorchCodec(cfg, y_frames, device=self.device) if y_frames is not None else None
+        self._pkg = None
+        self._decoded = None
+
+    # ----------------------------------------------------------- encoding
+    def encode(self, compute_ssim: bool = True, **kw) -> dict:
+        """Encode the clip; returns the package dict (the JAX facade's keys:
+        PSNR, MAE, sizes, reconstructions, plus SSIM on the host and the
+        encode wall time under pkg["timing"]["total_s"])."""
+        if self._enc is None:
+            raise ValueError("construct with y_frames to encode")
+        t0 = time.perf_counter()
+        pkg = self._enc.encode(**kw)
+        pkg.setdefault("timing", {})["total_s"] = time.perf_counter() - t0
+        if compute_ssim:
+            recon = pkg["reconstructed frames"]
+            pkg["SSIM per frame"] = [metrics.ssim(self._enc.y[i], recon[i]) for i in range(len(recon))]
+        self._pkg = pkg
+        return pkg
+
+    def transmit_bitstream(self, mv_file, residual_file, raw_mv_file=None) -> None:
+        """Write the two text bitstream files of the last encode."""
+        if self._pkg is None:
+            raise ValueError("encode() first")
+        p = self._pkg
+        if "per_frame" in p:
+            pairs = [frame_arrays_of(o, ft) for o, ft in zip(p["per_frame"], p["frame_type_seq"])]
+            mvs, res = [m for m, _ in pairs], [r for _, r in pairs]
+        else:
+            mvs, res = p["MVS per Frame"], p["approx residual"]
+        BS.write_bitstream(mv_file, residual_file, p["frame_type_seq"], mvs, p["Qp_per_row_per_frame"],
+                           res, self.cfg, raw_mv_path=raw_mv_file)
+
+    # ----------------------------------------------------------- decoding
+    def decode(self, frame_types=None, residuals=None, qp_rows=None, mvs=None) -> np.ndarray:
+        """In-memory decode; with no arguments, decodes the last encode's
+        list-form package."""
+        if frame_types is None:
+            p = self._pkg
+            if p is None or "approx residual" not in p:
+                raise ValueError("encode() with packaging first")
+            frame_types, residuals, qp_rows, mvs = (
+                p["frame_type_seq"], p["approx residual"], p["Qp_per_row_per_frame"], p["MVS per Frame"])
+        return self._finish(self._dec.decode(frame_types, residuals, qp_rows, mvs))
+
+    def parse_bitstream(self, mv_file, residual_file) -> tuple:
+        """Parse the two text bitstream files into ``decode``'s arguments
+        (frame_types, residuals, qp_rows, mvs), on the host."""
+        fts, mvs, qps, res = BS.read_bitstream(mv_file, residual_file, self.cfg)
+        check_slice(self.cfg)  # a stream may carry an ROI header into cfg
+        return fts, res, qps, mvs
+
+    def decode_bitstream(self, mv_file, residual_file) -> np.ndarray:
+        """File-level decode of the two text bitstream files."""
+        return self.decode(*self.parse_bitstream(mv_file, residual_file))
+
+    def _finish(self, frames) -> np.ndarray:
+        self._decoded = torch.stack(frames).cpu().numpy()
+        return self._decoded
+
+    def save_decoded_frames(self, path) -> None:
+        """Write decoded Y frames as raw bytes."""
+        if self._decoded is None:
+            raise ValueError("decode first")
+        VideoManager.save_y_only(path, self._decoded)
+
+    def save_reconstructed(self, path) -> None:
+        """Write the encoder-side reconstructions."""
+        if self._pkg is None:
+            raise ValueError("encode() first")
+        VideoManager.save_y_only(path, self._pkg["reconstructed frames"])

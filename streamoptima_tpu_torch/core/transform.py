@@ -1,0 +1,94 @@
+"""Exact fixed-point 2D DCT-II / IDCT (int32 results, bit-identical everywhere).
+
+Twin of ``streamoptima_tpu.core.transform.dct2_int`` / ``idct2_int``: the
+orthonormal DCT matrix rounded to 17-bit fixed point, ``A = round(D * 2**17)``
+(``dct_matrix_fixed``), applied in two passes with exact round-half-even
+rescaling between them.  Every shift, split and rounding step below is the
+JAX package's, on int32 tensors.
+
+Exactness of the products.  CUDA has no int32 matmul and a float32 product is
+not exact here (products reach 2**28.5, sums 2**30.5), so each integer product
+runs as a float64 matmul on integer-valued operands.  That is exact: every
+operand is an integer with |A| <= 46341 < 2**15.5 and |X| <= 2**11 (after the
+splits below), so every product is an integer below 2**26.5 and every partial
+sum of the 16-term dot products an integer below 2**31 in magnitude — far
+inside float64's 53-bit integer range.  Each partial sum is therefore
+represented exactly whatever the summation order or FMA use, and the final
+conversion to int32 is exact.  The pass bounds are the JAX package's, restated
+at each step.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from streamoptima_tpu.core.transform import dct_matrix_fixed
+from streamoptima_tpu_torch.core.quant import rhe_shift_right
+
+
+@functools.lru_cache(maxsize=None)
+def dct_matrix(n: int, device: torch.device) -> torch.Tensor:
+    """The fixed-point DCT matrix ``A`` as float64 on ``device`` (cached)."""
+    return torch.from_numpy(dct_matrix_fixed(n).astype(np.float64)).to(device)
+
+
+def _imatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer matmul via float64 (see the module docstring's bound)."""
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.int32)
+
+
+def _round_half_even_from_parts(q_hi, inner, inner_bits: int):
+    """round-half-even of ``q_hi + inner / 2**inner_bits`` (inner may be negative)."""
+    qt = q_hi + (inner >> inner_bits)
+    rr = inner & ((1 << inner_bits) - 1)
+    half = 1 << (inner_bits - 1)
+    inc = (rr > half) | ((rr == half) & ((qt & 1) == 1))
+    return qt + inc.to(qt.dtype)
+
+
+def dct2_int(x: torch.Tensor) -> torch.Tensor:
+    """Exact fixed-point 2D DCT-II of int blocks ``(..., n, n)``, ``|x| <= 512``."""
+    x = x.to(torch.int32)
+    a = dct_matrix(x.shape[-1], x.device)
+    # pass 1: M = A @ X, scale 2**17, |M| <= 16*46341*512 = 2**28.5
+    m = _imatmul(a, x)
+    # drop 6 fraction bits: M1 scale 2**11, |M1| <= 2**22
+    m1 = rhe_shift_right(m, 6)
+    # pass 2 split at 11 bits: |Sh|, |Sl| <= 16*2048*46341 = 2**30.5
+    mh = m1 >> 11
+    ml = m1 - (mh << 11)
+    sh = _imatmul(mh, a.T)
+    sl = _imatmul(ml, a.T)
+    # T = rhe((Sh*2**11 + Sl) / 2**28)
+    q = sh >> 17
+    r = sh - (q << 17)
+    inner = (r << 11) + sl  # <= 2**28 + 2**30.5 < 2**31
+    return _round_half_even_from_parts(q, inner, 28)
+
+
+def idct2_int(t: torch.Tensor) -> torch.Tensor:
+    """Exact fixed-point 2D IDCT of int coefficients ``(..., n, n)``, ``|t| <= 12288``."""
+    t = t.to(torch.int32)
+    a = dct_matrix(t.shape[-1], t.device)
+    # split the (14-bit) input so pass 1 stays in int32
+    th = t >> 7
+    tl = t - (th << 7)
+    # P = A^T @ Th, Q = A^T @ Tl: |.| <= 16*46341*128 = 2**26.5
+    p = _imatmul(a.T, th)
+    qm = _imatmul(a.T, tl)
+    # M1 = rhe((P*2**7 + Q) / 2**11): scale 2**6, |M1| <= 2**21.6
+    q1 = p >> 4
+    r1 = p - (q1 << 4)
+    m1 = _round_half_even_from_parts(q1, (r1 << 7) + qm, 11)
+    # pass 2 split at 11 bits: |Sh| <= 2**30.1, |Sl| <= 2**30.5
+    mh = m1 >> 11
+    ml = m1 - (mh << 11)
+    sh = _imatmul(mh, a)
+    sl = _imatmul(ml, a)
+    # out = rhe((Sh*2**11 + Sl) / 2**23)
+    q = sh >> 12
+    r = sh - (q << 12)
+    inner = (r << 11) + sl  # <= 2**23 + 2**30.5 < 2**31
+    return _round_half_even_from_parts(q, inner, 23)

@@ -1,0 +1,101 @@
+"""Where the 720p main path's time goes on one CUDA card.
+
+    python3 -m streamoptima_tpu_torch.profile_main_path [--frames 16] [--reps 20]
+
+Runs the ``chip_smoke.py`` configuration (720p IPPP, bs=16, sr=8, qp=4,
+intra_dur=8, one reference, whole-pel full search) on ``synthetic_clip``
+(seed 42) and prints, for one intra step, one inter step, a whole encode and
+a device decode of the same clip:
+
+- the host-clock median and quartiles of synchronised runs, without the
+  profiler;
+- from one ``torch.profiler`` run each: the device busy time (the sum of
+  device-side events: kernels and copies), the number of device ops, the idle
+  share (1 - busy / unprofiled median) and the ten largest device ops.
+
+Writes nothing but standard output.  Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from streamoptima_tpu_torch import CodecConfig, synthetic_clip
+from streamoptima_tpu_torch.engine import TorchCodec, frame_arrays_of
+
+
+def _wall_ms(fn, reps: int) -> tuple[float, float, float]:
+    """Median and quartiles, in ms, of ``reps`` synchronised calls (one warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts)), float(np.percentile(ts, 25)), float(np.percentile(ts, 75))
+
+
+def _device_ms(e) -> float:
+    return (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+
+def _profile(name: str, fn, median_ms: float) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in p.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and _device_ms(e) > 0]
+    busy = sum(_device_ms(e) for e in ops)
+    print(f"== {name}: device busy {busy:.4f} ms, device ops {sum(e.count for e in ops)}, "
+          f"idle share {1 - busy / median_ms:.3f} of the unprofiled median")
+    for e in sorted(ops, key=_device_ms, reverse=True)[:10]:
+        print(f"   {_device_ms(e):9.4f} ms  x{e.count:5d}  {e.key[:110]}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=16)
+    ap.add_argument("--reps", type=int, default=20, help="timed runs per step; whole runs take half")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_main_path: no CUDA card (torch.cuda.is_available() is False)")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"[device] {smi} | torch {torch.__version__} | cuda {torch.version.cuda}")
+
+    n = args.frames
+    cfg = CodecConfig(height=720, width=1280, frames=n, block_size=16, search_range=8, qp=4, intra_dur=8,
+                      lam=0.015)
+    codec = TorchCodec(cfg, synthetic_clip(720, 1280, n), device=torch.device("cuda"))
+    pkg = codec.encode(package=False)
+    fts = pkg["frame_type_seq"]
+    pairs = [frame_arrays_of(o, ft) for o, ft in zip(pkg["per_frame"], fts)]
+    mvs, res = [m for m, _ in pairs], [r for _, r in pairs]
+    y0, y1 = codec._y_dev[0], codec._y_dev[1]
+    refs = pkg["per_frame"][0]["recon"][None]
+
+    steps = (("intra step (1 frame)", lambda: codec._intra_step(y0), args.reps),
+             ("inter step (1 frame)", lambda: codec._inter_step(y1, refs), args.reps),
+             (f"encode, {n} frames", lambda: codec.encode(package=False), max(args.reps // 2, 1)),
+             (f"device decode, {n} frames", lambda: codec.decode(fts, res, [[]] * n, mvs), max(args.reps // 2, 1)))
+    medians = {}
+    for name, fn, reps in steps:
+        med, q1, q3 = _wall_ms(fn, reps)
+        medians[name] = med
+        print(f"{name}: median {med:.4f} ms, quartiles {q1:.4f} / {q3:.4f} ms over {reps} runs (no profiler)")
+    for name, fn, _ in steps:
+        _profile(name, fn, medians[name])
+
+
+if __name__ == "__main__":
+    main()

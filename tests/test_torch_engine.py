@@ -1,0 +1,176 @@
+"""PyTorch port, the slice as a whole: TorchCodec against JaxCodec.
+
+On the same seeded clip and config the port must reproduce the JAX engine
+bit for bit (MVs, coefficients, sizes, row bits, reconstructions and the
+text bitstream bytes), decode the JAX engine's streams and have its own
+decoded by it.  PSNR and MAE are float32 with reductions in another order:
+1e-4.  sr=8 runs the wavefront intra reconstruction, sr=16 the column scan.
+"""
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from streamoptima_tpu import CodecConfig
+from streamoptima_tpu import bitstream as BS
+from streamoptima_tpu import jax_engine as JE
+from streamoptima_tpu.codec import VideoCodec as JaxVideoCodec
+from streamoptima_tpu.utils import synthetic_clip
+from streamoptima_tpu_torch import engine as TE
+from streamoptima_tpu_torch.codec import VideoCodec
+from streamoptima_tpu_torch.engine import TorchCodec
+
+torch.set_num_threads(1)
+REPO = Path(__file__).resolve().parent.parent
+H, W, FRAMES = 64, 96, 6
+
+
+def _cfg(sr, **kw):
+    return CodecConfig(height=H, width=W, frames=FRAMES, search_range=sr, qp=4, intra_dur=4, **kw)
+
+
+@pytest.fixture(scope="module", params=[8, 16], ids=["sr8_wavefront", "sr16_select"])
+def encoded(request, tmp_path_factory):
+    """Both engines' encodes and text bitstreams of one clip."""
+    sr = request.param
+    clip = synthetic_clip(H, W, FRAMES, seed=sr)
+    d = tmp_path_factory.mktemp(f"sr{sr}")
+    jv = JaxVideoCodec(_cfg(sr), clip)
+    jpkg = jv.encode(compute_ssim=False, package=False)
+    jv.transmit_bitstream(d / "jmv.txt", d / "jres.txt")
+    tv = VideoCodec(_cfg(sr), clip, device="cpu")
+    tpkg = tv.encode(package=False)
+    tv.transmit_bitstream(d / "tmv.txt", d / "tres.txt")
+    return {"sr": sr, "clip": clip, "dir": d, "jpkg": jpkg, "tpkg": tpkg}
+
+
+@pytest.mark.parametrize("key", ["mv", "split", "qtc_full", "size", "row_bits", "recon"])
+def test_per_frame_outputs_bit_identical(encoded, key):
+    for i, (a, b) in enumerate(zip(encoded["tpkg"]["per_frame"], encoded["jpkg"]["per_frame"])):
+        np.testing.assert_array_equal(a[key].numpy(), np.asarray(b[key]), err_msg=f"frame {i} {key}")
+
+
+def test_package_metrics_agree(encoded):
+    t, j = encoded["tpkg"], encoded["jpkg"]
+    assert t["frame_type_seq"] == j["frame_type_seq"] == [0, 1, 1, 1, 0, 1]
+    assert t["residual size per frame"] == j["residual size per frame"]
+    np.testing.assert_array_equal(t["reconstructed frames"], j["reconstructed frames"])
+    np.testing.assert_allclose(t["PSNR per frame"], j["PSNR per frame"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(t["MAE per Frame"], j["MAE per Frame"], rtol=0, atol=1e-4)
+    assert len(t["SSIM per frame"]) == FRAMES and all(0.5 < s <= 1 for s in t["SSIM per frame"])
+
+
+def test_text_bitstream_bytes_identical(encoded):
+    d = encoded["dir"]
+    assert (d / "tmv.txt").read_bytes() == (d / "jmv.txt").read_bytes()
+    assert (d / "tres.txt").read_bytes() == (d / "jres.txt").read_bytes()
+
+
+def test_port_decodes_jax_bitstream(encoded):
+    d = encoded["dir"]
+    dec = VideoCodec(_cfg(encoded["sr"]), device="cpu").decode_bitstream(d / "jmv.txt", d / "jres.txt")
+    np.testing.assert_array_equal(dec, encoded["jpkg"]["reconstructed frames"])
+
+
+def test_jax_decodes_port_bitstream(encoded):
+    d = encoded["dir"]
+    dec = JaxVideoCodec(_cfg(encoded["sr"])).decode_bitstream(d / "tmv.txt", d / "tres.txt")
+    np.testing.assert_array_equal(dec, encoded["tpkg"]["reconstructed frames"])
+
+
+def test_cross_decode_in_memory_per_frame_state(encoded):
+    """from_jax_per_frame / to_numpy_per_frame carry the per-frame state
+    across: each engine decodes the other's encode from arrays."""
+    cfg, fts = _cfg(encoded["sr"]), encoded["jpkg"]["frame_type_seq"]
+    jstate = TE.from_jax_per_frame([{k: np.asarray(v) for k, v in o.items()} for o in encoded["jpkg"]["per_frame"]],
+                                   "cpu")
+    pairs = [TE.frame_arrays_of(o, ft) for o, ft in zip(jstate, fts)]
+    dec = TorchCodec(cfg, device="cpu").decode(fts, [r for _, r in pairs], [[]] * FRAMES, [m for m, _ in pairs])
+    np.testing.assert_array_equal(torch.stack(dec).numpy(), encoded["jpkg"]["reconstructed frames"])
+
+    tstate = TE.to_numpy_per_frame(encoded["tpkg"]["per_frame"])
+    jpairs = [JE.frame_arrays_of(o, ft) for o, ft in zip(tstate, fts)]
+    jdec = JE.JaxCodec(cfg).decode(fts, [r for _, r in jpairs], [[]] * FRAMES, [m for m, _ in jpairs])
+    np.testing.assert_array_equal(np.stack([np.asarray(f) for f in jdec]), encoded["tpkg"]["reconstructed frames"])
+
+
+def test_list_package_roundtrip_and_files(encoded, tmp_path):
+    """package=True (list interchange) decodes in memory and writes the
+    same bitstream bytes as the array form; the file savers write raw Y."""
+    v = VideoCodec(_cfg(encoded["sr"]), encoded["clip"], device="cpu")
+    pkg = v.encode(compute_ssim=False)
+    dec = v.decode()
+    np.testing.assert_array_equal(dec, pkg["reconstructed frames"])
+    v.transmit_bitstream(tmp_path / "mv.txt", tmp_path / "res.txt")
+    assert (tmp_path / "mv.txt").read_bytes() == (encoded["dir"] / "jmv.txt").read_bytes()
+    assert (tmp_path / "res.txt").read_bytes() == (encoded["dir"] / "jres.txt").read_bytes()
+    v.save_decoded_frames(tmp_path / "dec.yuv")
+    v.save_reconstructed(tmp_path / "rec.yuv")
+    assert (tmp_path / "dec.yuv").read_bytes() == (tmp_path / "rec.yuv").read_bytes() == dec.tobytes()
+
+
+@pytest.mark.parametrize("kw,feature", [
+    ({"vbs_enable": True}, "vbs_enable"),
+    ({"fme_enable": True}, "fme_enable"),
+    ({"fast_me": True}, "fast_me"),
+    ({"rc_flag": 1, "target_br": "1 mbps", "qp_rate_tables": [[1.0] * 12] * 2}, "rc_flag"),
+    ({"roi_qp_map": np.zeros(24, np.int32)}, "roi_qp_map"),
+    ({"intra_mode": 1}, "intra_mode=1"),
+    ({"parallel_mode": 1}, "parallel_mode"),
+    ({"n_ref_frames": 2}, "n_ref_frames"),
+])
+def test_unported_features_raise_by_name(kw, feature):
+    with pytest.raises(NotImplementedError, match=feature):
+        TorchCodec(_cfg(8, **kw), device="cpu")
+    with pytest.raises(NotImplementedError, match=feature):
+        VideoCodec(_cfg(8, **kw), device="cpu")
+
+
+def test_two_pass_and_compat_refused():
+    cfg = _cfg(8, rc_flag=1, target_br="1 mbps", qp_rate_tables=[[1.0] * 12] * 2, two_pass=True)
+    with pytest.raises(NotImplementedError):
+        TorchCodec(cfg, device="cpu")
+    with pytest.raises(ValueError, match="compat"):
+        TorchCodec(_cfg(8, engine="compat"), device="cpu")
+
+
+def test_device_is_required():
+    with pytest.raises(TypeError):
+        TorchCodec(_cfg(8))  # no default device, no auto-detection
+
+
+def test_corrupt_reference_index_rejected_before_launch(encoded):
+    cfg, fts = _cfg(encoded["sr"]), encoded["tpkg"]["frame_type_seq"]
+    pairs = [TE.frame_arrays_of(o, ft) for o, ft in zip(encoded["tpkg"]["per_frame"], fts)]
+    mvs = [m for m, _ in pairs]
+    bad = mvs[1].mv.copy()
+    bad[5, 2] = 1  # the decoder holds one reference frame at frame 1
+    mvs[1] = BS.FrameMVArrays(1, bad, mvs[1].split, mvs[1].smv)
+    with pytest.raises(ValueError, match="corrupt stream"):
+        TorchCodec(cfg, device="cpu").decode(fts, [r for _, r in pairs], [[]] * FRAMES, mvs)
+
+
+def test_port_runs_without_importing_jax(tmp_path):
+    """A fresh interpreter (not a fork of this JAX process) drives the port's
+    encode -> text bitstream -> decode and never imports jax."""
+    code = textwrap.dedent(f"""
+        import sys
+        import numpy as np
+        from streamoptima_tpu_torch import CodecConfig, VideoCodec, synthetic_clip
+        import streamoptima_tpu_torch.profile_main_path
+        cfg = CodecConfig(height=32, width=48, frames=3, search_range=4, qp=4, intra_dur=2)
+        v = VideoCodec(cfg, synthetic_clip(32, 48, 3), device="cpu")
+        pkg = v.encode(package=False)
+        v.transmit_bitstream(r"{tmp_path / 'mv.txt'}", r"{tmp_path / 'res.txt'}")
+        dec = VideoCodec(cfg, device="cpu").decode_bitstream(r"{tmp_path / 'mv.txt'}", r"{tmp_path / 'res.txt'}")
+        assert np.array_equal(dec, pkg["reconstructed frames"])
+        assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+        print("OK")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")

@@ -1,0 +1,98 @@
+"""PyTorch port on a CUDA card: each hand-written kernel against its plain
+PyTorch version on the same device tensors, exactly.
+
+These need a card and skip without one; the card's machine runs them with
+``python -m pytest tests/test_torch_gpu.py -q``.  This file imports no JAX
+(the card's machine has none); the parity of the plain versions with the JAX
+package is the CPU tests' job.
+"""
+import numpy as np
+import pytest
+import torch
+
+from streamoptima_tpu import CodecConfig
+from streamoptima_tpu.utils import synthetic_clip
+from streamoptima_tpu_torch.core import kernels as K
+from streamoptima_tpu_torch.core import transform as T
+from streamoptima_tpu_torch.engine import TorchCodec
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _search_equal(a, b):
+    for k in ("mv", "sad", "ok", "pred"):
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("h,w,sr,nref", [(48, 64, 4, 1), (64, 96, 8, 2), (96, 128, 16, 3), (64, 64, 40, 1)])
+def test_full_search_kernel_matches_plain(cuda, h, w, sr, nref):
+    rng = np.random.default_rng(h * sr + nref)
+    cur = torch.from_numpy(rng.integers(0, 256, (h, w), dtype=np.uint8)).to(cuda)
+    refs = torch.from_numpy(rng.integers(0, 256, (nref, h, w), dtype=np.uint8)).to(cuda)
+    n0 = K.full_search.launches
+    got = K.full_search(cur, refs, sr, 16)
+    torch.cuda.synchronize()
+    assert K.full_search.launches == n0 + 1
+    _search_equal(got, K.full_search_plain(cur, refs, sr, 16))
+
+
+@pytest.mark.parametrize("case", ["flat", "black_vs_white", "one_column"])
+def test_full_search_kernel_ties_and_no_candidate(cuda, case):
+    h, w = (48, 16) if case == "one_column" else (48, 64)
+    fill = {"flat": (90, 90), "black_vs_white": (0, 255), "one_column": (3, 5)}[case]
+    cur = torch.full((h, w), fill[0], dtype=torch.uint8, device=cuda)
+    refs = torch.full((2, h, w), fill[1], dtype=torch.uint8, device=cuda)
+    got = K.full_search(cur, refs, 4, 16)
+    _search_equal(got, K.full_search_plain(cur, refs, 4, 16))
+
+
+def test_pred_fetch_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(5)
+    h, w, nref = 64, 96, 2
+    nb = (h // 16) * (w // 16)
+    refs = torch.from_numpy(rng.integers(0, 256, (nref, h, w), dtype=np.uint8)).to(cuda)
+    mv = np.stack([rng.integers(-70, 71, nb), rng.integers(-50, 51, nb), rng.integers(0, nref, nb)], 1)
+    mv = torch.from_numpy(mv.astype(np.int32)).to(cuda)
+    n0 = K.pred_fetch.launches
+    got = K.pred_fetch(mv, refs, 16)
+    torch.cuda.synchronize()
+    assert K.pred_fetch.launches == n0 + 1
+    assert torch.equal(got, K.pred_fetch_plain(mv, refs, 16))
+
+
+def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
+    cur = torch.zeros((48, 64), dtype=torch.int32, device=cuda)
+    refs = torch.zeros((1, 48, 64), dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError):
+        K.full_search(cur, refs, 4, 16)
+    with pytest.raises(ValueError):
+        K.pred_fetch(torch.zeros((12, 3), dtype=torch.int64, device=cuda), refs, 16)
+
+
+def test_int_dct_on_card_matches_cpu_at_extremes(cuda):
+    rng = np.random.default_rng(6)
+    x = rng.integers(-255, 256, (64, 16, 16)).astype(np.int32)
+    x[0], x[1] = 255, -255
+    t = rng.integers(-12288, 12289, (64, 16, 16)).astype(np.int32)
+    t[0], t[1] = 12288, -12288
+    for f, a in ((T.dct2_int, x), (T.idct2_int, t)):
+        ref = f(torch.from_numpy(a))
+        assert torch.equal(f(torch.from_numpy(a).to(cuda)).cpu(), ref)
+
+
+def test_engine_on_card_matches_cpu(cuda):
+    cfg = CodecConfig(height=64, width=96, frames=5, search_range=8, qp=4, intra_dur=4)
+    clip = synthetic_clip(64, 96, 5)
+    a = TorchCodec(cfg, clip, device=cuda).encode(package=False)
+    b = TorchCodec(cfg, clip, device="cpu").encode(package=False)
+    np.testing.assert_array_equal(a["reconstructed frames"], b["reconstructed frames"])
+    for fa, fb in zip(a["per_frame"], b["per_frame"]):
+        for k in ("mv", "qtc_full", "size"):
+            assert torch.equal(fa[k].cpu(), fb[k]), k
