@@ -3,17 +3,29 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``streamoptima_tpu_torch/csrc``, holds
-each against its plain PyTorch version on the card at the 720p shapes, then
-drives the port's main path through the ``VideoCodec`` facade at the config
-``bench.py`` runs (720p IPPP, bs=16, sr=8, qp=4, intra_dur=8, one reference,
-whole-pel full search): encode 16 frames (2 GOPs) -> text bitstream ->
-decode, bit-exact, with every inter frame going through the kernels.
+each kernel, in each of its modes, against its plain PyTorch version on the
+card at the 720p shapes, then drives two paths through the ``VideoCodec``
+facade, each encode 16 frames (2 GOPs) -> text bitstream -> decode,
+bit-exact, with every inter frame going through the path's kernels:
+
+- ``[main]``: the config ``bench.py`` runs (720p IPPP, bs=16, sr=8, qp=4,
+  intra_dur=8, one reference, whole-pel full search);
+- ``[main-vbs-fme]``: the same with variable block size and half-pel FME
+  (``benchmarks/sweep.py``'s ``720p_vbs_fme``, lam=0.015).
 
 Every comparison is exact (tolerance 0): the codec's arithmetic is integer.
 Prints one line per phase, then the kernels' JSON line, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any
 failed phase raises, so the exit code is non-zero and no result is printed;
 without a CUDA card it fails at once.
+
+Each kernel's ``bound_ms`` is the least time the card could take for the
+same work: the larger of the bytes it must move over the memory rate
+(3.35 TB/s, the H100 SXM data sheet) and its operations over the integer
+rate (SMs x 64 INT32 lanes x the maximum SM clock ``nvidia-smi`` reports),
+counting one operation per pixel abs-diff-accumulate of each candidate the
+inputs make valid.  No single PyTorch call computes any of these functions,
+so ``library_ms`` is null throughout.
 """
 from __future__ import annotations
 
@@ -26,39 +38,55 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from streamoptima_tpu_torch import CodecConfig, _build, synthetic_clip
+from streamoptima_tpu_torch import CodecConfig, _build, native, synthetic_clip
 from streamoptima_tpu_torch.codec import VideoCodec
 from streamoptima_tpu_torch.core import kernels as K
+from streamoptima_tpu_torch.core import me as M
 from streamoptima_tpu_torch.core import transform as T
+from streamoptima_tpu_torch.core.pred import gather_predictions
 from streamoptima_tpu_torch.engine import TorchCodec
 
 H, W, FRAMES = 720, 1280, 16
 BS_, SR, QP, INTRA_DUR = 16, 8, 4, 8
 N_INTER = FRAMES - FRAMES // INTRA_DUR
 MIN_PSNR = 30.0  # qp=4 on the smooth synthetic clip sits near 35 dB
+HBM_BYTES_PER_MS = 3.35e12 / 1e3
+INT32_LANES_PER_SM = 64
+VBS_FME = {"vbs_enable": True, "fme_enable": True}
 
 
-def _cfg(h=H, w=W, frames=FRAMES) -> CodecConfig:
+def _cfg(h=H, w=W, frames=FRAMES, **kw) -> CodecConfig:
     return CodecConfig(height=h, width=w, frames=frames, block_size=BS_, search_range=SR, qp=QP,
-                       intra_dur=INTRA_DUR, lam=0.015)
+                       intra_dur=INTRA_DUR, lam=0.015, **kw)
 
 
-def _time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls (CUDA events, warm)."""
+def _time_ms(fn, reps: int, cycles_per_ms: float) -> tuple[float, float]:
+    """Device time of one ``fn`` call, the mean over ``reps`` warm calls
+    between CUDA events, and the host's time to enqueue one call.
+
+    A small kernel finishes before the host has enqueued the next one, so
+    events around a bare loop time the host.  A spin kernel queued first,
+    longer than the host's whole loop, keeps the stream busy meanwhile: the
+    calls then run back to back on the device between the events."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(cycles_per_ms * (2 * host_ms * reps + 1)))
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, host_ms
 
 
-def _max_err(a: dict, b: dict, keys) -> int:
-    return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max()) for x, y in
-               ((a[k], b[k]) for k in keys))
+def _max_err(pairs) -> int:
+    return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max()) for x, y in pairs)
 
 
 def _require(cond: bool, what: str) -> None:
@@ -66,22 +94,140 @@ def _require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def _smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _bound(nbytes: float, ops: float, int_ops_per_ms: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_MS, ops / int_ops_per_ms
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _search_ops(h: int, w: int, nref: int, fme: bool, dev) -> int:
+    """Abs-diff-accumulates the search kernels do on these inputs: every
+    pixel of every candidate that is valid for the block (or, with VBS, for
+    the block or one of its quads)."""
+    if not fme:
+        bx, by = M.block_origins(h, w, BS_, dev)
+        return int(M.candidate_valid_mask(bx, by, SR, BS_, h, w).sum()) * BS_ * BS_ * nref
+    H2, W2, s = 2 * h - 1, 2 * w - 1, BS_ // 2
+    bx, by = M.block_origins(h, w, BS_, dev)
+    any_ok = M.candidate_valid_mask(2 * bx, 2 * by, 2 * SR, BS_, H2, W2, fme=True)
+    qx, qy = M.quad_origins(h, w, BS_, dev)
+    vq = M.candidate_valid_mask(2 * qx.reshape(-1), 2 * qy.reshape(-1), 2 * SR, s, H2, W2, fme=True)
+    any_ok |= vq.reshape(vq.shape[0], vq.shape[1], -1, 4).any(dim=-1)
+    return int(any_ok.sum()) * BS_ * BS_ * nref
+
+
+def _fetch_bytes_read(mv, refs, sub_mv=None) -> int:
+    """Distinct reference bytes the fetch reads for these MVs: the plain
+    gather on a grid of byte indices (fills 0 and 128 lie below them)."""
+    base = 1000
+    idx = torch.arange(refs.numel(), device=refs.device, dtype=torch.int64).reshape(refs.shape) + base
+    h, w = refs.shape[-2:]
+    bx, by = M.block_origins(h, w, BS_, refs.device)
+    if sub_mv is None:
+        got = gather_predictions(mv, idx, bx, by, BS_)
+    else:
+        grid = M.grid_of_planes(idx)
+        qx, qy = M.quad_origins(h, w, BS_, refs.device)
+        got = torch.cat([gather_predictions(mv, grid, bx, by, BS_, fme=True).reshape(-1),
+                         gather_predictions(sub_mv.reshape(-1, 3), grid, qx.reshape(-1), qy.reshape(-1), BS_ // 2,
+                                            fme=True).reshape(-1)])
+    got = got.reshape(-1)
+    return int(torch.unique(got[got >= base]).numel())
+
+
+def _kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops, int_ops_per_ms) -> dict:
+    bound_ms, bound_by = _bound(nbytes, ops, int_ops_per_ms)
+    return {"name": name, "route": "cuda", "source": f"streamoptima_tpu_torch/csrc/{source}",
+            "replaces": f"streamoptima_tpu/core/me_pallas.py:{replaces}", "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def _adversarial_mvs(rng, nb: int, bound: int) -> np.ndarray:
+    mv = np.stack([rng.integers(-bound, bound + 1, nb), rng.integers(-bound, bound + 1, nb),
+                   np.zeros(nb, int)], 1).astype(np.int32)
+    mv[:: W // BS_, 0] = -bound  # left column: windows leave the frame
+    mv[-(W // BS_):, 1] = bound  # bottom row too
+    mv[7] = (5000, -5000, 0)  # entirely outside
+    return mv
+
+
+def _drive(label: str, extra: dict, clip: np.ndarray, counters: dict, dev) -> dict:
+    """One path through the facade: encode -> text bitstream -> decode from
+    the files -> in-memory decode, each bit-exact with the encoder's
+    reconstructions.  The launch counts are zeroed just before the encode
+    and read just after the file decode."""
+    warm = VideoCodec(_cfg(frames=3, **extra), clip[:3], device=dev)  # one-time library / allocator set-up
+    warm.encode(compute_ssim=False, package=False)
+    for fn in counters.values():
+        fn.launches = 0
+    enc = VideoCodec(_cfg(**extra), clip, device=dev)
+    torch.cuda.synchronize()
+    pkg = enc.encode(package=False)  # ends in a device-to-host copy of the stats: synchronised
+    enc_s = pkg["timing"]["total_s"]
+    with tempfile.TemporaryDirectory() as d:
+        mv_f, res_f = Path(d) / "mv.txt", Path(d) / "res.txt"
+        t0 = time.perf_counter()
+        enc.transmit_bitstream(mv_f, res_f)
+        tx_s = time.perf_counter() - t0
+        dec = VideoCodec(_cfg(**extra), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = dec.decode_bitstream(mv_f, res_f)  # ends in a device-to-host copy
+        dec_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        t0 = time.perf_counter()
+        parsed = dec.parse_bitstream(mv_f, res_f)
+        parse_s = time.perf_counter() - t0
+        n_bytes = mv_f.stat().st_size + res_f.stat().st_size
+    recon = pkg["reconstructed frames"]
+    _require(frames.shape == recon.shape == (FRAMES, H, W) and frames.dtype == np.uint8, f"{label}: decoded shape")
+    _require(np.array_equal(frames, recon), f"{label}: decoded frames differ from the encoder's reconstructions")
+    psnr = np.asarray(pkg["PSNR per frame"])
+    _require(np.isfinite(psnr).all() and psnr.mean() > MIN_PSNR, f"{label}: PSNR {psnr}")
+    _require(pkg["frame_type_seq"] == [0 if i % INTRA_DUR == 0 else 1 for i in range(FRAMES)], f"{label}: types")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames2 = dec.decode(*parsed)  # in-memory decode of the parsed stream; ends in a device-to-host copy
+    dec_mem_s = time.perf_counter() - t0
+    _require(np.array_equal(frames2, recon), f"{label}: in-memory decode differs")
+    print(f"[{label}] 720p {FRAMES} frames ({N_INTER} inter): encode {FRAMES / enc_s:.2f} fps ({enc_s:.4f} s), "
+          f"text bitstream write {tx_s:.3f} s ({n_bytes} bytes), decode_bitstream {FRAMES / dec_s:.2f} fps "
+          f"({dec_s:.4f} s incl. parse; parse alone {parse_s:.3f} s), in-memory decode "
+          f"{FRAMES / dec_mem_s:.2f} fps ({dec_mem_s:.4f} s); decode == recon bit-exact; launches {launches}",
+          flush=True)
+    print(f"[{label}] mean PSNR {psnr.mean():.4f} dB, mean SSIM {np.mean(pkg['SSIM per frame']):.5f}, "
+          f"bits {sum(pkg['residual size per frame'])}", flush=True)
+    return {"launches": launches, "pkg": pkg}
+
+
 def main() -> None:
     # ---- phase 1: device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card (torch.cuda.is_available() is False)")
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(f"[device] {smi} | torch {torch.__version__} | cuda {torch.version.cuda}", flush=True)
+    smi = _smi("name,power.limit")
+    max_mhz = float(_smi("clocks.max.sm").split()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    cyc = max_mhz * 1e3  # SM cycles per ms at the maximum clock
+    int_ops_per_ms = n_sm * INT32_LANES_PER_SM * cyc
+    print(f"[device] {smi} | {n_sm} SMs, max SM clock {max_mhz:.0f} MHz | torch {torch.__version__} | "
+          f"cuda {torch.version.cuda}", flush=True)
 
     # ---- phase 2: build
     b = _build.build()
     _build.library()
-    print(f"[build] {b.seconds:.1f} s ({'cached' if b.cached else 'nvcc'}) {b.path.name}", flush=True)
+    print(f"[build] {b.seconds:.1f} s ({'cached' if b.cached else 'nvcc, one process per source'}) {b.path.name}",
+          flush=True)
     for line in b.log.splitlines():
         if "Used" in line or "spill" in line:
             print(f"[build] {line.strip()}", flush=True)
+    t0 = time.perf_counter()  # the host text serializer, built here so no timed phase pays for g++
+    serializer = "g++ library" if native.available() else "unavailable, the byte-identical Python twin runs"
+    print(f"[build] host text serializer: {serializer} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # ---- phase 3: each kernel against its plain version, on the card, at 720p
     clip = synthetic_clip(H, W, FRAMES)
@@ -98,30 +244,63 @@ def main() -> None:
         torch.cuda.synchronize()
         for k in ("mv", "sad", "ok", "pred"):
             _require(torch.equal(got[k], plain[k]), f"full_search {name}: {k} differs from the plain version")
-        err_a = max(err_a, _max_err(got, plain, ("mv", "sad", "pred")))
-    ms_a = _time_ms(lambda: K.full_search(cur, ref, SR, BS_), 50)
-    plain_ms_a = _time_ms(lambda: K.full_search_plain(cur, ref, SR, BS_), 5)
+        err_a = max(err_a, _max_err((got[k], plain[k]) for k in ("mv", "sad", "pred")))
+    ms_a, host_a = _time_ms(lambda: K.full_search(cur, ref, SR, BS_), 50, cyc)
+    plain_ms_a, _ = _time_ms(lambda: K.full_search_plain(cur, ref, SR, BS_), 5, cyc)
     print(f"[kernel] full_search 720p sr={SR}: bit-equal (tolerance 0) on {list(pairs)}; {ms_a:.4f} ms vs "
-          f"plain {plain_ms_a:.4f} ms", flush=True)
+          f"plain {plain_ms_a:.4f} ms (host enqueue {host_a:.4f} ms per call)", flush=True)
 
     rng = np.random.default_rng(0)
     nb = (H // BS_) * (W // BS_)
-    mv_adv = np.stack([rng.integers(-3 * SR, 3 * SR + 1, nb), rng.integers(-3 * SR, 3 * SR + 1, nb),
-                       np.zeros(nb, int)], 1).astype(np.int32)
-    mv_adv[:: W // BS_, 0] = -SR  # left column: windows leave the frame
-    mv_adv[-(W // BS_):, 1] = SR  # bottom row too
-    mv_adv[7] = (5000, -5000, 0)  # entirely outside
     mv_main = K.full_search(cur, ref, SR, BS_)["mv"]
     err_b = 0
-    for name, mv in (("adversarial", torch.from_numpy(mv_adv).to(dev)), ("search_winners", mv_main)):
+    for name, mv in (("adversarial", torch.from_numpy(_adversarial_mvs(rng, nb, 3 * SR)).to(dev)),
+                     ("search_winners", mv_main)):
         got, plain = K.pred_fetch(mv, ref, BS_), K.pred_fetch_plain(mv, ref, BS_)
         torch.cuda.synchronize()
         _require(torch.equal(got, plain), f"pred_fetch {name}: differs from the plain version")
-        err_b = max(err_b, _max_err({"p": got}, {"p": plain}, ("p",)))
-    ms_b = _time_ms(lambda: K.pred_fetch(mv_main, ref, BS_), 200)
-    plain_ms_b = _time_ms(lambda: K.pred_fetch_plain(mv_main, ref, BS_), 20)
+        err_b = max(err_b, _max_err([(got, plain)]))
+    ms_b, host_b = _time_ms(lambda: K.pred_fetch(mv_main, ref, BS_), 200, cyc)
+    plain_ms_b, _ = _time_ms(lambda: K.pred_fetch_plain(mv_main, ref, BS_), 20, cyc)
     print(f"[kernel] pred_fetch 720p: bit-equal (tolerance 0) on adversarial and search-winner MVs; "
-          f"{ms_b:.4f} ms vs plain {plain_ms_b:.4f} ms", flush=True)
+          f"{ms_b:.4f} ms vs plain {plain_ms_b:.4f} ms (host enqueue {host_b:.4f} ms per call)", flush=True)
+
+    # FME + VBS: the parity planes of each pair's reference, computed once
+    fme_pairs = {k: (c, M.fme_parity_planes(r, wrap_row_pass=True)) for k, (c, r) in pairs.items()}
+    planes = fme_pairs["clip"][1]
+    err_c = 0
+    fme_keys = ("mv", "sad", "ok", "sub_mv", "sub_sad", "sub_ok")
+    for name, (c, p) in fme_pairs.items():
+        got, plain = K.full_search_fme_vbs(c, p, SR, BS_), K.full_search_fme_vbs_plain(c, p, SR, BS_)
+        torch.cuda.synchronize()
+        for k in fme_keys:
+            _require(torch.equal(got[k], plain[k]), f"full_search_fme_vbs {name}: {k} differs from the plain version")
+        err_c = max(err_c, _max_err((got[k], plain[k]) for k in fme_keys))
+    ms_c, host_c = _time_ms(lambda: K.full_search_fme_vbs(cur, planes, SR, BS_), 50, cyc)
+    plain_ms_c, _ = _time_ms(lambda: K.full_search_fme_vbs_plain(cur, planes, SR, BS_), 5, cyc)
+    print(f"[kernel] full_search_fme_vbs 720p sr={SR} (grid +-{2 * SR}): bit-equal (tolerance 0) on "
+          f"{list(fme_pairs)}; {ms_c:.4f} ms vs plain {plain_ms_c:.4f} ms (host enqueue {host_c:.4f} ms per call)",
+          flush=True)
+
+    win = K.full_search_fme_vbs(cur, planes, SR, BS_)
+    adv = _adversarial_mvs(rng, nb, 6 * SR)
+    adv_q = np.stack([_adversarial_mvs(rng, nb, 6 * SR) for _ in range(4)], 1)
+    adv[11], adv_q[11, 3] = (1, 1, 0), (3, -1, 0)  # case A at odd displacements
+    adv[nb - 1] = (0, 0, 0)  # bottom-right block: case B
+    err_d = 0
+    fme_sets = (("adversarial_ABC", torch.from_numpy(adv).to(dev), torch.from_numpy(adv_q).to(dev)),
+                ("search_winners", win["mv"], win["sub_mv"]))
+    for name, mv, smv in fme_sets:
+        got, plain = K.pred_fetch_fme_vbs(mv, smv, planes, BS_), K.pred_fetch_fme_vbs_plain(mv, smv, planes, BS_)
+        torch.cuda.synchronize()
+        _require(torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1]),
+                 f"pred_fetch_fme_vbs {name}: differs from the plain version")
+        err_d = max(err_d, _max_err(zip(got, plain)))
+    ms_d, host_d = _time_ms(lambda: K.pred_fetch_fme_vbs(win["mv"], win["sub_mv"], planes, BS_), 200, cyc)
+    plain_ms_d, _ = _time_ms(lambda: K.pred_fetch_fme_vbs_plain(win["mv"], win["sub_mv"], planes, BS_), 20, cyc)
+    print(f"[kernel] pred_fetch_fme_vbs 720p: bit-equal (tolerance 0) on adversarial (cases A, B, C) and "
+          f"search-winner MVs; {ms_d:.4f} ms vs plain {plain_ms_d:.4f} ms (host enqueue {host_d:.4f} ms per call)",
+          flush=True)
 
     x = rng.integers(-255, 256, (nb, 16, 16)).astype(np.int32)
     x[0], x[1] = 255, -255
@@ -134,65 +313,40 @@ def main() -> None:
           flush=True)
 
     small = synthetic_clip(64, 96, 6, seed=3)
-    a = TorchCodec(_cfg(64, 96, 6), small, device=dev).encode(package=False)
-    b_ = TorchCodec(_cfg(64, 96, 6), small, device="cpu").encode(package=False)
-    _require(np.array_equal(a["reconstructed frames"], b_["reconstructed frames"]),
-             "small encode on the card differs from the CPU port")
-    print("[reference] 64x96 6-frame encode on the card equals the CPU port (held to the JAX engine by "
-          "the CPU tests)", flush=True)
+    for extra in ({}, VBS_FME):
+        a = TorchCodec(_cfg(64, 96, 6, **extra), small, device=dev).encode(package=False)
+        b_ = TorchCodec(_cfg(64, 96, 6, **extra), small, device="cpu").encode(package=False)
+        _require(np.array_equal(a["reconstructed frames"], b_["reconstructed frames"]),
+                 f"small encode {extra} on the card differs from the CPU port")
+    print("[reference] 64x96 6-frame encodes (whole-pel; VBS + FME) on the card equal the CPU port (held to the "
+          "JAX engine by the CPU tests)", flush=True)
 
-    # ---- phase 4: the main path
-    warm = VideoCodec(_cfg(frames=3), clip[:3], device=dev)  # one-time library / allocator set-up
-    warm.encode(compute_ssim=False, package=False)
-    K.full_search.launches = 0
-    K.pred_fetch.launches = 0
-    enc = VideoCodec(_cfg(), clip, device=dev)
-    torch.cuda.synchronize()
-    pkg = enc.encode(package=False)  # ends in a device-to-host copy of the stats: synchronised
-    enc_s = pkg["timing"]["total_s"]
-    with tempfile.TemporaryDirectory() as d:
-        mv_f, res_f = Path(d) / "mv.txt", Path(d) / "res.txt"
-        t0 = time.perf_counter()
-        enc.transmit_bitstream(mv_f, res_f)
-        tx_s = time.perf_counter() - t0
-        dec = VideoCodec(_cfg(), device=dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        frames = dec.decode_bitstream(mv_f, res_f)  # ends in a device-to-host copy
-        dec_s = time.perf_counter() - t0
-        launches = {"full_search": K.full_search.launches, "pred_fetch": K.pred_fetch.launches}
-        t0 = time.perf_counter()
-        parsed = dec.parse_bitstream(mv_f, res_f)
-        parse_s = time.perf_counter() - t0
-        mv_bytes, res_bytes = mv_f.stat().st_size, res_f.stat().st_size
-    recon = pkg["reconstructed frames"]
-    _require(frames.shape == recon.shape == (FRAMES, H, W) and frames.dtype == np.uint8, "decoded shape/dtype")
-    _require(np.array_equal(frames, recon), "decoded frames differ from the encoder's reconstructions")
-    _require(launches == {"full_search": N_INTER, "pred_fetch": N_INTER},
-             f"kernel launches in the main path {launches}, expected {N_INTER} each")
-    psnr = np.asarray(pkg["PSNR per frame"])
-    _require(np.isfinite(psnr).all() and psnr.mean() > MIN_PSNR, f"PSNR {psnr}")
-    _require(pkg["frame_type_seq"] == [0 if i % INTRA_DUR == 0 else 1 for i in range(FRAMES)], "frame types")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    frames2 = dec.decode(*parsed)  # in-memory decode of the parsed stream; ends in a device-to-host copy
-    dec_mem_s = time.perf_counter() - t0
-    _require(np.array_equal(frames2, recon), "in-memory decode differs")
-    print(f"[main] 720p {FRAMES} frames ({N_INTER} inter): encode {FRAMES / enc_s:.2f} fps ({enc_s:.4f} s), "
-          f"text bitstream write {tx_s:.3f} s ({mv_bytes + res_bytes} bytes), decode_bitstream "
-          f"{FRAMES / dec_s:.2f} fps ({dec_s:.4f} s incl. parse; parse alone {parse_s:.3f} s), in-memory "
-          f"decode {FRAMES / dec_mem_s:.2f} fps ({dec_mem_s:.4f} s); decode == recon bit-exact; "
-          f"launches {launches}", flush=True)
-    print(f"[main] mean PSNR {psnr.mean():.4f} dB, mean SSIM {np.mean(pkg['SSIM per frame']):.5f}, "
-          f"bits {sum(pkg['residual size per frame'])}", flush=True)
+    # ---- phase 4: the main paths, each with its own launch counts
+    whole = _drive("main", {}, clip, {"full_search": K.full_search, "pred_fetch": K.pred_fetch}, dev)
+    _require(whole["launches"] == {"full_search": N_INTER, "pred_fetch": N_INTER},
+             f"kernel launches in the main path {whole['launches']}, expected {N_INTER} each")
+    vf = _drive("main-vbs-fme", VBS_FME, clip,
+                {"full_search_fme_vbs": K.full_search_fme_vbs, "pred_fetch_fme_vbs": K.pred_fetch_fme_vbs}, dev)
+    # encode: one search and one winner fetch per inter frame; decode: one fetch
+    _require(vf["launches"] == {"full_search_fme_vbs": N_INTER, "pred_fetch_fme_vbs": 2 * N_INTER},
+             f"kernel launches in the VBS + FME path {vf['launches']}, expected {N_INTER} and {2 * N_INTER}")
+    n_split = sum(int(o["split"].sum()) for o in vf["pkg"]["per_frame"])
+    _require(n_split > 0, "the VBS + FME path split no block")
 
+    # ---- the kernels' line: this run's counts, errors, times and bounds
+    px = H * W
+    out_a = nb * (12 + 4 + 1) + 2 * px
+    out_c = nb * 5 * (12 + 4 + 1)
     kernels = [
-        {"name": "full_search", "route": "cuda", "source": "streamoptima_tpu_torch/csrc/full_search.cu",
-         "replaces": "streamoptima_tpu/core/me_pallas.py:213", "launches": launches["full_search"],
-         "max_abs_err": err_a, "ms": ms_a, "plain_ms": plain_ms_a},
-        {"name": "pred_fetch", "route": "cuda", "source": "streamoptima_tpu_torch/csrc/pred_fetch.cu",
-         "replaces": "streamoptima_tpu/core/me_pallas.py:1020", "launches": launches["pred_fetch"],
-         "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_ms_b},
+        _kernel_row("full_search", "full_search.cu", 213, whole["launches"]["full_search"], err_a, ms_a, plain_ms_a,
+                    2 * px + out_a, _search_ops(H, W, 1, False, dev), int_ops_per_ms),
+        _kernel_row("pred_fetch", "pred_fetch.cu", 1020, whole["launches"]["pred_fetch"], err_b, ms_b, plain_ms_b,
+                    nb * 12 + _fetch_bytes_read(mv_main, ref) + 2 * px, 0, int_ops_per_ms),
+        _kernel_row("full_search_fme_vbs", "full_search_fme.cu", 621, vf["launches"]["full_search_fme_vbs"], err_c,
+                    ms_c, plain_ms_c, px + planes.numel() + out_c, _search_ops(H, W, 1, True, dev), int_ops_per_ms),
+        _kernel_row("pred_fetch_fme_vbs", "pred_fetch.cu", 1020, vf["launches"]["pred_fetch_fme_vbs"], err_d, ms_d,
+                    plain_ms_d, nb * 5 * 12 + _fetch_bytes_read(win["mv"], planes, win["sub_mv"]) + 4 * px, 0,
+                    int_ops_per_ms),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 The kernels have a plain C interface and are bound with ``ctypes``: ``nvcc``
-compiles every source under ``csrc/`` into one shared library for
-``sm_90a`` at first use, into ``build/streamoptima_tpu_torch/`` beside the
+compiles every source under ``csrc/`` (one process per source, all started
+together) and links them into one shared library for ``sm_90a`` at first
+use, into ``build/streamoptima_tpu_torch/`` beside the
 package (git-ignored).  The library name carries a hash of the sources and
 flags, so an edited kernel is rebuilt and a stale one never loaded.  Nothing
 is built or loaded at import time; CPU-only use never reaches this module's
@@ -23,8 +24,8 @@ from typing import NamedTuple
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "streamoptima_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 
 class Build(NamedTuple):
@@ -64,13 +65,30 @@ def build() -> Build:
     if so.exists():
         return Build(so, time.perf_counter() - t0, True, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for src, obj in zip(_sources(), objs)]
+    try:
+        log = [p.communicate(timeout=900)[0] for p in procs]
+    finally:  # no compiler outlives a failed or timed-out build
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for src, p, out in zip(_sources(), procs, log):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} ({p.returncode}):\n{out}")
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    res = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+                          *map(str, objs)], capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
     os.replace(tmp, so)
-    return Build(so, time.perf_counter() - t0, False, res.stdout + res.stderr)
+    for obj in objs:
+        obj.unlink()
+    return Build(so, time.perf_counter() - t0, False, "".join(log) + res.stdout + res.stderr)
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,6 +98,8 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.so_full_search.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p]
     lib.so_full_search.restype = i
-    lib.so_pred_fetch.argtypes = [p, p, i, i, i, i, p, p]
+    lib.so_full_search_fme_vbs.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p, p, p]
+    lib.so_full_search_fme_vbs.restype = i
+    lib.so_pred_fetch.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
     lib.so_pred_fetch.restype = i
     return lib

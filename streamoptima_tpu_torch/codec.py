@@ -9,9 +9,9 @@ Counterpart of ``streamoptima_tpu.codec.VideoCodec`` for the main path::
     # or in two steps: decode(*parse_bitstream("mv.txt", "res.txt"))
     codec.save_decoded_frames("out.yuv")
 
-The bitstream is written through ``streamoptima_tpu.bitstream.write_bitstream``
-with the array-form interchange (byte-identical to the JAX engine's files);
-the binary container waits for a later port.
+The bitstream is written through ``bitstream.write_bitstream`` with the
+array-form interchange (byte-identical to the JAX engine's files); the
+binary container waits for a later port.
 """
 from __future__ import annotations
 
@@ -20,10 +20,10 @@ import time
 import numpy as np
 import torch
 
-from streamoptima_tpu import bitstream as BS
-from streamoptima_tpu import metrics
-from streamoptima_tpu.config import CodecConfig
-from streamoptima_tpu.io.video import VideoManager
+from streamoptima_tpu_torch import bitstream as BS
+from streamoptima_tpu_torch import metrics
+from streamoptima_tpu_torch.config import CodecConfig
+from streamoptima_tpu_torch.io.video import VideoManager
 from streamoptima_tpu_torch.engine import TorchCodec, check_slice, frame_arrays_of
 
 

@@ -1,23 +1,28 @@
-"""Wrappers of the two hand-written CUDA kernels of the main path.
+"""Wrappers of the hand-written CUDA kernels.
 
-``full_search``  -- whole-pel full search with the winner's pixels
-                    (csrc/full_search.cu; replaces me_pallas._plane_search
-                    via full_search_pallas).
-``pred_fetch``   -- decode prediction fetch (csrc/pred_fetch.cu; replaces
-                    me_pallas.pred_fetch_compact).
+``full_search``          -- whole-pel full search with the winner's pixels
+                            (csrc/full_search.cu; replaces me_pallas
+                            _plane_search via full_search_pallas).
+``full_search_fme_vbs``  -- half-pel full search with the VBS quads, MVs only
+                            (csrc/full_search_fme.cu; replaces _plane_search
+                            via full_search_pallas_fme, vbs=True).
+``pred_fetch``           -- whole-pel prediction fetch (csrc/pred_fetch.cu;
+                            replaces me_pallas.pred_fetch_compact).
+``pred_fetch_fme_vbs``   -- the same kernel in its FME mode with the quad
+                            plane, cases A, B and C.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take.  A tensor on the CPU goes to the kernel's plain
-PyTorch version (``full_search_plain`` / ``pred_fetch_plain``); a CUDA tensor
-launches the kernel or raises — there is no fallback.  Each wrapper counts
-its kernel launches in a plain integer attribute, ``<wrapper>.launches``.
+PyTorch version (``<wrapper>_plain``); a CUDA tensor launches the kernel or
+raises — there is no fallback.  Each wrapper counts its kernel launches in a
+plain integer attribute, ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
 import torch
 
 from streamoptima_tpu_torch.core import me as M
-from streamoptima_tpu_torch.core.blocks import unblockify
+from streamoptima_tpu_torch.core.blocks import unblockify, unquads_px
 from streamoptima_tpu_torch.core.pred import gather_predictions
 
 #: shared memory one block may use on Hopper (bytes)
@@ -33,9 +38,34 @@ def _check_plane(t: torch.Tensor, name: str, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_mv(mv: torch.Tensor, name: str, shape: tuple, device) -> None:
+    if mv.dtype != torch.int32 or tuple(mv.shape) != shape or not mv.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {shape} int32 tensor, got {mv.dtype} {tuple(mv.shape)}")
+    if mv.device != device:
+        raise ValueError(f"{name} and the reference planes must be on one device")
+
+
+def _check_search(cur: torch.Tensor, refs: torch.Tensor, nref: int, grid_sr: int, bs: int) -> None:
+    h, w = cur.shape
+    if refs.device != cur.device:
+        raise ValueError("cur and refs must be on one device")
+    if h % bs or w % bs:
+        raise ValueError(f"frame {h}x{w} is not a multiple of block size {bs}")
+    if not 1 <= nref <= 8:
+        raise ValueError("nref must be in [1, 8] (3-bit ref field of the tie-break key)")
+    if not 1 <= grid_sr <= 127:
+        raise ValueError("sr must put the grid range in [1, 127] (8-bit displacement fields of the tie-break key)")
+    if cur.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the search runs on cpu or cuda tensors, not {cur.device}")
+
+
 def _launch_check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 # ------------------------------------------------------------ full search
@@ -65,18 +95,9 @@ def full_search(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int) -> dict
     nref = refs.shape[0]
     if refs.shape[1:] != cur.shape:
         raise ValueError(f"refs {tuple(refs.shape)} do not match cur {tuple(cur.shape)}")
-    if refs.device != cur.device:
-        raise ValueError("cur and refs must be on one device")
-    if h % bs or w % bs:
-        raise ValueError(f"frame {h}x{w} is not a multiple of block size {bs}")
-    if not 1 <= nref <= 8:
-        raise ValueError("nref must be in [1, 8] (3-bit ref field of the tie-break key)")
-    if not 1 <= sr <= 127:
-        raise ValueError("sr must be in [1, 127] (8-bit displacement fields of the tie-break key)")
+    _check_search(cur, refs, nref, sr, bs)
     if cur.device.type == "cpu":
         return full_search_plain(cur, refs, sr, bs)
-    if cur.device.type != "cuda":
-        raise ValueError(f"full_search runs on cpu or cuda tensors, not {cur.device}")
     if bs * bs * 4 + (bs + 2 * sr) ** 2 > _SMEM_LIMIT:
         raise ValueError(f"bs={bs}, sr={sr}: the search window exceeds a block's shared memory")
     from streamoptima_tpu_torch._build import library
@@ -89,15 +110,71 @@ def full_search(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int) -> dict
     ok = torch.empty((nb,), dtype=torch.bool, device=dev)
     pred = torch.empty((h, w), dtype=torch.int16, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.so_full_search(cur.data_ptr(), refs.data_ptr(), nref, h, w, sr, bs, mv.data_ptr(),
-                                sad.data_ptr(), ok.data_ptr(), pred.data_ptr(), stream)
+                                sad.data_ptr(), ok.data_ptr(), pred.data_ptr(), _stream(dev))
     _launch_check(rc, "full_search")
     full_search.launches += 1
     return {"mv": mv, "sad": sad, "ok": ok, "pred": pred}
 
 
 full_search.launches = 0
+
+
+# ------------------------------------------------- FME + VBS full search
+def full_search_fme_vbs_plain(cur: torch.Tensor, planes: torch.Tensor, sr: int, bs: int) -> dict:
+    """Plain PyTorch version of the ``full_search_fme_vbs`` kernel (any
+    device): the stride-2 materialized search on the half-pel grid that the
+    parity planes interleave into."""
+    return M.full_search_materialized(cur, M.grid_of_planes(planes), 2 * sr, bs, fme=True, vbs=True)
+
+
+def full_search_fme_vbs(cur: torch.Tensor, planes: torch.Tensor, sr: int, bs: int) -> dict:
+    """Half-pel full search of ``cur`` (h, w) uint8 with VBS quads.
+
+    planes: (nref, 4, h, w) uint8, the parity planes of each reference
+    (``me.fme_parity_planes``).  Candidates span +-2sr on the half-pel grid.
+    Returns {"mv", "sad", "ok"} per block ((nb, 3) int32, (nb,) int32,
+    (nb,) bool) and {"sub_mv", "sub_sad", "sub_ok"} per quad ((nb, 4, 3),
+    (nb, 4), (nb, 4)) in Z order — the ``full_search_pallas_fme(vbs=True,
+    want_pred=False)`` contract.  No valid candidate: mv = (0, 0, 0),
+    sad = INT32_MAX, ok False.
+    """
+    _check_plane(cur, "cur", 2)
+    _check_plane(planes, "planes", 4)
+    h, w = cur.shape
+    nref = planes.shape[0]
+    if planes.shape[1:] != (4, h, w):
+        raise ValueError(f"planes {tuple(planes.shape)} are not (nref, 4, {h}, {w})")
+    if bs % 2:
+        raise ValueError(f"VBS needs an even block size, got {bs}")
+    _check_search(cur, planes, nref, 2 * sr, bs)
+    if cur.device.type == "cpu":
+        return full_search_fme_vbs_plain(cur, planes, sr, bs)
+    if bs * bs + 4 * ((bs + 2 * sr) ** 2 + 4) > _SMEM_LIMIT:
+        raise ValueError(f"bs={bs}, sr={sr}: the plane windows exceed a block's shared memory")
+    from streamoptima_tpu_torch._build import library
+
+    lib = library()
+    nb = (h // bs) * (w // bs)
+    dev = cur.device
+    out = {
+        "mv": torch.empty((nb, 3), dtype=torch.int32, device=dev),
+        "sad": torch.empty((nb,), dtype=torch.int32, device=dev),
+        "ok": torch.empty((nb,), dtype=torch.bool, device=dev),
+        "sub_mv": torch.empty((nb, 4, 3), dtype=torch.int32, device=dev),
+        "sub_sad": torch.empty((nb, 4), dtype=torch.int32, device=dev),
+        "sub_ok": torch.empty((nb, 4), dtype=torch.bool, device=dev),
+    }
+    with torch.cuda.device(dev):
+        rc = lib.so_full_search_fme_vbs(cur.data_ptr(), planes.data_ptr(), nref, h, w, sr, bs,
+                                        *(out[k].data_ptr() for k in ("mv", "sad", "ok", "sub_mv", "sub_sad",
+                                                                      "sub_ok")), _stream(dev))
+    _launch_check(rc, "full_search_fme_vbs")
+    full_search_fme_vbs.launches += 1
+    return out
+
+
+full_search_fme_vbs.launches = 0
 
 
 # ------------------------------------------------------------- pred fetch
@@ -108,8 +185,18 @@ def pred_fetch_plain(mv: torch.Tensor, refs: torch.Tensor, bs: int) -> torch.Ten
     return unblockify(gather_predictions(mv, refs, bx, by, bs), h, w).to(torch.int16)
 
 
+def _check_fetch(mv: torch.Tensor, refs: torch.Tensor, h: int, w: int, bs: int) -> int:
+    if h % bs or w % bs or mv.shape[0] != (h // bs) * (w // bs):
+        raise ValueError(f"mv has {mv.shape[0]} blocks; a {h}x{w} frame at bs={bs} has "
+                         f"{(h // bs) * (w // bs)}")
+    _check_mv(mv, "mv", (mv.shape[0], 3), refs.device)
+    if refs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"pred_fetch runs on cpu or cuda tensors, not {refs.device}")
+    return mv.shape[0]
+
+
 def pred_fetch(mv: torch.Tensor, refs: torch.Tensor, bs: int) -> torch.Tensor:
-    """Whole-pel prediction plane for transmitted MVs.
+    """Whole-pel prediction plane for given MVs.
 
     mv: (nb, 3) int32 [dx, dy, ref] in block raster order; refs: (nref, h, w)
     uint8.  Returns (h, w) int16: each block's window at (by + dy, bx + dx)
@@ -118,27 +205,70 @@ def pred_fetch(mv: torch.Tensor, refs: torch.Tensor, bs: int) -> torch.Tensor:
     """
     _check_plane(refs, "refs", 3)
     nref, h, w = refs.shape
-    if mv.dtype != torch.int32 or mv.dim() != 2 or mv.shape[1] != 3 or not mv.is_contiguous():
-        raise ValueError(f"mv must be a contiguous (nb, 3) int32 tensor, got {mv.dtype} {tuple(mv.shape)}")
-    if h % bs or w % bs or mv.shape[0] != (h // bs) * (w // bs):
-        raise ValueError(f"mv has {mv.shape[0]} blocks; a {h}x{w} frame at bs={bs} has "
-                         f"{(h // bs) * (w // bs)}")
-    if mv.device != refs.device:
-        raise ValueError("mv and refs must be on one device")
+    _check_fetch(mv, refs, h, w, bs)
     if refs.device.type == "cpu":
         return pred_fetch_plain(mv, refs, bs)
-    if refs.device.type != "cuda":
-        raise ValueError(f"pred_fetch runs on cpu or cuda tensors, not {refs.device}")
     from streamoptima_tpu_torch._build import library
 
     lib = library()
     pred = torch.empty((h, w), dtype=torch.int16, device=refs.device)
     with torch.cuda.device(refs.device):
-        stream = torch.cuda.current_stream(refs.device).cuda_stream
-        rc = lib.so_pred_fetch(mv.data_ptr(), refs.data_ptr(), nref, h, w, bs, pred.data_ptr(), stream)
+        rc = lib.so_pred_fetch(mv.data_ptr(), None, refs.data_ptr(), nref, h, w, bs, 0, pred.data_ptr(), None,
+                               _stream(refs.device))
     _launch_check(rc, "pred_fetch")
     pred_fetch.launches += 1
     return pred
 
 
 pred_fetch.launches = 0
+
+
+def pred_fetch_fme_vbs_plain(mv: torch.Tensor, sub_mv: torch.Tensor, planes: torch.Tensor,
+                             bs: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the ``pred_fetch`` kernel's FME + quads mode
+    (any device): ``pred.gather_predictions`` on the half-pel grid."""
+    h, w = planes.shape[-2:]
+    s = bs // 2
+    grid = M.grid_of_planes(planes)
+    bx, by = M.block_origins(h, w, bs, planes.device)
+    full = unblockify(gather_predictions(mv, grid, bx, by, bs, fme=True), h, w)
+    qx, qy = M.quad_origins(h, w, bs, planes.device)
+    quads = gather_predictions(sub_mv.reshape(-1, 3), grid, qx.reshape(-1), qy.reshape(-1), s, fme=True)
+    return full.to(torch.int16), unquads_px(quads.reshape(-1, 4, s, s), h, w).to(torch.int16)
+
+
+def pred_fetch_fme_vbs(mv: torch.Tensor, sub_mv: torch.Tensor, planes: torch.Tensor,
+                       bs: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Half-pel prediction planes for given block and quad MVs.
+
+    mv: (nb, 3), sub_mv: (nb, 4, 3) int32 [dx, dy, ref] on the half-pel grid
+    (quads in Z order); planes: (nref, 4, h, w) uint8 parity planes.
+    Returns (pred_full, pred_quads), both (h, w) int16 with each (sub)block's
+    prediction at its own position: case A (the stride-2 grid window), B
+    (128) or C (the stride-1 grid window, zero off the grid), per block and
+    per quad.  Reference indices must lie in [0, nref).
+    """
+    _check_plane(planes, "planes", 4)
+    nref, _, h, w = planes.shape
+    if planes.shape[1] != 4:
+        raise ValueError(f"planes {tuple(planes.shape)} are not (nref, 4, h, w)")
+    if bs % 2:
+        raise ValueError(f"VBS needs an even block size, got {bs}")
+    nb = _check_fetch(mv, planes, h, w, bs)
+    _check_mv(sub_mv, "sub_mv", (nb, 4, 3), planes.device)
+    if planes.device.type == "cpu":
+        return pred_fetch_fme_vbs_plain(mv, sub_mv, planes, bs)
+    from streamoptima_tpu_torch._build import library
+
+    lib = library()
+    pred = torch.empty((h, w), dtype=torch.int16, device=planes.device)
+    pred_q = torch.empty((h, w), dtype=torch.int16, device=planes.device)
+    with torch.cuda.device(planes.device):
+        rc = lib.so_pred_fetch(mv.data_ptr(), sub_mv.data_ptr(), planes.data_ptr(), nref, h, w, bs, 1,
+                               pred.data_ptr(), pred_q.data_ptr(), _stream(planes.device))
+    _launch_check(rc, "pred_fetch_fme_vbs")
+    pred_fetch_fme_vbs.launches += 1
+    return pred, pred_q
+
+
+pred_fetch_fme_vbs.launches = 0

@@ -3,15 +3,30 @@
 Twin of ``streamoptima_tpu.core.quant``: ``Q[x, y] = 2**(qp + band)`` with
 band 0 / 1 / 2 below / on / above the anti-diagonal, so quantization is a
 round-half-even arithmetic right shift and rescaling a left shift, both in
-pure integer ops (bit-identical on every device).
+pure integer ops (bit-identical on every device).  VBS quads are quantized
+at QP-1 (``qp_minus_1``).
 """
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
-from streamoptima_tpu.core.quant import q_exponent_matrix
+
+@functools.lru_cache(maxsize=None)
+def q_exponent_matrix(n: int) -> np.ndarray:
+    """Band exponents: 0 if x+y < n-1, 1 if == n-1, else 2 (Encoder.py:938-945)."""
+    i = np.add.outer(np.arange(n), np.arange(n))
+    return np.where(i < n - 1, 0, np.where(i == n - 1, 1, 2)).astype(np.int32)
+
+
+def qp_minus_1(qp):
+    """Sub-block QP: QP-1 floored at 0 (Q vs Qm1, Encoder.py:57-59, :71-76);
+    ``qp`` an int or an int tensor."""
+    if isinstance(qp, int):
+        return qp - 1 if qp > 0 else qp
+    return torch.where(qp > 0, qp - 1, qp)
 
 
 @functools.lru_cache(maxsize=None)

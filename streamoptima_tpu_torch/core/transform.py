@@ -24,8 +24,23 @@ import functools
 import numpy as np
 import torch
 
-from streamoptima_tpu.core.transform import dct_matrix_fixed
 from streamoptima_tpu_torch.core.quant import rhe_shift_right
+
+SCALE_BITS = 17
+
+
+def dct_matrix_f64(n: int) -> np.ndarray:
+    """Orthonormal DCT-II matrix, nearest-float64 entries (scipy convention)."""
+    i = np.arange(n)
+    d = np.cos(np.pi * (2 * i[None, :] + 1) * i[:, None] / (2 * n)) * np.sqrt(2.0 / n)
+    d[0, :] = np.sqrt(1.0 / n)
+    return d
+
+
+@functools.lru_cache(maxsize=None)
+def dct_matrix_fixed(n: int, scale_bits: int = SCALE_BITS) -> np.ndarray:
+    """Fixed-point DCT matrix ``A = round(D * 2**scale_bits)`` as int32."""
+    return np.round(dct_matrix_f64(n) * (1 << scale_bits)).astype(np.int32)
 
 
 @functools.lru_cache(maxsize=None)

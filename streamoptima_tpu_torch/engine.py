@@ -1,13 +1,21 @@
 """PyTorch engine: per-frame encode/decode steps on one device.
 
 ``TorchCodec`` is the counterpart of ``streamoptima_tpu.jax_engine.JaxCodec``
-for the main path: I/P frames (an intra frame every ``intra_dur``), whole-pel
-full search over one reference frame, mode-0 intra, no VBS / FME / fast ME /
-rate control.  On a CUDA device the inter search runs the ``full_search``
-kernel (which also returns the winner's pixels) and decode predicts through
-the ``pred_fetch`` kernel; on the CPU both take their plain PyTorch versions.
-Every value it produces is bit-identical to the JAX engine's on the same
-input and config (MVs, coefficients, sizes, reconstructions).
+for I/P frames (an intra frame every ``intra_dur``), full search over one
+reference frame and mode-0 intra, in two configurations:
+
+- whole-pel, no VBS: on a CUDA device the inter search runs the
+  ``full_search`` kernel (which also returns the winner's pixels) and decode
+  predicts through the ``pred_fetch`` kernel;
+- VBS + half-pel FME together: each reference's parity planes are computed
+  once per frame, the search runs the ``full_search_fme_vbs`` kernel (MVs
+  only) and both encode (on the winners) and decode (on the transmitted
+  MVs) predict through the ``pred_fetch_fme_vbs`` kernel, block and quad
+  planes in one launch.
+
+On the CPU every kernel takes its plain PyTorch version.  Every value it
+produces is bit-identical to the JAX engine's on the same input and config
+(MVs, split flags, coefficients, sizes, reconstructions).
 
 Configurations outside the slice raise ``NotImplementedError`` naming the
 feature; ``engine='compat'`` (the host reference engine) raises
@@ -18,14 +26,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from streamoptima_tpu.config import CodecConfig
 from streamoptima_tpu_torch import metrics
+from streamoptima_tpu_torch.bitstream import FrameMVArrays, FrameResArrays, widen_mvs
+from streamoptima_tpu_torch.config import CodecConfig
 from streamoptima_tpu_torch.core import intra as I
 from streamoptima_tpu_torch.core import kernels as K
 from streamoptima_tpu_torch.core import rd
-from streamoptima_tpu_torch.core.blocks import blockify, unblockify
+from streamoptima_tpu_torch.core.blocks import blockify, merge_quads, quads_px, split_quads, unblockify
+from streamoptima_tpu_torch.core.me import fme_parity_planes
 from streamoptima_tpu_torch.core.pred import wrap_uint8
-from streamoptima_tpu_torch.core.quant import rescale
+from streamoptima_tpu_torch.core.quant import qp_minus_1, rescale
 from streamoptima_tpu_torch.core.transform import idct2_int
 
 #: per-frame arrays that cross between this engine and the JAX engine
@@ -37,8 +47,9 @@ def check_slice(cfg: CodecConfig) -> None:
     if cfg.compat:
         raise ValueError("engine='compat' is the host reference engine; TorchCodec ports engine='jax'")
     unported = {
-        "vbs_enable": cfg.vbs_enable,
-        "fme_enable": cfg.fme_enable,
+        # the FME + VBS search kernel serves the two together only
+        "vbs_enable without fme_enable": cfg.vbs_enable and not cfg.fme_enable,
+        "fme_enable without vbs_enable": cfg.fme_enable and not cfg.vbs_enable,
         "fast_me": cfg.fast_me,
         "rc_flag": cfg.rc_active,
         "roi_qp_map": cfg.roi_qp_map is not None,
@@ -53,11 +64,12 @@ def check_slice(cfg: CodecConfig) -> None:
 
 
 class TorchCodec:
-    """PyTorch encoder/decoder for the main path, on an explicit ``device``."""
+    """PyTorch encoder/decoder for the ported slice, on an explicit ``device``."""
 
     def __init__(self, cfg: CodecConfig, y_frames=None, *, device):
         check_slice(cfg)
         self.cfg = cfg
+        self.vbs = cfg.vbs_enable  # VBS and FME come together (check_slice)
         self.device = torch.device(device)
         self.y = None if y_frames is None else np.asarray(y_frames, dtype=np.uint8)
         # the clip is uploaded once; frames are device slices
@@ -68,21 +80,46 @@ class TorchCodec:
         self.nbr, self.nbc = cfg.block_rows, cfg.blocks_per_row
         self.nb = self.nbr * self.nbc
         self.qps = torch.full((self.nb,), cfg.qp, dtype=torch.int32, device=self.device)
+        # non-border blocks may split (jax_engine.py:68-69)
+        border = torch.zeros((self.nbr, self.nbc), dtype=torch.bool, device=self.device)
+        border[0, :] = True
+        border[:, 0] = True
+        self.vbs_eligible = ~border.reshape(-1)
 
     # ------------------------------------------------------------ shared
     def _plane128(self) -> torch.Tensor:
         return torch.full((self.h, self.w), 128, dtype=torch.uint8, device=self.device)
 
-    def _dequant(self, qtc_full: torch.Tensor) -> torch.Tensor:
-        return idct2_int(rescale(qtc_full.to(torch.int32), self.qps))
+    def _planes(self, refs: list, initial: bool) -> torch.Tensor:
+        """Parity planes of the reference list (wrap quirk K17: no wrap only
+        for the synthetic all-128 initial reference)."""
+        return fme_parity_planes(torch.stack(refs), wrap_row_pass=not initial)
 
-    def _recon_inter(self, pred_full: torch.Tensor, qtc_full: torch.Tensor) -> torch.Tensor:
-        blocks = wrap_uint8(pred_full + self._dequant(qtc_full))
+    def _dequant(self, qtc_full: torch.Tensor, qtc_quads: torch.Tensor):
+        rf = idct2_int(rescale(qtc_full.to(torch.int32), self.qps))
+        if not self.vbs:
+            return rf, None
+        return rf, idct2_int(rescale(qtc_quads.to(torch.int32), qp_minus_1(self.qps)[:, None]))
+
+    def _select(self, res_full, res_quads, sad, sub_sad, ftype: int, ok=None, sub_ok=None):
+        return rd.transform_and_select(res_full, res_quads, sad, sub_sad, ftype, self.qps,
+                                       qp_nominal=int(self.cfg.qp), lam=self.cfg.lam, vbs_enable=self.vbs,
+                                       vbs_eligible=self.vbs_eligible, bs=self.bs, sbs=self.sbs,
+                                       ok_full=ok, ok_quads=sub_ok)
+
+    def _recon_inter(self, pred_full, pred_q, split, qtc_full, qtc_quads) -> torch.Tensor:
+        rf, rq = self._dequant(qtc_full, qtc_quads)
+        blocks = wrap_uint8(pred_full + rf)
+        if self.vbs:
+            quad_blocks = merge_quads(wrap_uint8(pred_q + rq))
+            blocks = torch.where(split[:, None, None], quad_blocks, blocks)
         return unblockify(blocks, self.h, self.w)
 
-    def _recon_intra(self, mv: torch.Tensor, qtc_full: torch.Tensor) -> torch.Tensor:
-        frame = I.intra_reconstruct_mode0(self._dequant(qtc_full), mv, self.h, self.w, self.bs,
-                                          self.cfg.search_range)
+    def _recon_intra(self, mv, split, sub_mv, qtc_full, qtc_quads) -> torch.Tensor:
+        rf, rq = self._dequant(qtc_full, qtc_quads)
+        # without VBS rq is None, and the split flags and sub-MVs go unread
+        frame = I.intra_reconstruct_mode0(rf, mv, self.h, self.w, self.bs, self.cfg.search_range,
+                                          residual_quads=rq, split=split, sub_mv=sub_mv)
         return wrap_uint8(frame)
 
     def _outputs(self, cur, mv, sub_mv, sel, recon) -> dict:
@@ -102,23 +139,38 @@ class TorchCodec:
     def _intra_step(self, cur: torch.Tensor) -> dict:
         cfg = self.cfg
         work = cur.to(torch.int32)
-        s = I.intra_search_mode0(work, self.bs, cfg.search_range, cfg.intra_canvas[1])
-        res_full = I.intra_residuals_mode0(work, s["mv"], self.bs, cfg.search_range)
-        sel = rd.transform_and_select(res_full, s["sad"].reshape(-1), self.qps, bs=self.bs, sbs=self.sbs)
+        s = I.intra_search_mode0(work, self.bs, cfg.search_range, cfg.intra_canvas[1], self.vbs)
+        sub_mv = s["sub_mv"] if self.vbs else None
+        res_full, res_quads = I.intra_residuals_mode0(work, s["mv"], self.bs, cfg.search_range, sub_mv)
+        sub_sad = s["sub_sad"].reshape(self.nb, 4) if self.vbs else None
+        sel = self._select(res_full, res_quads, s["sad"].reshape(-1), sub_sad, 0)
         mv = s["mv"].reshape(-1)
-        recon = self._recon_intra(mv, sel[1])
-        sub_mv = torch.zeros((self.nb, 4), dtype=torch.int32, device=self.device)
+        sub_mv = sub_mv.reshape(self.nb, 4) if self.vbs else torch.zeros((self.nb, 4), dtype=torch.int32,
+                                                                          device=self.device)
+        recon = self._recon_intra(mv, sel[0], sub_mv, sel[1], sel[2])
         return self._outputs(cur, mv, sub_mv, sel, recon)
 
-    def _inter_step(self, cur: torch.Tensor, refs: torch.Tensor) -> dict:
-        s = K.full_search(cur, refs, self.cfg.search_range, self.bs)
-        # blocks without a valid candidate take mv = (0, 0, 0) against 128s
-        pred_full = torch.where(s["ok"][:, None, None], blockify(s["pred"], self.bs).to(torch.int32), 128)
-        res_full = blockify(cur, self.bs).to(torch.int32) - pred_full
-        sel = rd.transform_and_select(res_full, s["sad"], self.qps, bs=self.bs, sbs=self.sbs, ok_full=s["ok"])
-        recon = self._recon_inter(pred_full, sel[1])
-        sub_mv = torch.zeros((self.nb, 4, 3), dtype=torch.int32, device=self.device)
-        return self._outputs(cur, s["mv"], sub_mv, sel, recon)
+    def _inter_step(self, cur: torch.Tensor, refs: list, initial: bool) -> dict:
+        cfg = self.cfg
+        cur_blocks = blockify(cur, self.bs).to(torch.int32)
+        if not self.vbs:
+            s = K.full_search(cur, torch.stack(refs), cfg.search_range, self.bs)
+            # blocks without a valid candidate take mv = (0, 0, 0) against 128s
+            pred_full = torch.where(s["ok"][:, None, None], blockify(s["pred"], self.bs).to(torch.int32), 128)
+            sel = self._select(cur_blocks - pred_full, None, s["sad"], None, 1, ok=s["ok"])
+            recon = self._recon_inter(pred_full, None, sel[0], sel[1], sel[2])
+            sub_mv = torch.zeros((self.nb, 4, 3), dtype=torch.int32, device=self.device)
+            return self._outputs(cur, s["mv"], sub_mv, sel, recon)
+        planes = self._planes(refs, initial)
+        s = K.full_search_fme_vbs(cur, planes, cfg.search_range, self.bs)
+        # the winners' pixels (case A wherever ok); no valid candidate: 128s
+        pf, pq = K.pred_fetch_fme_vbs(s["mv"], s["sub_mv"], planes, self.bs)
+        pred_full = torch.where(s["ok"][:, None, None], blockify(pf, self.bs).to(torch.int32), 128)
+        pred_q = torch.where(s["sub_ok"][:, :, None, None], quads_px(pq, self.bs).to(torch.int32), 128)
+        sel = self._select(cur_blocks - pred_full, split_quads(cur_blocks) - pred_q, s["sad"], s["sub_sad"], 1,
+                           ok=s["ok"], sub_ok=s["sub_ok"])
+        recon = self._recon_inter(pred_full, pred_q, sel[0], sel[1], sel[2])
+        return self._outputs(cur, s["mv"], s["sub_mv"], sel, recon)
 
     # ------------------------------------------------------------ encode
     def _encode_pass(self):
@@ -126,12 +178,13 @@ class TorchCodec:
         ftypes: list[int] = []
         per_frame: list[dict] = []
         refs = [self._plane128()]
+        initial = True
         for i in range(cfg.frames):
             cur = self._y_dev[i]
             if i % cfg.intra_dur == 0:
                 out, ftype = self._intra_step(cur), 0
             else:
-                out, ftype = self._inter_step(cur, torch.stack(refs)), 1
+                out, ftype = self._inter_step(cur, refs, initial), 1
             ftypes.append(ftype)
             per_frame.append(out)
             if i < cfg.frames - 1:
@@ -140,6 +193,7 @@ class TorchCodec:
                 if len(refs) >= cfg.n_ref_frames:
                     refs.pop(0)
                 refs.append(out["recon"])
+                initial = False
         return per_frame, ftypes
 
     def encode(self, package: bool = True) -> dict:
@@ -177,44 +231,59 @@ class TorchCodec:
         """Decode list- or array-form interchange (the bitstream readers'
         output) into a list of (h, w) uint8 device tensors."""
         cfg = self.cfg
-        n, nb, bs = len(frame_types), self.nb, self.bs
-        # host pass: pack the clip's MVs, split flags and full-block
-        # coefficients for one upload each
+        n, nb, bs, s = len(frame_types), self.nb, self.bs, self.sbs
+        # host pass: pack the clip's MVs, split flags and coefficients for
+        # one upload each.  A block is split or not, so its full-block and
+        # quad coefficients share one (bs, bs) payload slot.
         mv_all = np.zeros((n, nb, 3), np.int32)
+        smv_all = np.zeros((n, nb, 4, 3), np.int32)
         split_all = np.zeros((n, nb), bool)
-        qf_all = np.zeros((n, nb, bs, bs), np.int16)
+        pay_all = np.zeros((n, nb, bs, bs), np.int16)
         nref = 1  # length of the decoder's reference FIFO at frame i
         for i in range(n):
             ft = int(frame_types[i])
-            mv_np, split_np, _ = list_to_mvs_np(mvs_per_frame[i], ft, nb)
+            mv_np, split_np, smv_np = list_to_mvs_np(mvs_per_frame[i], ft, nb)
             if ft == 0:
                 mv_all[i, :, 0] = mv_np
+                smv_all[i, :, :, 0] = smv_np
             else:
-                refs_used = mv_np[:, 2]
+                refs_used = np.concatenate([mv_np[:, 2], smv_np[:, :, 2].reshape(-1)])
                 if refs_used.min(initial=0) < 0 or refs_used.max(initial=0) >= nref:
                     raise ValueError(f"corrupt stream: frame {i} references a frame outside "
                                      f"its {nref}-frame reference list")
                 mv_all[i] = mv_np
+                smv_all[i] = smv_np
             split_all[i] = split_np
-            qf_all[i] = list_to_res_np(residuals_per_frame[i], nb, bs, self.sbs)[0]
+            qf, qq = list_to_res_np(residuals_per_frame[i], nb, bs, s)
+            pay_all[i] = qf
+            if split_np.any():
+                merged = qq.reshape(nb, 2, 2, s, s).swapaxes(2, 3).reshape(nb, bs, bs)
+                pay_all[i][split_np] = merged[split_np]
             nref = 1 if ft == 0 else min(nref + 1, cfg.n_ref_frames)
-        d_mv, d_split, d_qf = (torch.from_numpy(a).to(self.device) for a in (mv_all, split_all, qf_all))
+        d_mv, d_split, d_pay = (torch.from_numpy(a).to(self.device) for a in (mv_all, split_all, pay_all))
+        d_smv = torch.from_numpy(smv_all).to(self.device) if self.vbs else None  # read only under VBS
 
         out = []
         refs = [self._plane128()]
+        initial = True
         for i in range(n):
-            qf = unpack_payload(d_split[i], d_qf[i])
+            qf, qq = unpack_payload(d_split[i], d_pay[i], self.vbs)
             if int(frame_types[i]) == 0:
-                f = self._recon_intra(d_mv[i, :, 0], qf)
+                f = self._recon_intra(d_mv[i, :, 0], d_split[i], d_smv[i, :, :, 0] if self.vbs else None, qf, qq)
                 refs = []
+            elif self.vbs:
+                pf, pq = K.pred_fetch_fme_vbs(d_mv[i], d_smv[i], self._planes(refs, initial), bs)
+                f = self._recon_inter(blockify(pf, bs).to(torch.int32), quads_px(pq, bs).to(torch.int32),
+                                      d_split[i], qf, qq)
             else:
                 pred = K.pred_fetch(d_mv[i], torch.stack(refs), bs)
-                f = self._recon_inter(blockify(pred, bs).to(torch.int32), qf)
+                f = self._recon_inter(blockify(pred, bs).to(torch.int32), None, d_split[i], qf, qq)
             out.append(f)
             if i < n - 1:
                 if len(refs) >= cfg.n_ref_frames:
                     refs.pop(0)
                 refs.append(f)
+                initial = False
         return out
 
 
@@ -223,18 +292,18 @@ def _np(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def unpack_payload(sp: torch.Tensor, qf: torch.Tensor) -> torch.Tensor:
-    """Decoded full-block coefficients -> qtc_full on the device: split
-    blocks read 0, as in the JAX ``_unpack_payload``.  The non-VBS recon
-    uses no quads, so their half of the unpack waits for VBS decode."""
-    return torch.where(sp[:, None, None], 0, qf)
+def unpack_payload(sp: torch.Tensor, pay: torch.Tensor, vbs: bool):
+    """Merged-coefficient payload -> (qtc_full, qtc_quads) on the device, as
+    the JAX ``_unpack_payload``: a split block's slot holds its merged quads,
+    an unsplit block's its full-block coefficients; the other half reads 0.
+    Without VBS the recon reads no quads, so that half is not built (None)."""
+    qf = torch.where(sp[:, None, None], 0, pay)
+    return qf, torch.where(sp[:, None, None, None], split_quads(pay), 0) if vbs else None
 
 
 def frame_arrays_of(out: dict, ftype: int):
     """One per-frame output -> the array interchange (bitstream.FrameMVArrays,
     FrameResArrays) that ``bitstream.write_bitstream`` serializes."""
-    from streamoptima_tpu.bitstream import FrameMVArrays, FrameResArrays, widen_mvs
-
     sp = _np(out["split"]).astype(bool)
     m3, s3 = widen_mvs(int(ftype), _np(out["mv"]), _np(out["sub_mv"]))
 
@@ -273,8 +342,6 @@ def res_to_list(out: dict, nb: int) -> list:
 def list_to_mvs_np(mvs_list, ftype: int, nb: int):
     """List- or array-form MVs -> numpy (mv, split, sub_mv); intra frames give
     (nb,) / (nb, 4) scalars, inter frames (nb, 3) / (nb, 4, 3) triples."""
-    from streamoptima_tpu.bitstream import FrameMVArrays
-
     if isinstance(mvs_list, FrameMVArrays):
         if ftype == 0:
             return mvs_list.mv[:, 0], mvs_list.split, mvs_list.smv[:, :, 0]
@@ -295,8 +362,6 @@ def list_to_mvs_np(mvs_list, ftype: int, nb: int):
 def list_to_res_np(res_list, nb: int, bs: int, sbs: int):
     """List- or array-form residuals -> numpy int16 (qtc_full, qtc_quads);
     values outside int16 (corrupt streams) raise OverflowError."""
-    from streamoptima_tpu.bitstream import FrameResArrays
-
     if isinstance(res_list, FrameResArrays):
         return res_list.qf, res_list.qq
     split = np.fromiter((sp for sp, _ in res_list), dtype=bool, count=nb)

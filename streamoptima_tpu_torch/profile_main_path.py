@@ -1,11 +1,12 @@
 """Where the 720p main path's time goes on one CUDA card.
 
-    python3 -m streamoptima_tpu_torch.profile_main_path [--frames 16] [--reps 20]
+    python3 -m streamoptima_tpu_torch.profile_main_path [--frames 16] [--reps 20] [--vbs-fme]
 
 Runs the ``chip_smoke.py`` configuration (720p IPPP, bs=16, sr=8, qp=4,
-intra_dur=8, one reference, whole-pel full search) on ``synthetic_clip``
-(seed 42) and prints, for one intra step, one inter step, a whole encode and
-a device decode of the same clip:
+intra_dur=8, one reference, whole-pel full search; with ``--vbs-fme`` its
+VBS + half-pel FME path instead) on ``synthetic_clip`` (seed 42) and prints,
+for one intra step, one inter step, a whole encode and a device decode of
+the same clip:
 
 - the host-clock median and quartiles of synchronised runs, without the
   profiler;
@@ -66,6 +67,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--reps", type=int, default=20, help="timed runs per step; whole runs take half")
+    ap.add_argument("--vbs-fme", action="store_true", help="the VBS + half-pel FME path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path: no CUDA card (torch.cuda.is_available() is False)")
@@ -75,17 +77,18 @@ def main() -> None:
 
     n = args.frames
     cfg = CodecConfig(height=720, width=1280, frames=n, block_size=16, search_range=8, qp=4, intra_dur=8,
-                      lam=0.015)
+                      lam=0.015, vbs_enable=args.vbs_fme, fme_enable=args.vbs_fme)
+    print(f"[config] 720p, {n} frames, {'VBS + half-pel FME' if args.vbs_fme else 'whole-pel'} full search")
     codec = TorchCodec(cfg, synthetic_clip(720, 1280, n), device=torch.device("cuda"))
     pkg = codec.encode(package=False)
     fts = pkg["frame_type_seq"]
     pairs = [frame_arrays_of(o, ft) for o, ft in zip(pkg["per_frame"], fts)]
     mvs, res = [m for m, _ in pairs], [r for _, r in pairs]
     y0, y1 = codec._y_dev[0], codec._y_dev[1]
-    refs = pkg["per_frame"][0]["recon"][None]
+    refs = [pkg["per_frame"][0]["recon"]]
 
     steps = (("intra step (1 frame)", lambda: codec._intra_step(y0), args.reps),
-             ("inter step (1 frame)", lambda: codec._inter_step(y1, refs), args.reps),
+             ("inter step (1 frame)", lambda: codec._inter_step(y1, refs, False), args.reps),
              (f"encode, {n} frames", lambda: codec.encode(package=False), max(args.reps // 2, 1)),
              (f"device decode, {n} frames", lambda: codec.decode(fts, res, [[]] * n, mvs), max(args.reps // 2, 1)))
     medians = {}

@@ -1,0 +1,128 @@
+"""PyTorch port, its own copies of the JAX package's JAX-free pieces.
+
+The port keeps copies of the configuration, text bitstream, host serializer,
+video I/O, synthetic clips and host SSIM so that it never imports the JAX
+package.  Each copy is held here against its original on the same seeded
+inputs: exact equality everywhere (the host SSIM runs the same float64
+numpy operations in the same order).
+"""
+import numpy as np
+import pytest
+
+from streamoptima_tpu import bitstream as JBS
+from streamoptima_tpu import config as JC
+from streamoptima_tpu import metrics as JM
+from streamoptima_tpu.core import zigzag as JZ
+from streamoptima_tpu.io.video import VideoManager as JVM
+from streamoptima_tpu.utils import synthetic_clip as jax_synthetic_clip
+from streamoptima_tpu_torch import bitstream as TBS
+from streamoptima_tpu_torch import config as TC
+from streamoptima_tpu_torch import metrics as TM
+from streamoptima_tpu_torch import synthetic_clip
+from streamoptima_tpu_torch.core import zigzag as TZ
+from streamoptima_tpu_torch.io.video import VideoManager as TVM
+
+
+@pytest.mark.parametrize("kw", [dict(seed=42), dict(seed=7, motion=1, smooth=False)])
+def test_synthetic_clip_matches_jax_package(kw):
+    np.testing.assert_array_equal(synthetic_clip(32, 48, 3, **kw), jax_synthetic_clip(32, 48, 3, **kw))
+
+
+def test_ssim_matches_jax_package():
+    rng = np.random.default_rng(0)
+    a = synthetic_clip(48, 64, 1, seed=1)[0]
+    b = np.clip(a.astype(np.int32) + rng.integers(-9, 10, a.shape), 0, 255).astype(np.uint8)
+    assert TM.ssim(a, b) == JM.ssim(a, b)
+    assert TM.ssim(a, a) == JM.ssim(a, a) == 1.0
+
+
+@pytest.mark.parametrize("numpy_repr", [False, True])
+@pytest.mark.parametrize("n", [8, 16])
+def test_rle_blocks_match_jax_package(n, numpy_repr):
+    rng = np.random.default_rng(n + numpy_repr)
+    for density in (0.0, 0.1, 0.6, 1.0):
+        block = np.where(rng.random((n, n)) < density, rng.integers(-300, 301, (n, n)), 0)
+        enc = TZ.rle_encode_block(block, numpy_repr)
+        assert enc == JZ.rle_encode_block(block, numpy_repr)
+        assert str(enc) == str(JZ.rle_encode_block(block, numpy_repr))  # the text the bitstream writes
+        np.testing.assert_array_equal(TZ.rle_decode_block(enc, n), block)
+        np.testing.assert_array_equal(TZ.rle_decode_block(enc, n), JZ.rle_decode_block(enc, n))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(height=64, width=96, frames=4),
+    dict(height=64, width=96, frames=4, vbs_enable=True, fme_enable=True, search_range=8),
+    dict(height=32, width=48, frames=2, rc_flag=1, target_br="2 mbps", qp_rate_tables=[[1.0] * 12] * 2),
+    dict(height=32, width=48, frames=2, engine="compat"),
+])
+def test_config_matches_jax_package(kw):
+    t, j = TC.CodecConfig(**kw), JC.CodecConfig(**kw)
+    for name in ("lam", "sub_block_size", "blocks_per_row", "block_rows", "n_blocks", "target_bitrate",
+                 "rc_active", "bitstream_numpy_repr", "compat"):
+        assert getattr(t, name) == getattr(j, name), name
+    if not t.compat:  # the compat engine's 288x352 intra canvas is not ported: the port refuses compat
+        assert t.intra_canvas == j.intra_canvas
+
+
+@pytest.mark.parametrize("kw", [
+    dict(height=60, width=96, frames=4),  # not a multiple of the block size
+    dict(height=64, width=96, frames=4, intra_mode=2),
+    dict(height=64, width=96, frames=4, n_ref_frames=9),
+    dict(height=64, width=96, frames=4, fme_enable=True, search_range=64),  # grid range 128 > 127
+    dict(height=64, width=96, frames=4, engine="cuda"),
+    dict(height=64, width=96, frames=4, two_pass=True),  # two-pass without rate control
+])
+def test_config_refuses_what_the_jax_package_refuses(kw):
+    with pytest.raises(ValueError):
+        JC.CodecConfig(**kw)
+    with pytest.raises(ValueError):
+        TC.CodecConfig(**kw)
+
+
+@pytest.mark.parametrize("ftype", [0, 1])
+def test_serializers_match_jax_package(ftype):
+    """The port's serializers (native fast path and Python twin) write the
+    JAX package's bytes for one frame's MV and residual lines."""
+    rng = np.random.default_rng(ftype)
+    nb, nbc = 24, 6
+    split = rng.random(nb) < 0.4
+    qf = np.where(rng.random((nb, 16, 16)) < 0.1, rng.integers(-40, 41, (nb, 16, 16)), 0).astype(np.int16)
+    qq = np.where(rng.random((nb, 4, 8, 8)) < 0.1, rng.integers(-40, 41, (nb, 4, 8, 8)), 0).astype(np.int16)
+    shape = (nb, 3) if ftype else (nb,)
+    mv = rng.integers(-16, 17, shape).astype(np.int32)
+    smv = rng.integers(-16, 17, (nb, 4) + shape[1:]).astype(np.int32)
+    if ftype:
+        mv[:, 2], smv[:, :, 2] = 0, 0
+    m3, s3 = TBS.widen_mvs(ftype, mv, smv)
+    jm3, js3 = JBS.widen_mvs(ftype, mv, smv)
+    np.testing.assert_array_equal(m3, jm3)
+    np.testing.assert_array_equal(s3, js3)
+    fm = TBS.FrameMVArrays(ftype, m3, split, s3)
+    mv_line = TBS._mv_line(ftype, fm, [], TC.CodecConfig(height=64, width=96, frames=1))
+    assert mv_line == TBS.encode_mv_frame(ftype, TBS.mv_arrays_to_list(fm), [], False, nbc)
+    assert mv_line == JBS.encode_mv_frame(ftype, JBS.mv_arrays_to_list(JBS.FrameMVArrays(ftype, m3, split, s3)),
+                                          [], False, nbc)
+    lists = [(1, [qq[i, q] for q in range(4)]) if split[i] else (0, qf[i]) for i in range(nb)]
+    res_line = TBS.encode_residual_frame_arrays(qf, qq, split, False)
+    assert res_line == TBS.encode_residual_frame(lists, 16, False) == JBS.encode_residual_frame(lists, 16, False)
+    ft, mvs, _ = TBS.decode_mv_frame(f"{ftype}|{mv_line}", False, nbc)
+    assert (ft, mvs) == JBS.decode_mv_frame(f"{ftype}|{mv_line}", False, nbc)[:2]
+    for (sa, a), (sb, b) in zip(TBS.decode_residual_frame(res_line, 16), JBS.decode_residual_frame(res_line, 16)):
+        assert sa == sb
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_roi_header_and_y_plane_io_match_jax_package(tmp_path):
+    roi = np.arange(24, dtype=np.int32) % 5 - 2
+    line = TBS.encode_roi_header(roi, 4, 6)
+    assert line == JBS.encode_roi_header(roi, 4, 6)
+    np.testing.assert_array_equal(TBS.decode_roi_header(line), JBS.decode_roi_header(line))
+    clip = synthetic_clip(32, 48, 3)
+    TVM.save_y_only(tmp_path / "t.y", clip)
+    JVM.save_y_only(tmp_path / "j.y", clip)
+    assert (tmp_path / "t.y").read_bytes() == (tmp_path / "j.y").read_bytes()
+    np.testing.assert_array_equal(TVM.read_y_only(tmp_path / "t.y", 32, 48, 3), clip)
+    yuv = np.random.default_rng(3).integers(0, 256, 3 * 32 * 48 * 3 // 2).astype(np.uint8)
+    yuv.tofile(tmp_path / "c.yuv")
+    np.testing.assert_array_equal(TVM.read_yuv420_y(tmp_path / "c.yuv", 32, 48, 3),
+                                  JVM.read_yuv420_y(tmp_path / "c.yuv", 32, 48, 3))

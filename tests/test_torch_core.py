@@ -139,20 +139,23 @@ def test_transform_and_select_non_vbs(with_invalid):
         1, jnp.asarray(qps), qp_nominal=4, lam=None, vbs_enable=False, vbs_eligible=None, bs=16, sbs=8,
         ok_full=None if ok is None else jnp.asarray(ok),
     )
-    got = TRD.transform_and_select(_t(res), _t(sad), _t(qps), bs=16, sbs=8,
+    got = TRD.transform_and_select(_t(res), None, _t(sad), None, 1, _t(qps), qp_nominal=4, lam=None,
+                                   vbs_enable=False, vbs_eligible=None, bs=16, sbs=8,
                                    ok_full=None if ok is None else _t(ok))
     for name, a, b in zip(("split", "qtc_full", "qtc_quads", "lens", "mae"), got, ref):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
 
 
 def test_transform_and_select_refuses_vbs():
-    with pytest.raises(NotImplementedError, match="vbs_enable"):
-        TRD.transform_and_select(torch.zeros((1, 16, 16), dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
-                                 4, bs=16, sbs=8, vbs_enable=True)
+    """VBS without the quad inputs is refused, not decided on half the data."""
+    with pytest.raises(ValueError, match="vbs_enable"):
+        TRD.transform_and_select(torch.zeros((1, 16, 16), dtype=torch.int32), None, torch.zeros(1, dtype=torch.int32),
+                                 None, 1, torch.full((1,), 4, dtype=torch.int32), qp_nominal=4, lam=0.015,
+                                 vbs_enable=True, vbs_eligible=torch.ones(1, dtype=torch.bool), bs=16, sbs=8)
 
 
 def _smooth_frame(h, w, seed):
-    from streamoptima_tpu.utils import synthetic_clip
+    from streamoptima_tpu_torch.utils import synthetic_clip
 
     return synthetic_clip(h, w, 1, seed=seed)[0]
 
@@ -167,7 +170,8 @@ def test_intra_search_and_residuals(h, w, sr):
     # the numpy path of the JAX package agrees too
     np.testing.assert_array_equal(got["sad"].numpy(), JI.intra_search_mode0(cur, 16, sr, w, False, np)["sad"])
     res_ref, _ = JI.intra_residuals_mode0(jnp.asarray(cur), ref["mv"], None, 16, jnp, sr=sr)
-    res = TI.intra_residuals_mode0(_t(cur), got["mv"], 16, sr)
+    res, quads = TI.intra_residuals_mode0(_t(cur), got["mv"], 16, sr)
+    assert quads is None
     np.testing.assert_array_equal(res.numpy(), np.asarray(res_ref))
 
 

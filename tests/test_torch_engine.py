@@ -5,6 +5,7 @@ bit for bit (MVs, coefficients, sizes, row bits, reconstructions and the
 text bitstream bytes), decode the JAX engine's streams and have its own
 decoded by it.  PSNR and MAE are float32 with reductions in another order:
 1e-4.  sr=8 runs the wavefront intra reconstruction, sr=16 the column scan.
+Each package's ``CodecConfig`` is built from one dict of keyword arguments.
 """
 import subprocess
 import sys
@@ -15,8 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from streamoptima_tpu import CodecConfig
-from streamoptima_tpu import bitstream as BS
+from streamoptima_tpu import CodecConfig as JaxCodecConfig
+from streamoptima_tpu_torch import bitstream as BS
+from streamoptima_tpu_torch import CodecConfig
 from streamoptima_tpu import jax_engine as JE
 from streamoptima_tpu.codec import VideoCodec as JaxVideoCodec
 from streamoptima_tpu.utils import synthetic_clip
@@ -29,8 +31,16 @@ REPO = Path(__file__).resolve().parent.parent
 H, W, FRAMES = 64, 96, 6
 
 
+def _kw(sr, **kw):
+    return dict(height=H, width=W, frames=FRAMES, search_range=sr, qp=4, intra_dur=4, **kw)
+
+
 def _cfg(sr, **kw):
-    return CodecConfig(height=H, width=W, frames=FRAMES, search_range=sr, qp=4, intra_dur=4, **kw)
+    return CodecConfig(**_kw(sr, **kw))
+
+
+def _jcfg(sr, **kw):
+    return JaxCodecConfig(**_kw(sr, **kw))
 
 
 @pytest.fixture(scope="module", params=[8, 16], ids=["sr8_wavefront", "sr16_select"])
@@ -39,7 +49,7 @@ def encoded(request, tmp_path_factory):
     sr = request.param
     clip = synthetic_clip(H, W, FRAMES, seed=sr)
     d = tmp_path_factory.mktemp(f"sr{sr}")
-    jv = JaxVideoCodec(_cfg(sr), clip)
+    jv = JaxVideoCodec(_jcfg(sr), clip)
     jpkg = jv.encode(compute_ssim=False, package=False)
     jv.transmit_bitstream(d / "jmv.txt", d / "jres.txt")
     tv = VideoCodec(_cfg(sr), clip, device="cpu")
@@ -78,7 +88,7 @@ def test_port_decodes_jax_bitstream(encoded):
 
 def test_jax_decodes_port_bitstream(encoded):
     d = encoded["dir"]
-    dec = JaxVideoCodec(_cfg(encoded["sr"])).decode_bitstream(d / "tmv.txt", d / "tres.txt")
+    dec = JaxVideoCodec(_jcfg(encoded["sr"])).decode_bitstream(d / "tmv.txt", d / "tres.txt")
     np.testing.assert_array_equal(dec, encoded["tpkg"]["reconstructed frames"])
 
 
@@ -94,7 +104,7 @@ def test_cross_decode_in_memory_per_frame_state(encoded):
 
     tstate = TE.to_numpy_per_frame(encoded["tpkg"]["per_frame"])
     jpairs = [JE.frame_arrays_of(o, ft) for o, ft in zip(tstate, fts)]
-    jdec = JE.JaxCodec(cfg).decode(fts, [r for _, r in jpairs], [[]] * FRAMES, [m for m, _ in jpairs])
+    jdec = JE.JaxCodec(_jcfg(encoded["sr"])).decode(fts, [r for _, r in jpairs], [[]] * FRAMES, [m for m, _ in jpairs])
     np.testing.assert_array_equal(np.stack([np.asarray(f) for f in jdec]), encoded["tpkg"]["reconstructed frames"])
 
 
@@ -122,6 +132,9 @@ def test_list_package_roundtrip_and_files(encoded, tmp_path):
     ({"intra_mode": 1}, "intra_mode=1"),
     ({"parallel_mode": 1}, "parallel_mode"),
     ({"n_ref_frames": 2}, "n_ref_frames"),
+    ({"fast_me": True, "vbs_enable": True, "fme_enable": True}, "fast_me"),
+    ({"n_ref_frames": 2, "vbs_enable": True, "fme_enable": True}, "n_ref_frames"),
+    ({"parallel_mode": 2, "vbs_enable": True, "fme_enable": True}, "parallel_mode"),
 ])
 def test_unported_features_raise_by_name(kw, feature):
     with pytest.raises(NotImplementedError, match=feature):
@@ -156,19 +169,23 @@ def test_corrupt_reference_index_rejected_before_launch(encoded):
 
 def test_port_runs_without_importing_jax(tmp_path):
     """A fresh interpreter (not a fork of this JAX process) drives the port's
-    encode -> text bitstream -> decode and never imports jax."""
+    encode -> text bitstream -> decode, whole-pel and VBS + FME, and never
+    imports jax or the JAX package."""
     code = textwrap.dedent(f"""
         import sys
         import numpy as np
         from streamoptima_tpu_torch import CodecConfig, VideoCodec, synthetic_clip
         import streamoptima_tpu_torch.profile_main_path
-        cfg = CodecConfig(height=32, width=48, frames=3, search_range=4, qp=4, intra_dur=2)
-        v = VideoCodec(cfg, synthetic_clip(32, 48, 3), device="cpu")
-        pkg = v.encode(package=False)
-        v.transmit_bitstream(r"{tmp_path / 'mv.txt'}", r"{tmp_path / 'res.txt'}")
-        dec = VideoCodec(cfg, device="cpu").decode_bitstream(r"{tmp_path / 'mv.txt'}", r"{tmp_path / 'res.txt'}")
-        assert np.array_equal(dec, pkg["reconstructed frames"])
-        assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+        for extra in ({{}}, {{"vbs_enable": True, "fme_enable": True}}):
+            cfg = CodecConfig(height=32, width=48, frames=3, search_range=4, qp=4, intra_dur=2, **extra)
+            v = VideoCodec(cfg, synthetic_clip(32, 48, 3), device="cpu")
+            pkg = v.encode(package=False)
+            v.transmit_bitstream(r"{tmp_path / 'mv.txt'}", r"{tmp_path / 'res.txt'}")
+            dec = VideoCodec(cfg, device="cpu").decode_bitstream(r"{tmp_path / 'mv.txt'}",
+                                                                 r"{tmp_path / 'res.txt'}")
+            assert np.array_equal(dec, pkg["reconstructed frames"])
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "streamoptima_tpu"))
+        assert not bad, bad
         print("OK")
     """)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)

@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from streamoptima_tpu import CodecConfig
-from streamoptima_tpu.utils import synthetic_clip
+from streamoptima_tpu_torch import CodecConfig, synthetic_clip
 from streamoptima_tpu_torch.core import kernels as K
+from streamoptima_tpu_torch.core import me as M
 from streamoptima_tpu_torch.core import transform as T
 from streamoptima_tpu_torch.engine import TorchCodec
 
@@ -95,4 +95,72 @@ def test_engine_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(a["reconstructed frames"], b["reconstructed frames"])
     for fa, fb in zip(a["per_frame"], b["per_frame"]):
         for k in ("mv", "qtc_full", "size"):
+            assert torch.equal(fa[k].cpu(), fb[k]), k
+
+
+# ------------------------------------------------------- VBS + FME modes
+def _planes_on(cuda, rng, h, w, nref, wrap=True):
+    refs = torch.from_numpy(rng.integers(0, 256, (nref, h, w), dtype=np.uint8)).to(cuda)
+    return M.fme_parity_planes(refs, wrap)
+
+
+def _fme_search_equal(a, b):
+    for k in ("mv", "sad", "ok", "sub_mv", "sub_sad", "sub_ok"):
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("h,w,sr,nref,wrap", [(48, 64, 4, 1, True), (64, 96, 8, 2, False), (96, 128, 8, 1, True),
+                                              (64, 64, 20, 3, True)])
+def test_fme_vbs_search_kernel_matches_plain(cuda, h, w, sr, nref, wrap):
+    rng = np.random.default_rng(h * sr + nref)
+    cur = torch.from_numpy(rng.integers(0, 256, (h, w), dtype=np.uint8)).to(cuda)
+    planes = _planes_on(cuda, rng, h, w, nref, wrap)
+    n0 = K.full_search_fme_vbs.launches
+    got = K.full_search_fme_vbs(cur, planes, sr, 16)
+    torch.cuda.synchronize()
+    assert K.full_search_fme_vbs.launches == n0 + 1
+    _fme_search_equal(got, K.full_search_fme_vbs_plain(cur, planes, sr, 16))
+
+
+@pytest.mark.parametrize("case", ["flat", "black_vs_white", "two_refs_tie"])
+def test_fme_vbs_search_kernel_ties_and_no_candidate(cuda, case):
+    h, w = 48, 64
+    fill = {"flat": (90, (90, 90)), "black_vs_white": (0, (255, 255)), "two_refs_tie": (10, (12, 8))}[case]
+    cur = torch.full((h, w), fill[0], dtype=torch.uint8, device=cuda)
+    refs = torch.stack([torch.full((h, w), v, dtype=torch.uint8, device=cuda) for v in fill[1]])
+    planes = M.fme_parity_planes(refs, True)
+    got = K.full_search_fme_vbs(cur, planes, 4, 16)
+    _fme_search_equal(got, K.full_search_fme_vbs_plain(cur, planes, 4, 16))
+    assert not bool(got["ok"].all())
+
+
+@pytest.mark.parametrize("bound", [16, 60, 5000])
+def test_fme_quad_fetch_kernel_matches_plain(cuda, bound):
+    """Cases A, B and C per block and per quad, MVs far past 2sr too."""
+    rng = np.random.default_rng(bound)
+    h, w, nref = 64, 96, 2
+    nb = (h // 16) * (w // 16)
+    planes = _planes_on(cuda, rng, h, w, nref)
+    mv = np.stack([rng.integers(-bound, bound + 1, nb), rng.integers(-bound, bound + 1, nb),
+                   rng.integers(0, nref, nb)], 1).astype(np.int32)
+    smv = np.stack([rng.integers(-bound, bound + 1, (nb, 4)), rng.integers(-bound, bound + 1, (nb, 4)),
+                    rng.integers(0, nref, (nb, 4))], 2).astype(np.int32)
+    mv, smv = torch.from_numpy(mv).to(cuda), torch.from_numpy(smv).to(cuda)
+    n0 = K.pred_fetch_fme_vbs.launches
+    got = K.pred_fetch_fme_vbs(mv, smv, planes, 16)
+    torch.cuda.synchronize()
+    assert K.pred_fetch_fme_vbs.launches == n0 + 1
+    plain = K.pred_fetch_fme_vbs_plain(mv, smv, planes, 16)
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+
+
+def test_engine_vbs_fme_on_card_matches_cpu(cuda):
+    cfg = CodecConfig(height=64, width=96, frames=5, search_range=8, qp=4, intra_dur=4, vbs_enable=True,
+                      fme_enable=True)
+    clip = synthetic_clip(64, 96, 5)
+    a = TorchCodec(cfg, clip, device=cuda).encode(package=False)
+    b = TorchCodec(cfg, clip, device="cpu").encode(package=False)
+    np.testing.assert_array_equal(a["reconstructed frames"], b["reconstructed frames"])
+    for fa, fb in zip(a["per_frame"], b["per_frame"]):
+        for k in ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "size"):
             assert torch.equal(fa[k].cpu(), fb[k]), k
