@@ -4,14 +4,22 @@
 
 Builds the port's CUDA kernels from ``streamoptima_tpu_torch/csrc``, holds
 each kernel, in each of its modes, against its plain PyTorch version on the
-card at the 720p shapes, then drives two paths through the ``VideoCodec``
+card at the 720p shapes, then drives four paths through the ``VideoCodec``
 facade, each encode 16 frames (2 GOPs) -> text bitstream -> decode,
 bit-exact, with every inter frame going through the path's kernels:
 
 - ``[main]``: the config ``bench.py`` runs (720p IPPP, bs=16, sr=8, qp=4,
   intra_dur=8, one reference, whole-pel full search);
 - ``[main-vbs-fme]``: the same with variable block size and half-pel FME
-  (``benchmarks/sweep.py``'s ``720p_vbs_fme``, lam=0.015).
+  (``benchmarks/sweep.py``'s ``720p_vbs_fme``, lam=0.015);
+- ``[main-fast-vbs-fme]``: fast ME with VBS and FME at sr=16
+  (``benchmarks/sweep.py``'s ``720p_fast_me_vbs_fme``, the JAX package's
+  default tool set): every inter frame solves its MVP chain with the
+  ``rowscan_pass`` kernel and confirms through ``window_fetch``;
+- ``[main-fast]``: fast ME whole-pel, no VBS (``720p_fast_me``).
+
+All four run 16 frames; should the run outgrow its time, the two
+full-search paths are the ones to cut to 8 frames first.
 
 Every comparison is exact (tolerance 0): the codec's arithmetic is integer.
 Prints one line per phase, then the kernels' JSON line, the card's name and
@@ -24,8 +32,11 @@ same work: the larger of the bytes it must move over the memory rate
 (3.35 TB/s, the H100 SXM data sheet) and its operations over the integer
 rate (SMs x 64 INT32 lanes x the maximum SM clock ``nvidia-smi`` reports),
 counting one operation per pixel abs-diff-accumulate of each candidate the
-inputs make valid.  No single PyTorch call computes any of these functions,
-so ``library_ms`` is null throughout.
+inputs make valid.  ``window_fetch``'s plain version is one PyTorch indexing
+read of the padded planes, so its time is also that row's ``library_ms``; no
+single PyTorch call computes any of the other functions, and theirs is null.
+The two fast-ME rows carry the whole-pel mode's numbers under
+``whole_pel_*`` keys beside the FME mode's.
 """
 from __future__ import annotations
 
@@ -40,9 +51,11 @@ import torch
 
 from streamoptima_tpu_torch import CodecConfig, _build, native, synthetic_clip
 from streamoptima_tpu_torch.codec import VideoCodec
+from streamoptima_tpu_torch.core import fastme as FM
 from streamoptima_tpu_torch.core import kernels as K
 from streamoptima_tpu_torch.core import me as M
 from streamoptima_tpu_torch.core import transform as T
+from streamoptima_tpu_torch.core.blocks import blockify
 from streamoptima_tpu_torch.core.pred import gather_predictions
 from streamoptima_tpu_torch.engine import TorchCodec
 
@@ -53,11 +66,14 @@ MIN_PSNR = 30.0  # qp=4 on the smooth synthetic clip sits near 35 dB
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
 INT32_LANES_PER_SM = 64
 VBS_FME = {"vbs_enable": True, "fme_enable": True}
+FAST = {"fast_me": True, "search_range": 16}
+FAST_VBS_FME = {**FAST, **VBS_FME}
 
 
 def _cfg(h=H, w=W, frames=FRAMES, **kw) -> CodecConfig:
-    return CodecConfig(height=h, width=w, frames=frames, block_size=BS_, search_range=SR, qp=QP,
-                       intra_dur=INTRA_DUR, lam=0.015, **kw)
+    kw.setdefault("search_range", SR)
+    return CodecConfig(height=h, width=w, frames=frames, block_size=BS_, qp=QP, intra_dur=INTRA_DUR, lam=0.015,
+                       **kw)
 
 
 def _time_ms(fn, reps: int, cycles_per_ms: float) -> tuple[float, float]:
@@ -139,11 +155,27 @@ def _fetch_bytes_read(mv, refs, sub_mv=None) -> int:
     return int(torch.unique(got[got >= base]).numel())
 
 
-def _kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops, int_ops_per_ms) -> dict:
+def _kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops, int_ops_per_ms,
+                library_ms=None) -> dict:
     bound_ms, bound_by = _bound(nbytes, ops, int_ops_per_ms)
     return {"name": name, "route": "cuda", "source": f"streamoptima_tpu_torch/csrc/{source}",
             "replaces": f"streamoptima_tpu/core/me_pallas.py:{replaces}", "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def _chain_ops(g, nref: int, fme: bool, dev) -> int:
+    """Abs-diff-accumulates one pass needs at MVPs ``g``: every pixel of
+    every candidate the K7 bounds make valid."""
+    bx, by = M.block_origins(H, W, BS_, dev)
+    scale, dims = (2, (2 * H - 1, 2 * W - 1)) if fme else (1, (H, W))
+    return int(FM.cand_valid(g, scale * bx, scale * by, BS_, dims).sum()) * BS_ * BS_ * nref
+
+
+def _window_bytes_read(flat, by0, bx0, nwin: int) -> int:
+    """Distinct plane bytes these windows hold (the zero fill reads none)."""
+    idx = torch.arange(1, flat.numel() + 1, device=flat.device, dtype=torch.int64).reshape(flat.shape)
+    got = FM.window_fetch_plain(idx, by0, bx0, nwin).reshape(-1)
+    return int(torch.unique(got[got > 0]).numel())
 
 
 def _adversarial_mvs(rng, nb: int, bound: int) -> np.ndarray:
@@ -302,6 +334,60 @@ def main() -> None:
           f"search-winner MVs; {ms_d:.4f} ms vs plain {plain_ms_d:.4f} ms (host enqueue {host_d:.4f} ms per call)",
           flush=True)
 
+    # fast ME: the chain pass and the region gather, FME (the planes above) and whole-pel (the references)
+    S = H // BS_
+    wild = rng.integers(-9, 10, (S, 3)).astype(np.int32)
+    wild[:, 2] = 0
+    wild[1], wild[2], wild[3] = (-3, -5, 0), (5001, -4001, 0), (-2 * W - 1, 2 * H + 1, 0)
+    chain = {}  # mode -> converged seeds, MVPs and confirm origins on the clip, with the kernels' times
+    for fme, sets in ((True, fme_pairs), (False, pairs)):
+        mode = "FME" if fme else "whole-pel"
+        solver = TorchCodec(_cfg(**(FAST_VBS_FME if fme else FAST)), device=dev)
+        err_e = 0
+        for name, (c, p) in sets.items():
+            # a cold solve by the engine: the converged MVPs, and the seeds they hold (each row's first)
+            g_fin = solver._fast_search_rowscan(c, blockify(c, BS_).to(torch.int32), p, None)["g_next"]
+            conv_seeds = g_fin.reshape(S, W // BS_, 3)[:, 0].contiguous()
+            if name == "clip":
+                chain[fme] = {"seeds": conv_seeds, "g": g_fin, "passes": solver.fast_me_passes[-1]}
+            for sname, seeds in (("zero", torch.zeros_like(conv_seeds)), ("random", torch.from_numpy(wild).to(dev)),
+                                 ("converged", conv_seeds)):
+                got, plain = K.rowscan_pass(c, p, seeds, BS_, fme), K.rowscan_pass_plain(c, p, seeds, BS_, fme)
+                torch.cuda.synchronize()
+                _require(torch.equal(got, plain), f"rowscan_pass {mode} {name} {sname} seeds: differs from the plain "
+                                                  f"version")
+                err_e = max(err_e, _max_err([(got, plain)]))
+        c, p = sets["clip"]
+        ch = chain[fme]
+        ch["err"] = err_e
+        ch["ms"], host_e = _time_ms(lambda: K.rowscan_pass(c, p, ch["seeds"], BS_, fme), 50, cyc)
+        ch["plain_ms"], _ = _time_ms(lambda: K.rowscan_pass_plain(c, p, ch["seeds"], BS_, fme), 3, cyc)
+        print(f"[kernel] rowscan_pass 720p {mode} (S={S}, L={W // BS_}): bit-equal (tolerance 0) on {list(sets)} "
+              f"from zero, random and converged seeds; {ch['ms']:.4f} ms vs plain {ch['plain_ms']:.4f} ms (host "
+              f"enqueue {host_e:.4f} ms per call); a cold start on the clip converges in {ch['passes']} passes",
+              flush=True)
+
+        flat = p.reshape(-1, H, W)
+        ch["flat"] = flat
+        ch["by0"], ch["bx0"] = FM.region_base(ch["g"], solver.by, solver.bx, fme)  # the confirm pass's origins
+        adv_y = rng.integers(-40, H + 40, nb).astype(np.int32)
+        adv_x = rng.integers(-40, W + 40, nb).astype(np.int32)
+        adv_y[:6] = (-5, H - 3, 7, 9, -(10**6), 2**30)  # straddling each edge, odd, far outside
+        adv_x[:6] = (11, 13, -7, W - 5, 10**6, -(2**30))
+        err_f = 0
+        for name, by0, bx0 in (("adversarial", torch.from_numpy(adv_y).to(dev), torch.from_numpy(adv_x).to(dev)),
+                               ("confirm_origins", ch["by0"], ch["bx0"])):
+            got, plain = K.window_fetch(flat, by0, bx0, BS_ + 2), K.window_fetch_plain(flat, by0, bx0, BS_ + 2)
+            torch.cuda.synchronize()
+            _require(torch.equal(got, plain), f"window_fetch {mode} {name}: differs from the plain version")
+            err_f = max(err_f, _max_err([(got, plain)]))
+        ch["werr"] = err_f
+        ch["wms"], host_f = _time_ms(lambda: K.window_fetch(flat, ch["by0"], ch["bx0"], BS_ + 2), 200, cyc)
+        ch["wplain_ms"], _ = _time_ms(lambda: K.window_fetch_plain(flat, ch["by0"], ch["bx0"], BS_ + 2), 20, cyc)
+        print(f"[kernel] window_fetch 720p {mode} ({nb}, {flat.shape[0]}, {BS_ + 2}, {BS_ + 2}): bit-equal (tolerance "
+              f"0) on adversarial and converged confirm origins; {ch['wms']:.4f} ms vs plain (one indexing read) "
+              f"{ch['wplain_ms']:.4f} ms (host enqueue {host_f:.4f} ms per call)", flush=True)
+
     x = rng.integers(-255, 256, (nb, 16, 16)).astype(np.int32)
     x[0], x[1] = 255, -255
     t = rng.integers(-12288, 12289, (nb, 16, 16)).astype(np.int32)
@@ -313,13 +399,14 @@ def main() -> None:
           flush=True)
 
     small = synthetic_clip(64, 96, 6, seed=3)
-    for extra in ({}, VBS_FME):
+    for extra in ({}, VBS_FME, FAST, FAST_VBS_FME):
         a = TorchCodec(_cfg(64, 96, 6, **extra), small, device=dev).encode(package=False)
         b_ = TorchCodec(_cfg(64, 96, 6, **extra), small, device="cpu").encode(package=False)
         _require(np.array_equal(a["reconstructed frames"], b_["reconstructed frames"]),
                  f"small encode {extra} on the card differs from the CPU port")
-    print("[reference] 64x96 6-frame encodes (whole-pel; VBS + FME) on the card equal the CPU port (held to the "
-          "JAX engine by the CPU tests)", flush=True)
+        _require(a.get("fast_me_passes") == b_.get("fast_me_passes"), f"small encode {extra}: passes per frame differ")
+    print("[reference] 64x96 6-frame encodes (whole-pel; VBS + FME; fast ME whole-pel; fast ME + VBS + FME) on the "
+          "card equal the CPU port (held to the JAX engine by the CPU tests)", flush=True)
 
     # ---- phase 4: the main paths, each with its own launch counts
     whole = _drive("main", {}, clip, {"full_search": K.full_search, "pred_fetch": K.pred_fetch}, dev)
@@ -332,6 +419,21 @@ def main() -> None:
              f"kernel launches in the VBS + FME path {vf['launches']}, expected {N_INTER} and {2 * N_INTER}")
     n_split = sum(int(o["split"].sum()) for o in vf["pkg"]["per_frame"])
     _require(n_split > 0, "the VBS + FME path split no block")
+    fast = {}
+    for label, extra, fetch in (("main-fast-vbs-fme", FAST_VBS_FME, "pred_fetch_fme_vbs"),
+                                ("main-fast", FAST, "pred_fetch")):
+        run = _drive(label, extra, clip, {"rowscan_pass": K.rowscan_pass, "window_fetch": K.window_fetch,
+                                          fetch: getattr(K, fetch)}, dev)
+        passes = run["pkg"]["fast_me_passes"]
+        # encode: the chain's passes, one confirm read and one winner fetch per inter frame; decode: one fetch
+        _require(len(passes) == N_INTER and min(passes) >= 1, f"{label}: passes per inter frame {passes}")
+        _require(run["launches"] == {"rowscan_pass": sum(passes), "window_fetch": N_INTER, fetch: 2 * N_INTER},
+                 f"kernel launches in the {label} path {run['launches']}, expected {sum(passes)} passes, {N_INTER} "
+                 f"confirm reads and {2 * N_INTER} fetches")
+        print(f"[{label}] rowscan_pass passes per inter frame {passes}", flush=True)
+        fast[label] = run
+    n_split = sum(int(o["split"].sum()) for o in fast["main-fast-vbs-fme"]["pkg"]["per_frame"])
+    _require(n_split > 0, "the fast-ME VBS + FME path split no block")
 
     # ---- the kernels' line: this run's counts, errors, times and bounds
     px = H * W
@@ -348,6 +450,22 @@ def main() -> None:
                     plain_ms_d, nb * 5 * 12 + _fetch_bytes_read(win["mv"], planes, win["sub_mv"]) + 4 * px, 0,
                     int_ops_per_ms),
     ]
+    # the two fast-ME kernels: the FME mode's numbers, the whole-pel mode's under whole_pel_* keys
+    rows = {}
+    for fme, label in ((True, "main-fast-vbs-fme"), (False, "main-fast")):
+        ch, launches = chain[fme], fast[label]["launches"]
+        flat = ch["flat"]
+        rows[fme] = (
+            _kernel_row("rowscan_pass", "rowscan_pass.cu", 1443, launches["rowscan_pass"], ch["err"], ch["ms"],
+                        ch["plain_ms"], px + flat.numel() + 2 * S * 12 + nb * 12,
+                        _chain_ops(ch["g"], 1, fme, dev), int_ops_per_ms),
+            _kernel_row("window_fetch", "window_fetch.cu", 1267, launches["window_fetch"], ch["werr"], ch["wms"],
+                        ch["wplain_ms"], _window_bytes_read(flat, ch["by0"], ch["bx0"], BS_ + 2) + nb * 8
+                        + nb * flat.shape[0] * (BS_ + 2) ** 2, 0, int_ops_per_ms, library_ms=ch["wplain_ms"]))
+    for row, wp in zip(rows[True], rows[False]):
+        row.update({f"whole_pel_{k}": wp[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                      "bound_by", "library_ms")})
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -102,4 +102,8 @@ def library() -> ctypes.CDLL:
     lib.so_full_search_fme_vbs.restype = i
     lib.so_pred_fetch.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
     lib.so_pred_fetch.restype = i
+    lib.so_window_fetch.argtypes = [p, p, p, i, i, i, i, i, i, p, p]
+    lib.so_window_fetch.restype = i
+    lib.so_rowscan_pass.argtypes = [p, p, p, i, i, i, i, i, p, p]
+    lib.so_rowscan_pass.restype = i
     return lib

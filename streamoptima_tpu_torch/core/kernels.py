@@ -10,6 +10,12 @@
                             replaces me_pallas.pred_fetch_compact).
 ``pred_fetch_fme_vbs``   -- the same kernel in its FME mode with the quad
                             plane, cases A, B and C.
+``window_fetch``         -- the fast-ME region gather at any origin
+                            (csrc/window_fetch.cu; replaces
+                            me_pallas.window_fetch with window_prep).
+``rowscan_pass``         -- one sweep pass of the fast-ME MVP chain, whole-pel
+                            or FME (csrc/rowscan_pass.cu; replaces
+                            me_pallas.rowscan_pass with pass_prep).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take.  A tensor on the CPU goes to the kernel's plain
@@ -22,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from streamoptima_tpu_torch.core import me as M
+from streamoptima_tpu_torch.core.fastme import rowscan_pass_plain, window_fetch_plain
 from streamoptima_tpu_torch.core.blocks import unblockify, unquads_px
 from streamoptima_tpu_torch.core.pred import gather_predictions
 
@@ -272,3 +279,93 @@ def pred_fetch_fme_vbs(mv: torch.Tensor, sub_mv: torch.Tensor, planes: torch.Ten
 
 
 pred_fetch_fme_vbs.launches = 0
+
+
+# ------------------------------------------------------------ window fetch
+def window_fetch(planes: torch.Tensor, by0: torch.Tensor, bx0: torch.Tensor, nwin: int,
+                 nwin_c: int | None = None) -> torch.Tensor:
+    """``out[b, p, i, j] = planes[p, by0[b] + i, bx0[b] + j]``, zero outside
+    the plane (a window partly outside is partly zero).
+
+    planes: (P, H, W) uint8; by0, bx0: (nb,) int32 origins of any value.
+    Returns (nb, P, nwin, nwin_c) uint8 (``nwin_c`` defaults to ``nwin``):
+    plane values are pixels or ceil-averages of pixels, so uint8 holds them;
+    the TPU kernel it replaces returns int32.  The plain version is
+    ``window_fetch_plain``.
+    """
+    _check_plane(planes, "planes", 3)
+    nc = nwin if nwin_c is None else nwin_c
+    if nwin < 1 or nc < 1:
+        raise ValueError(f"window extents must be positive, got {nwin} x {nc}")
+    nb = by0.shape[0]
+    _check_mv(by0, "by0", (nb,), planes.device)
+    _check_mv(bx0, "bx0", (nb,), planes.device)
+    if planes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"window_fetch runs on cpu or cuda tensors, not {planes.device}")
+    if planes.device.type == "cpu":
+        return window_fetch_plain(planes, by0, bx0, nwin, nc)
+    from streamoptima_tpu_torch._build import library
+
+    lib = library()
+    P, H, W = planes.shape
+    out = torch.empty((nb, P, nwin, nc), dtype=torch.uint8, device=planes.device)
+    with torch.cuda.device(planes.device):
+        rc = lib.so_window_fetch(planes.data_ptr(), by0.data_ptr(), bx0.data_ptr(), nb, P, H, W, nwin, nc,
+                                 out.data_ptr(), _stream(planes.device))
+    _launch_check(rc, "window_fetch")
+    window_fetch.launches += 1
+    return out
+
+
+window_fetch.launches = 0
+
+
+# ------------------------------------------------------------ rowscan pass
+def rowscan_pass(cur: torch.Tensor, planes: torch.Tensor, seeds: torch.Tensor, bs: int, fme: bool) -> torch.Tensor:
+    """One sweep pass of the fast-ME MVP chain over every block row.
+
+    cur: (h, w) uint8; planes: (nref, 4, h, w) uint8 parity planes
+    (``me.fme_parity_planes``) under ``fme``, else the (nref, h, w) uint8
+    references; seeds: (S, 3) int32 [gx, gy, gref], the guessed MVP of each
+    block row's first block (S = h / bs).  Returns (S, L, 3) int32, L = w / bs:
+    ``mv[s, j]`` is the 3x3 fast-ME winner of block (s, j) around
+    ``mv[s, j - 1]`` (``seeds[s]`` for j = 0), on the half-pel grid under
+    ``fme``.  Rows are independent within a pass; the caller iterates the
+    seeds.  The TPU kernel it replaces also returns its fetched windows for
+    the confirm pass; here that pass reads through ``window_fetch``.  The
+    plain version is ``rowscan_pass_plain``.
+    """
+    _check_plane(cur, "cur", 2)
+    _check_plane(planes, "planes", 4 if fme else 3)
+    h, w = cur.shape
+    nref = planes.shape[0]
+    want = (nref, 4, h, w) if fme else (nref, h, w)
+    if tuple(planes.shape) != want:
+        raise ValueError(f"planes {tuple(planes.shape)} are not {want}")
+    if h % bs or w % bs:
+        raise ValueError(f"frame {h}x{w} is not a multiple of block size {bs}")
+    if nref < 1:
+        raise ValueError("rowscan_pass needs at least one reference")
+    _check_mv(seeds, "seeds", (h // bs, 3), cur.device)
+    if planes.device != cur.device:
+        raise ValueError("cur and planes must be on one device")
+    if cur.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"rowscan_pass runs on cpu or cuda tensors, not {cur.device}")
+    if cur.device.type == "cpu":
+        return rowscan_pass_plain(cur, planes, seeds, bs, fme)
+    # shared memory without opt-in: the sums, the block, the plane regions
+    if (9 * nref + 4) * 4 + bs * bs + nref * (4 if fme else 1) * (bs + 2) ** 2 > 48 * 1024:
+        raise ValueError(f"bs={bs}, nref={nref}: the candidate regions exceed 48 KB of shared memory")
+    from streamoptima_tpu_torch._build import library
+
+    lib = library()
+    mvs = torch.empty((h // bs, w // bs, 3), dtype=torch.int32, device=cur.device)
+    with torch.cuda.device(cur.device):
+        rc = lib.so_rowscan_pass(cur.data_ptr(), planes.data_ptr(), seeds.data_ptr(), nref, h, w, bs, int(fme),
+                                 mvs.data_ptr(), _stream(cur.device))
+    _launch_check(rc, "rowscan_pass")
+    rowscan_pass.launches += 1
+    return mvs
+
+
+rowscan_pass.launches = 0

@@ -1,8 +1,8 @@
 """PyTorch engine: per-frame encode/decode steps on one device.
 
 ``TorchCodec`` is the counterpart of ``streamoptima_tpu.jax_engine.JaxCodec``
-for I/P frames (an intra frame every ``intra_dur``), full search over one
-reference frame and mode-0 intra, in two configurations:
+for I/P frames (an intra frame every ``intra_dur``), one reference frame and
+mode-0 intra.  The full search runs in two configurations:
 
 - whole-pel, no VBS: on a CUDA device the inter search runs the
   ``full_search`` kernel (which also returns the winner's pixels) and decode
@@ -12,6 +12,17 @@ reference frame and mode-0 intra, in two configurations:
   only) and both encode (on the winners) and decode (on the transmitted
   MVs) predict through the ``pred_fetch_fme_vbs`` kernel, block and quad
   planes in one launch.
+
+Fast ME (``fast_me``: a 3x3 search around the previous block's MV, chained
+in raster order) runs in the same two configurations.  The chain is solved
+per block row: the ``rowscan_pass`` kernel walks every row exactly from a
+guessed seed MV, and the seeds (each row's is the last MV of the row above)
+are iterated until they stop changing, starting from the previous frame's.
+One confirm pass at the converged MVPs then reads every block's candidate
+region through the ``window_fetch`` kernel and derives the block and quad
+winners (``core/fastme.py``); the winners' pixels come from the same
+``pred_fetch`` / ``pred_fetch_fme_vbs`` kernels.  Decode is the same as for
+the full search: a fast-ME stream is an ordinary MV stream.
 
 On the CPU every kernel takes its plain PyTorch version.  Every value it
 produces is bit-identical to the JAX engine's on the same input and config
@@ -29,11 +40,12 @@ import torch
 from streamoptima_tpu_torch import metrics
 from streamoptima_tpu_torch.bitstream import FrameMVArrays, FrameResArrays, widen_mvs
 from streamoptima_tpu_torch.config import CodecConfig
+from streamoptima_tpu_torch.core import fastme as FM
 from streamoptima_tpu_torch.core import intra as I
 from streamoptima_tpu_torch.core import kernels as K
 from streamoptima_tpu_torch.core import rd
 from streamoptima_tpu_torch.core.blocks import blockify, merge_quads, quads_px, split_quads, unblockify
-from streamoptima_tpu_torch.core.me import fme_parity_planes
+from streamoptima_tpu_torch.core.me import block_origins, fme_parity_planes
 from streamoptima_tpu_torch.core.pred import wrap_uint8
 from streamoptima_tpu_torch.core.quant import qp_minus_1, rescale
 from streamoptima_tpu_torch.core.transform import idct2_int
@@ -47,10 +59,11 @@ def check_slice(cfg: CodecConfig) -> None:
     if cfg.compat:
         raise ValueError("engine='compat' is the host reference engine; TorchCodec ports engine='jax'")
     unported = {
-        # the FME + VBS search kernel serves the two together only
+        # the FME + VBS search kernel serves the two together only, and
+        # fast ME is ported with both or with neither
+        "fast_me with exactly one of vbs_enable and fme_enable": cfg.fast_me and cfg.vbs_enable != cfg.fme_enable,
         "vbs_enable without fme_enable": cfg.vbs_enable and not cfg.fme_enable,
         "fme_enable without vbs_enable": cfg.fme_enable and not cfg.vbs_enable,
-        "fast_me": cfg.fast_me,
         "rc_flag": cfg.rc_active,
         "roi_qp_map": cfg.roi_qp_map is not None,
         "two_pass": cfg.two_pass,
@@ -85,6 +98,10 @@ class TorchCodec:
         border[0, :] = True
         border[:, 0] = True
         self.vbs_eligible = ~border.reshape(-1)
+        bx, by = block_origins(self.h, self.w, self.bs, self.device)
+        self.bx, self.by = bx.to(torch.int32), by.to(torch.int32)
+        #: fast ME: ``rowscan_pass`` launches of each inter frame of the last encode
+        self.fast_me_passes: list[int] = []
 
     # ------------------------------------------------------------ shared
     def _plane128(self) -> torch.Tensor:
@@ -150,9 +167,60 @@ class TorchCodec:
         recon = self._recon_intra(mv, sel[0], sub_mv, sel[1], sel[2])
         return self._outputs(cur, mv, sub_mv, sel, recon)
 
-    def _inter_step(self, cur: torch.Tensor, refs: list, initial: bool) -> dict:
+    def _fast_search_rowscan(self, cur: torch.Tensor, cur_blocks: torch.Tensor, planes: torch.Tensor,
+                             g0: torch.Tensor | None) -> dict:
+        """The fast-ME chain of one frame (``JaxCodec._fast_search_rowscan``).
+
+        Each pass solves every block row exactly from its seed; the next
+        seeds are the rows' last MVs shifted down one row (row 0: zero).  The
+        chain's solution is the one fixpoint of that map, so any start gives
+        it; ``g0`` (the previous frame's converged MVPs) only saves passes.
+        Testing convergence reads one flag back per pass.  planes: the
+        parity planes (nref, 4, h, w) under FME, else the references."""
+        fme = self.vbs  # FME comes with VBS (check_slice)
+        S, L, n = self.nbr, self.nbc, self.bs
+        zero = torch.zeros((1, 3), dtype=torch.int32, device=self.device)
+        seeds = zero.expand(S, 3).contiguous() if g0 is None else g0.reshape(S, L, 3)[:, 0].contiguous()
+        passes, changed = 0, True
+        while changed and passes <= S + 1:
+            mvs = K.rowscan_pass(cur, planes, seeds, n, fme)
+            passes += 1
+            nxt = torch.cat([zero, mvs[:-1, -1]])
+            changed = not torch.equal(nxt, seeds)
+            seeds = nxt
+        self.fast_me_passes.append(passes)
+        # at the fixpoint the confirm pass at the MVPs re-derives the same MVs
+        g = torch.cat([zero, mvs.reshape(self.nb, 3)[:-1]])
+        by0, bx0 = FM.region_base(g, self.by, self.bx, fme)
+        win = K.window_fetch(planes.reshape(-1, self.h, self.w), by0, bx0, n + 2)
+        scale = 2 if fme else 1
+        dims = (2 * self.h - 1, 2 * self.w - 1) if fme else (self.h, self.w)
+        out = FM.confirm(win, cur_blocks, g, scale * self.bx, scale * self.by, n, dims, fme, self.vbs)
+        out["g_next"] = g
+        return out
+
+    def _inter_step(self, cur: torch.Tensor, refs: list, initial: bool, g0: torch.Tensor | None = None) -> dict:
         cfg = self.cfg
         cur_blocks = blockify(cur, self.bs).to(torch.int32)
+        if cfg.fast_me:
+            planes = self._planes(refs, initial) if self.vbs else torch.stack(refs)
+            s = self._fast_search_rowscan(cur, cur_blocks, planes, g0)
+            # a block without a valid candidate keeps its MVP as MV (K8) and is
+            # predicted at that MV like any other: no 128 mask here
+            if self.vbs:
+                pf, pq = K.pred_fetch_fme_vbs(s["mv"], s["sub_mv"], planes, self.bs)
+                pred_full, pred_q = blockify(pf, self.bs).to(torch.int32), quads_px(pq, self.bs).to(torch.int32)
+                sel = self._select(cur_blocks - pred_full, split_quads(cur_blocks) - pred_q, s["sad"], s["sub_sad"],
+                                   1, ok=s["ok"], sub_ok=s["sub_ok"])
+                sub_mv = s["sub_mv"]
+            else:
+                pred_full, pred_q = blockify(K.pred_fetch(s["mv"], planes, self.bs), self.bs).to(torch.int32), None
+                sel = self._select(cur_blocks - pred_full, None, s["sad"], None, 1, ok=s["ok"])
+                sub_mv = torch.zeros((self.nb, 4, 3), dtype=torch.int32, device=self.device)
+            recon = self._recon_inter(pred_full, pred_q, sel[0], sel[1], sel[2])
+            out = self._outputs(cur, s["mv"], sub_mv, sel, recon)
+            out["g_next"] = s["g_next"]
+            return out
         if not self.vbs:
             s = K.full_search(cur, torch.stack(refs), cfg.search_range, self.bs)
             # blocks without a valid candidate take mv = (0, 0, 0) against 128s
@@ -179,12 +247,15 @@ class TorchCodec:
         per_frame: list[dict] = []
         refs = [self._plane128()]
         initial = True
+        self.fast_me_passes = []
+        g_carry = None  # fast ME: the last inter frame's converged MVPs warm-start the next
         for i in range(cfg.frames):
             cur = self._y_dev[i]
             if i % cfg.intra_dur == 0:
                 out, ftype = self._intra_step(cur), 0
             else:
-                out, ftype = self._inter_step(cur, refs, initial), 1
+                out, ftype = self._inter_step(cur, refs, initial, g_carry), 1
+                g_carry = out.pop("g_next", None)
             ftypes.append(ftype)
             per_frame.append(out)
             if i < cfg.frames - 1:
@@ -219,6 +290,8 @@ class TorchCodec:
             "residual size per frame": [int(v) for v in sizes],
             "reconstructed frames": torch.stack([o["recon"] for o in per_frame]).cpu().numpy(),
         }
+        if cfg.fast_me:
+            pkg["fast_me_passes"] = list(self.fast_me_passes)
         if package:
             pkg["MVS per Frame"] = [mvs_to_list(o, ft, self.nb) for o, ft in zip(per_frame, ftypes)]
             pkg["approx residual"] = [res_to_list(o, self.nb) for o in per_frame]

@@ -1,18 +1,23 @@
 """Where the 720p main path's time goes on one CUDA card.
 
-    python3 -m streamoptima_tpu_torch.profile_main_path [--frames 16] [--reps 20] [--vbs-fme]
+    python3 -m streamoptima_tpu_torch.profile_main_path [--frames 16] [--reps 20] [--vbs-fme] [--fast]
 
 Runs the ``chip_smoke.py`` configuration (720p IPPP, bs=16, sr=8, qp=4,
 intra_dur=8, one reference, whole-pel full search; with ``--vbs-fme`` its
-VBS + half-pel FME path instead) on ``synthetic_clip`` (seed 42) and prints,
-for one intra step, one inter step, a whole encode and a device decode of
-the same clip:
+VBS + half-pel FME path instead; with ``--fast`` fast ME at sr=16, whole-pel
+or, with both flags, with VBS + FME) on ``synthetic_clip`` (seed 42) and
+prints, for one intra step, one inter step, a whole encode and a device
+decode of the same clip:
 
 - the host-clock median and quartiles of synchronised runs, without the
   profiler;
 - from one ``torch.profiler`` run each: the device busy time (the sum of
   device-side events: kernels and copies), the number of device ops, the idle
   share (1 - busy / unprofiled median) and the ten largest device ops.
+
+Under ``--fast`` the inter step is timed warm-started from its own converged
+MVPs, as every inter frame after a clip's first runs, and the passes per
+inter frame of the encode are printed.
 
 Writes nothing but standard output.  Needs a CUDA card.
 """
@@ -68,6 +73,7 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--reps", type=int, default=20, help="timed runs per step; whole runs take half")
     ap.add_argument("--vbs-fme", action="store_true", help="the VBS + half-pel FME path")
+    ap.add_argument("--fast", action="store_true", help="fast ME at sr=16 instead of the full search at sr=8")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path: no CUDA card (torch.cuda.is_available() is False)")
@@ -76,9 +82,10 @@ def main() -> None:
     print(f"[device] {smi} | torch {torch.__version__} | cuda {torch.version.cuda}")
 
     n = args.frames
-    cfg = CodecConfig(height=720, width=1280, frames=n, block_size=16, search_range=8, qp=4, intra_dur=8,
-                      lam=0.015, vbs_enable=args.vbs_fme, fme_enable=args.vbs_fme)
-    print(f"[config] 720p, {n} frames, {'VBS + half-pel FME' if args.vbs_fme else 'whole-pel'} full search")
+    cfg = CodecConfig(height=720, width=1280, frames=n, block_size=16, search_range=16 if args.fast else 8, qp=4,
+                      intra_dur=8, lam=0.015, vbs_enable=args.vbs_fme, fme_enable=args.vbs_fme, fast_me=args.fast)
+    print(f"[config] 720p, {n} frames, sr={cfg.search_range}, {'VBS + half-pel FME' if args.vbs_fme else 'whole-pel'} "
+          f"{'fast ME' if args.fast else 'full search'}")
     codec = TorchCodec(cfg, synthetic_clip(720, 1280, n), device=torch.device("cuda"))
     pkg = codec.encode(package=False)
     fts = pkg["frame_type_seq"]
@@ -86,9 +93,13 @@ def main() -> None:
     mvs, res = [m for m, _ in pairs], [r for _, r in pairs]
     y0, y1 = codec._y_dev[0], codec._y_dev[1]
     refs = [pkg["per_frame"][0]["recon"]]
+    g0 = None
+    if args.fast:
+        print(f"[fast ME] rowscan_pass passes per inter frame of the encode: {pkg['fast_me_passes']}")
+        g0 = codec._inter_step(y1, refs, False)["g_next"]
 
     steps = (("intra step (1 frame)", lambda: codec._intra_step(y0), args.reps),
-             ("inter step (1 frame)", lambda: codec._inter_step(y1, refs, False), args.reps),
+             ("inter step (1 frame)", lambda: codec._inter_step(y1, refs, False, g0), args.reps),
              (f"encode, {n} frames", lambda: codec.encode(package=False), max(args.reps // 2, 1)),
              (f"device decode, {n} frames", lambda: codec.decode(fts, res, [[]] * n, mvs), max(args.reps // 2, 1)))
     medians = {}

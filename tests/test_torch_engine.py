@@ -126,13 +126,13 @@ def test_list_package_roundtrip_and_files(encoded, tmp_path):
 @pytest.mark.parametrize("kw,feature", [
     ({"vbs_enable": True}, "vbs_enable"),
     ({"fme_enable": True}, "fme_enable"),
-    ({"fast_me": True}, "fast_me"),
+    ({"fast_me": True, "vbs_enable": True}, "fast_me"),
     ({"rc_flag": 1, "target_br": "1 mbps", "qp_rate_tables": [[1.0] * 12] * 2}, "rc_flag"),
     ({"roi_qp_map": np.zeros(24, np.int32)}, "roi_qp_map"),
     ({"intra_mode": 1}, "intra_mode=1"),
     ({"parallel_mode": 1}, "parallel_mode"),
     ({"n_ref_frames": 2}, "n_ref_frames"),
-    ({"fast_me": True, "vbs_enable": True, "fme_enable": True}, "fast_me"),
+    ({"fast_me": True, "fme_enable": True}, "fast_me"),
     ({"n_ref_frames": 2, "vbs_enable": True, "fme_enable": True}, "n_ref_frames"),
     ({"parallel_mode": 2, "vbs_enable": True, "fme_enable": True}, "parallel_mode"),
 ])
@@ -169,14 +169,16 @@ def test_corrupt_reference_index_rejected_before_launch(encoded):
 
 def test_port_runs_without_importing_jax(tmp_path):
     """A fresh interpreter (not a fork of this JAX process) drives the port's
-    encode -> text bitstream -> decode, whole-pel and VBS + FME, and never
-    imports jax or the JAX package."""
+    encode -> text bitstream -> decode, whole-pel and VBS + FME, full search
+    and fast ME, and never imports jax or the JAX package."""
     code = textwrap.dedent(f"""
         import sys
         import numpy as np
         from streamoptima_tpu_torch import CodecConfig, VideoCodec, synthetic_clip
         import streamoptima_tpu_torch.profile_main_path
-        for extra in ({{}}, {{"vbs_enable": True, "fme_enable": True}}):
+        import streamoptima_tpu_torch.core.fastme
+        vf = {{"vbs_enable": True, "fme_enable": True}}
+        for extra in ({{}}, vf, {{"fast_me": True}}, {{"fast_me": True, **vf}}):
             cfg = CodecConfig(height=32, width=48, frames=3, search_range=4, qp=4, intra_dur=2, **extra)
             v = VideoCodec(cfg, synthetic_clip(32, 48, 3), device="cpu")
             pkg = v.encode(package=False)

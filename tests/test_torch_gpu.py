@@ -164,3 +164,86 @@ def test_engine_vbs_fme_on_card_matches_cpu(cuda):
     for fa, fb in zip(a["per_frame"], b["per_frame"]):
         for k in ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "size"):
             assert torch.equal(fa[k].cpu(), fb[k]), k
+
+
+# ------------------------------------------------------- fast-ME kernels
+@pytest.mark.parametrize("nwin,nwin_c", [(18, None), (10, None), (21, 69), (3, 40)])
+def test_window_fetch_kernel_matches_plain(cuda, nwin, nwin_c):
+    """Origins inside, straddling every edge, far outside and odd."""
+    rng = np.random.default_rng(nwin)
+    P, H, W = 8, 64, 96
+    planes = torch.from_numpy(rng.integers(1, 256, (P, H, W), dtype=np.uint8)).to(cuda)
+    nb = 200
+    by0 = rng.integers(-40, H + 40, nb).astype(np.int32)
+    bx0 = rng.integers(-90, W + 90, nb).astype(np.int32)
+    by0[:6] = (-5, H - 3, 7, 9, -(10**6), 2**30)
+    bx0[:6] = (11, 13, -7, W - 5, 10**6, -(2**30))
+    by0, bx0 = torch.from_numpy(by0).to(cuda), torch.from_numpy(bx0).to(cuda)
+    n0 = K.window_fetch.launches
+    got = K.window_fetch(planes, by0, bx0, nwin, nwin_c)
+    torch.cuda.synchronize()
+    assert K.window_fetch.launches == n0 + 1
+    assert got.dtype == torch.uint8 and got.shape == (nb, P, nwin, nwin_c or nwin)
+    assert torch.equal(got, K.window_fetch_plain(planes, by0, bx0, nwin, nwin_c))
+
+
+def _chain_inputs(cuda, rng, h, w, nref, fme, case):
+    fill = {"flat": (77, 77), "black_vs_white": (0, 255)}.get(case)
+    if fill is None:
+        cur = torch.from_numpy(rng.integers(0, 256, (h, w), dtype=np.uint8)).to(cuda)
+        refs = torch.from_numpy(rng.integers(0, 256, (nref, h, w), dtype=np.uint8)).to(cuda)
+    else:
+        cur = torch.full((h, w), fill[0], dtype=torch.uint8, device=cuda)
+        refs = torch.full((nref, h, w), fill[1], dtype=torch.uint8, device=cuda)
+    return cur, M.fme_parity_planes(refs, True) if fme else refs
+
+
+@pytest.mark.parametrize("fme", [False, True])
+@pytest.mark.parametrize("case", ["random", "flat", "black_vs_white"])
+@pytest.mark.parametrize("h,w,nref", [(64, 96, 1), (96, 256, 2), (720, 1280, 1)])
+def test_rowscan_pass_kernel_matches_plain(cuda, h, w, nref, case, fme):
+    """Zero seeds and wild seeds (negative odd MVs, K8 fallbacks far outside
+    the frame, a second reference index), up to the 720p shape."""
+    rng = np.random.default_rng(h + nref + fme)
+    cur, planes = _chain_inputs(cuda, rng, h, w, nref, fme, case)
+    S = h // 16
+    wild = rng.integers(-9, 10, (S, 3)).astype(np.int32)
+    wild[:, 2] = rng.integers(0, nref, S)
+    wild[0] = (-3, -5, 0)
+    wild[1] = (5001, -4001, nref - 1)
+    wild[2] = (-2 * w - 1, 2 * h + 1, 0)
+    for seeds in (torch.zeros((S, 3), dtype=torch.int32, device=cuda), torch.from_numpy(wild).to(cuda)):
+        n0 = K.rowscan_pass.launches
+        got = K.rowscan_pass(cur, planes, seeds, 16, fme)
+        torch.cuda.synchronize()
+        assert K.rowscan_pass.launches == n0 + 1
+        assert got.dtype == torch.int32 and got.shape == (S, w // 16, 3)
+        assert torch.equal(got, K.rowscan_pass_plain(cur, planes, seeds, 16, fme))
+
+
+def test_fast_me_wrappers_raise_instead_of_falling_back(cuda):
+    cur = torch.zeros((48, 64), dtype=torch.uint8, device=cuda)
+    refs = torch.zeros((1, 48, 64), dtype=torch.uint8, device=cuda)
+    seeds = torch.zeros((3, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="planes"):
+        K.rowscan_pass(cur, refs, seeds, 16, True)
+    with pytest.raises(ValueError, match="seeds"):
+        K.rowscan_pass(cur, refs, seeds.to(torch.int64), 16, False)
+    with pytest.raises(ValueError, match="by0"):
+        K.window_fetch(refs, seeds[:, 0].to(torch.int64), seeds[:, 1].contiguous(), 18)
+    with pytest.raises(TypeError):
+        K.window_fetch(refs.to(torch.int16), seeds[:, 0].contiguous(), seeds[:, 1].contiguous(), 18)
+
+
+@pytest.mark.parametrize("extra", [{}, {"vbs_enable": True, "fme_enable": True}], ids=["whole_pel", "vbs_fme"])
+def test_engine_fast_me_on_card_matches_cpu(cuda, extra):
+    cfg = CodecConfig(height=64, width=96, frames=6, search_range=16, qp=4, intra_dur=4, lam=0.015, fast_me=True,
+                      **extra)
+    clip = synthetic_clip(64, 96, 6, seed=3)
+    a = TorchCodec(cfg, clip, device=cuda).encode(package=False)
+    b = TorchCodec(cfg, clip, device="cpu").encode(package=False)
+    np.testing.assert_array_equal(a["reconstructed frames"], b["reconstructed frames"])
+    assert a["fast_me_passes"] == b["fast_me_passes"]
+    for fa, fb in zip(a["per_frame"], b["per_frame"]):
+        for k in ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "size"):
+            assert torch.equal(fa[k].cpu(), fb[k]), k
