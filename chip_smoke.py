@@ -4,22 +4,33 @@
 
 Builds the port's CUDA kernels from ``streamoptima_tpu_torch/csrc``, holds
 each kernel, in each of its modes, against its plain PyTorch version on the
-card at the 720p shapes, then drives four paths through the ``VideoCodec``
-facade, each encode 16 frames (2 GOPs) -> text bitstream -> decode,
-bit-exact, with every inter frame going through the path's kernels:
+card at the 720p shapes, then drives the paths below through the
+``VideoCodec`` facade, each encode -> text bitstream -> decode, bit-exact,
+with every inter frame going through the path's kernels and each kernel's
+launch count equal to what the path must make (every other kernel: none).
+All are 720p, bs=16, qp=4, intra_dur=8, lam=0.015 on
+``synthetic_clip(720, 1280, 16)``:
 
-- ``[main]``: the config ``bench.py`` runs (720p IPPP, bs=16, sr=8, qp=4,
-  intra_dur=8, one reference, whole-pel full search);
+- ``[main]``: the config ``bench.py`` runs (720p IPPP, sr=8, one reference,
+  whole-pel full search), 16 frames;
 - ``[main-vbs-fme]``: the same with variable block size and half-pel FME
-  (``benchmarks/sweep.py``'s ``720p_vbs_fme``, lam=0.015);
+  (``benchmarks/sweep.py``'s ``720p_vbs_fme``), 16 frames;
 - ``[main-fast-vbs-fme]``: fast ME with VBS and FME at sr=16
-  (``benchmarks/sweep.py``'s ``720p_fast_me_vbs_fme``, the JAX package's
-  default tool set): every inter frame solves its MVP chain with the
+  (``sweep.py``'s ``720p_fast_me_vbs_fme``, the JAX package's default tool
+  set), 16 frames: every inter frame solves its MVP chain with the
   ``rowscan_pass`` kernel and confirms through ``window_fetch``;
-- ``[main-fast]``: fast ME whole-pel, no VBS (``720p_fast_me``).
+- ``[main-fast]``: fast ME whole-pel, no VBS (``720p_fast_me``), 16 frames;
+- ``[main-vbs]``: ``720p_vbs_fme`` without FME: whole-pel VBS full search,
+  16 frames;
+- ``[main-nref4]``: ``sweep.py``'s ``720p_nref4``, whole-pel full search over
+  up to four reference frames, 16 frames;
+- 8 frames each: ``[main-fme]`` (FME alone, sr=8), ``[main-fast-vbs]`` and
+  ``[main-fast-fme]`` (fast ME with one of the two, sr=16), ``[main-intra1]``
+  (intra mode 1, VBS, sr=16), ``[main-pm1]``, ``[main-pm2]`` (fast ME, sr=16)
+  and ``[main-pm3]`` (the three parallel modes).
 
-All four run 16 frames; should the run outgrow its time, the two
-full-search paths are the ones to cut to 8 frames first.
+Should the run outgrow its time, the 16-frame full-search paths are the ones
+to cut to 8 frames first.
 
 Every comparison is exact (tolerance 0): the codec's arithmetic is integer.
 Prints one line per phase, then the kernels' JSON line, the card's name and
@@ -36,7 +47,11 @@ inputs make valid.  ``window_fetch``'s plain version is one PyTorch indexing
 read of the padded planes, so its time is also that row's ``library_ms``; no
 single PyTorch call computes any of the other functions, and theirs is null.
 The two fast-ME rows carry the whole-pel mode's numbers under
-``whole_pel_*`` keys beside the FME mode's.
+``whole_pel_*`` keys beside the FME mode's; the two whole-pel search rows
+and ``pred_fetch`` carry their numbers at four references (``[main-nref4]``)
+under ``nref4_*`` keys, and ``full_search_vbs`` its numbers at sr=16
+(``[main-intra1]``: 33^2 candidates, more than a CUDA block's 1024 threads)
+under ``sr16_*`` keys.
 """
 from __future__ import annotations
 
@@ -68,6 +83,22 @@ INT32_LANES_PER_SM = 64
 VBS_FME = {"vbs_enable": True, "fme_enable": True}
 FAST = {"fast_me": True, "search_range": 16}
 FAST_VBS_FME = {**FAST, **VBS_FME}
+#: the tool matrix beyond the four paths above, as the 720p paths run it
+TOOLS = {
+    "main-vbs": {"vbs_enable": True},
+    "main-nref4": {"n_ref_frames": 4},
+    "main-fme": {"fme_enable": True},
+    "main-fast-vbs": {**FAST, "vbs_enable": True},
+    "main-fast-fme": {**FAST, "fme_enable": True},
+    "main-intra1": {"intra_mode": 1, "vbs_enable": True, "search_range": 16},
+    "main-pm1": {"parallel_mode": 1},
+    "main-pm2": {**FAST, "parallel_mode": 2},
+    "main-pm3": {"parallel_mode": 3},
+}
+#: every kernel wrapper, by name: each path's launch counts cover them all
+KERNELS = {name: getattr(K, name) for name in (
+    "full_search", "full_search_vbs", "full_search_fme", "full_search_fme_vbs", "pred_fetch", "pred_fetch_vbs",
+    "pred_fetch_fme", "pred_fetch_fme_vbs", "rowscan_pass", "window_fetch")}
 
 
 def _cfg(h=H, w=W, frames=FRAMES, **kw) -> CodecConfig:
@@ -120,39 +151,52 @@ def _bound(nbytes: float, ops: float, int_ops_per_ms: float) -> tuple[float, str
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _search_ops(h: int, w: int, nref: int, fme: bool, dev) -> int:
+def _search_ops(h: int, w: int, nref: int, fme: bool, dev, vbs: bool = True, sr: int = SR) -> int:
     """Abs-diff-accumulates the search kernels do on these inputs: every
     pixel of every candidate that is valid for the block (or, with VBS, for
     the block or one of its quads)."""
-    if not fme:
-        bx, by = M.block_origins(h, w, BS_, dev)
-        return int(M.candidate_valid_mask(bx, by, SR, BS_, h, w).sum()) * BS_ * BS_ * nref
-    H2, W2, s = 2 * h - 1, 2 * w - 1, BS_ // 2
     bx, by = M.block_origins(h, w, BS_, dev)
-    any_ok = M.candidate_valid_mask(2 * bx, 2 * by, 2 * SR, BS_, H2, W2, fme=True)
     qx, qy = M.quad_origins(h, w, BS_, dev)
-    vq = M.candidate_valid_mask(2 * qx.reshape(-1), 2 * qy.reshape(-1), 2 * SR, s, H2, W2, fme=True)
-    any_ok |= vq.reshape(vq.shape[0], vq.shape[1], -1, 4).any(dim=-1)
-    return int(any_ok.sum()) * BS_ * BS_ * nref
+    scale, gsr = (2, 2 * sr) if fme else (1, sr)
+    H, W = (2 * h - 1, 2 * w - 1) if fme else (h, w)
+    ok = M.candidate_valid_mask(scale * bx, scale * by, gsr, BS_, H, W, fme=fme)
+    if vbs:
+        vq = M.candidate_valid_mask(scale * qx.reshape(-1), scale * qy.reshape(-1), gsr, BS_ // 2, H, W, fme=fme)
+        ok |= vq.reshape(vq.shape[0], vq.shape[1], -1, 4).any(dim=-1)
+    return int(ok.sum()) * BS_ * BS_ * nref
 
 
-def _fetch_bytes_read(mv, refs, sub_mv=None) -> int:
+def _fetch_bytes_read(mv, refs, sub_mv=None, fme=False) -> int:
     """Distinct reference bytes the fetch reads for these MVs: the plain
     gather on a grid of byte indices (fills 0 and 128 lie below them)."""
     base = 1000
     idx = torch.arange(refs.numel(), device=refs.device, dtype=torch.int64).reshape(refs.shape) + base
     h, w = refs.shape[-2:]
+    grid = M.grid_of_planes(idx) if fme else idx
     bx, by = M.block_origins(h, w, BS_, refs.device)
-    if sub_mv is None:
-        got = gather_predictions(mv, idx, bx, by, BS_)
-    else:
-        grid = M.grid_of_planes(idx)
+    got = [gather_predictions(mv, grid, bx, by, BS_, fme=fme).reshape(-1)]
+    if sub_mv is not None:
         qx, qy = M.quad_origins(h, w, BS_, refs.device)
-        got = torch.cat([gather_predictions(mv, grid, bx, by, BS_, fme=True).reshape(-1),
-                         gather_predictions(sub_mv.reshape(-1, 3), grid, qx.reshape(-1), qy.reshape(-1), BS_ // 2,
-                                            fme=True).reshape(-1)])
-    got = got.reshape(-1)
+        got.append(gather_predictions(sub_mv.reshape(-1, 3), grid, qx.reshape(-1), qy.reshape(-1), BS_ // 2,
+                                      fme=fme).reshape(-1))
+    got = torch.cat(got)
     return int(torch.unique(got[got >= base]).numel())
+
+
+def _check_equal(what: str, got, plain) -> int:
+    """Require a kernel's result (a dict, a tuple or a tensor) to equal its
+    plain version's; returns the largest absolute difference (0)."""
+    torch.cuda.synchronize()
+    if isinstance(plain, dict):
+        _require(set(got) == set(plain), f"{what}: keys {sorted(got)} differ from {sorted(plain)}")
+        pairs = [(got[k], plain[k]) for k in plain]
+    elif isinstance(plain, tuple):
+        pairs = list(zip(got, plain))
+    else:
+        pairs = [(got, plain)]
+    for x, y in pairs:
+        _require(torch.equal(x, y), f"{what}: differs from the plain version")
+    return _max_err(pairs)
 
 
 def _kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops, int_ops_per_ms,
@@ -187,16 +231,19 @@ def _adversarial_mvs(rng, nb: int, bound: int) -> np.ndarray:
     return mv
 
 
-def _drive(label: str, extra: dict, clip: np.ndarray, counters: dict, dev) -> dict:
+def _drive(label: str, extra: dict, clip: np.ndarray, dev, frames: int = FRAMES, **expected) -> dict:
     """One path through the facade: encode -> text bitstream -> decode from
     the files -> in-memory decode, each bit-exact with the encoder's
-    reconstructions.  The launch counts are zeroed just before the encode
-    and read just after the file decode."""
+    reconstructions.  Every kernel's launch count is zeroed just before the
+    encode and read just after the file decode; ``expected`` names the
+    kernels the path must launch and how often ("passes": the encode's
+    ``rowscan_pass`` passes), every other kernel never."""
+    clip = clip[:frames]
     warm = VideoCodec(_cfg(frames=3, **extra), clip[:3], device=dev)  # one-time library / allocator set-up
     warm.encode(compute_ssim=False, package=False)
-    for fn in counters.values():
+    for fn in KERNELS.values():
         fn.launches = 0
-    enc = VideoCodec(_cfg(**extra), clip, device=dev)
+    enc = VideoCodec(_cfg(frames=frames, **extra), clip, device=dev)
     torch.cuda.synchronize()
     pkg = enc.encode(package=False)  # ends in a device-to-host copy of the stats: synchronised
     enc_s = pkg["timing"]["total_s"]
@@ -205,35 +252,47 @@ def _drive(label: str, extra: dict, clip: np.ndarray, counters: dict, dev) -> di
         t0 = time.perf_counter()
         enc.transmit_bitstream(mv_f, res_f)
         tx_s = time.perf_counter() - t0
-        dec = VideoCodec(_cfg(**extra), device=dev)
+        dec = VideoCodec(_cfg(frames=frames, **extra), device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        frames = dec.decode_bitstream(mv_f, res_f)  # ends in a device-to-host copy
+        decoded = dec.decode_bitstream(mv_f, res_f)  # ends in a device-to-host copy
         dec_s = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in counters.items()}
+        launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
         t0 = time.perf_counter()
         parsed = dec.parse_bitstream(mv_f, res_f)
         parse_s = time.perf_counter() - t0
         n_bytes = mv_f.stat().st_size + res_f.stat().st_size
     recon = pkg["reconstructed frames"]
-    _require(frames.shape == recon.shape == (FRAMES, H, W) and frames.dtype == np.uint8, f"{label}: decoded shape")
-    _require(np.array_equal(frames, recon), f"{label}: decoded frames differ from the encoder's reconstructions")
+    _require(decoded.shape == recon.shape == (frames, H, W) and decoded.dtype == np.uint8, f"{label}: decoded shape")
+    _require(np.array_equal(decoded, recon), f"{label}: decoded frames differ from the encoder's reconstructions")
     psnr = np.asarray(pkg["PSNR per frame"])
     _require(np.isfinite(psnr).all() and psnr.mean() > MIN_PSNR, f"{label}: PSNR {psnr}")
-    _require(pkg["frame_type_seq"] == [0 if i % INTRA_DUR == 0 else 1 for i in range(FRAMES)], f"{label}: types")
+    types = [1] * frames if extra.get("parallel_mode") == 1 else [0 if i % INTRA_DUR == 0 else 1
+                                                                 for i in range(frames)]
+    _require(pkg["frame_type_seq"] == types, f"{label}: frame types {pkg['frame_type_seq']}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     frames2 = dec.decode(*parsed)  # in-memory decode of the parsed stream; ends in a device-to-host copy
     dec_mem_s = time.perf_counter() - t0
     _require(np.array_equal(frames2, recon), f"{label}: in-memory decode differs")
-    print(f"[{label}] 720p {FRAMES} frames ({N_INTER} inter): encode {FRAMES / enc_s:.2f} fps ({enc_s:.4f} s), "
-          f"text bitstream write {tx_s:.3f} s ({n_bytes} bytes), decode_bitstream {FRAMES / dec_s:.2f} fps "
+    n_inter = types.count(1)
+    print(f"[{label}] 720p {frames} frames ({n_inter} inter): encode {frames / enc_s:.2f} fps ({enc_s:.4f} s), "
+          f"text bitstream write {tx_s:.3f} s ({n_bytes} bytes), decode_bitstream {frames / dec_s:.2f} fps "
           f"({dec_s:.4f} s incl. parse; parse alone {parse_s:.3f} s), in-memory decode "
-          f"{FRAMES / dec_mem_s:.2f} fps ({dec_mem_s:.4f} s); decode == recon bit-exact; launches {launches}",
+          f"{frames / dec_mem_s:.2f} fps ({dec_mem_s:.4f} s); decode == recon bit-exact; launches {launches}",
           flush=True)
     print(f"[{label}] mean PSNR {psnr.mean():.4f} dB, mean SSIM {np.mean(pkg['SSIM per frame']):.5f}, "
           f"bits {sum(pkg['residual size per frame'])}", flush=True)
-    return {"launches": launches, "pkg": pkg}
+    passes = pkg.get("fast_me_passes")
+    if passes is not None:  # parallel mode 2 runs no chain; every other fast-ME path one or more passes a frame
+        chain = extra.get("parallel_mode") != 2
+        _require(passes == [] if not chain else len(passes) == n_inter and min(passes) >= 1,
+                 f"{label}: passes per inter frame {passes}")
+        print(f"[{label}] rowscan_pass passes per inter frame {passes}", flush=True)
+        expected = {k: (sum(passes) if v == "passes" else v) for k, v in expected.items()}
+    _require(launches == {k: v for k, v in expected.items() if v},
+             f"kernel launches in the {label} path {launches}, expected {expected}")
+    return {"launches": launches, "pkg": pkg, "n_inter": n_inter}
 
 
 def main() -> None:
@@ -334,6 +393,54 @@ def main() -> None:
           f"search-winner MVs; {ms_d:.4f} ms vs plain {plain_ms_d:.4f} ms (host enqueue {host_d:.4f} ms per call)",
           flush=True)
 
+    # the tool matrix's modes: whole-pel VBS at one and four references, whole-pel at four, FME alone
+    cur4 = torch.from_numpy(clip[4]).to(dev)
+    ref4 = torch.from_numpy(clip[:4]).to(dev)  # what frame 4 of [main-nref4] would hold: frames 0-3
+    pairs4 = {"clip": (cur4, ref4), "black_vs_white": (torch.zeros_like(cur4), torch.full_like(ref4, 255)),
+              "flat_ties": (torch.full_like(cur4, 77), torch.full_like(ref4, 77))}
+    modes = {}  # name -> this run's max error, kernel and plain times
+
+    def hold(name: str, sets: dict, fn, plain, args, reps: int, plain_reps: int, what: str) -> None:
+        err = max(_check_equal(f"{name} {k}", fn(*v), plain(*v)) for k, v in sets.items())
+        ms, host = _time_ms(lambda: fn(*args), reps, cyc)
+        plain_ms, _ = _time_ms(lambda: plain(*args), plain_reps, cyc)
+        modes[name] = {"err": err, "ms": ms, "plain_ms": plain_ms}
+        print(f"[kernel] {name} 720p {what}: bit-equal (tolerance 0) on {list(sets)}; {ms:.4f} ms vs plain "
+              f"{plain_ms:.4f} ms (host enqueue {host:.4f} ms per call)", flush=True)
+
+    hold("full_search_vbs", {k: (c, r, SR, BS_) for k, (c, r) in pairs.items()}, K.full_search_vbs,
+         K.full_search_vbs_plain, (cur, ref, SR, BS_), 50, 5, f"sr={SR}, one reference")
+    # [main-intra1]'s range: 1089 candidates for 1024 threads, so some threads take two
+    hold("full_search_vbs sr=16", {k: (c, r, 16, BS_) for k, (c, r) in pairs.items()}, K.full_search_vbs,
+         K.full_search_vbs_plain, (cur, ref, 16, BS_), 20, 2, "sr=16, one reference")
+    hold("full_search_vbs nref=4", {k: (c, r, SR, BS_) for k, (c, r) in pairs4.items()}, K.full_search_vbs,
+         K.full_search_vbs_plain, (cur4, ref4, SR, BS_), 50, 3, f"sr={SR}, four references")
+    hold("full_search nref=4", {k: (c, r, SR, BS_) for k, (c, r) in pairs4.items()}, K.full_search,
+         K.full_search_plain, (cur4, ref4, SR, BS_), 50, 3, f"sr={SR}, four references")
+    hold("full_search_fme", {k: (c, p, SR, BS_) for k, (c, p) in fme_pairs.items()}, K.full_search_fme,
+         K.full_search_fme_plain, (cur, planes, SR, BS_), 50, 5, f"sr={SR} (grid +-{2 * SR}), block winners only")
+    win_v = K.full_search_vbs(cur, ref, SR, BS_)
+    adv_w = _adversarial_mvs(rng, nb, 3 * SR)
+    adv_wq = np.stack([_adversarial_mvs(rng, nb, 3 * SR) for _ in range(4)], 1)
+    hold("pred_fetch_vbs", {"adversarial": (torch.from_numpy(adv_w).to(dev), torch.from_numpy(adv_wq).to(dev), ref,
+                                            BS_),
+                            "search_winners": (win_v["mv"], win_v["sub_mv"], ref, BS_)},
+         K.pred_fetch_vbs, K.pred_fetch_vbs_plain, (win_v["mv"], win_v["sub_mv"], ref, BS_), 200, 20,
+         "whole-pel with the quad plane, adversarial and search-winner MVs")
+    # [main-nref4]'s decode: the fetch over the four-reference FIFO
+    win4 = K.full_search(cur4, ref4, SR, BS_)["mv"]
+    adv4 = _adversarial_mvs(rng, nb, 3 * SR)
+    adv4[:, 2] = rng.integers(0, 4, nb)  # reference indices 0-3
+    hold("pred_fetch nref=4", {"adversarial": (torch.from_numpy(adv4).to(dev), ref4, BS_),
+                               "search_winners": (win4, ref4, BS_)},
+         K.pred_fetch, K.pred_fetch_plain, (win4, ref4, BS_), 200, 20,
+         "four references, adversarial MVs over references 0-3 and search-winner MVs")
+    win_f = K.full_search_fme(cur, planes, SR, BS_)
+    hold("pred_fetch_fme", {"adversarial_ABC": (torch.from_numpy(adv).to(dev), planes, BS_),
+                            "search_winners": (win_f["mv"], planes, BS_)},
+         K.pred_fetch_fme, K.pred_fetch_fme_plain, (win_f["mv"], planes, BS_), 200, 20,
+         "FME without the quad plane, adversarial (cases A, B, C) and search-winner MVs")
+
     # fast ME: the chain pass and the region gather, FME (the planes above) and whole-pel (the references)
     S = H // BS_
     wild = rng.integers(-9, 10, (S, 3)).astype(np.int32)
@@ -399,55 +506,98 @@ def main() -> None:
           flush=True)
 
     small = synthetic_clip(64, 96, 6, seed=3)
-    for extra in ({}, VBS_FME, FAST, FAST_VBS_FME):
+    small_cfgs = {"whole-pel": {}, "VBS + FME": VBS_FME, "fast ME": FAST, "fast ME + VBS + FME": FAST_VBS_FME,
+                  **TOOLS, "nref3 fast ME + VBS + FME": {**FAST_VBS_FME, "n_ref_frames": 3},
+                  "intra1 sr=8": {"intra_mode": 1}, "pm2 fast ME + VBS + FME": {**FAST_VBS_FME, "parallel_mode": 2},
+                  "pm3 fast ME": {**FAST, "parallel_mode": 3}}
+    for name, extra in small_cfgs.items():
         a = TorchCodec(_cfg(64, 96, 6, **extra), small, device=dev).encode(package=False)
         b_ = TorchCodec(_cfg(64, 96, 6, **extra), small, device="cpu").encode(package=False)
         _require(np.array_equal(a["reconstructed frames"], b_["reconstructed frames"]),
-                 f"small encode {extra} on the card differs from the CPU port")
-        _require(a.get("fast_me_passes") == b_.get("fast_me_passes"), f"small encode {extra}: passes per frame differ")
-    print("[reference] 64x96 6-frame encodes (whole-pel; VBS + FME; fast ME whole-pel; fast ME + VBS + FME) on the "
-          "card equal the CPU port (held to the JAX engine by the CPU tests)", flush=True)
+                 f"small encode {name} on the card differs from the CPU port")
+        _require(a.get("fast_me_passes") == b_.get("fast_me_passes"), f"small encode {name}: passes per frame differ")
+        for fa, fb in zip(a["per_frame"], b_["per_frame"]):
+            for k in ("mv", "split", "sub_mv", "qtc_full", "qtc_quads"):
+                _require(torch.equal(fa[k].cpu(), fb[k]), f"small encode {name}: {k} differs from the CPU port")
+    print(f"[reference] 64x96 6-frame encodes on the card equal the CPU port (held to the JAX engine by the CPU "
+          f"tests): {list(small_cfgs)}", flush=True)
 
-    # ---- phase 4: the main paths, each with its own launch counts
-    whole = _drive("main", {}, clip, {"full_search": K.full_search, "pred_fetch": K.pred_fetch}, dev)
-    _require(whole["launches"] == {"full_search": N_INTER, "pred_fetch": N_INTER},
-             f"kernel launches in the main path {whole['launches']}, expected {N_INTER} each")
-    vf = _drive("main-vbs-fme", VBS_FME, clip,
-                {"full_search_fme_vbs": K.full_search_fme_vbs, "pred_fetch_fme_vbs": K.pred_fetch_fme_vbs}, dev)
-    # encode: one search and one winner fetch per inter frame; decode: one fetch
-    _require(vf["launches"] == {"full_search_fme_vbs": N_INTER, "pred_fetch_fme_vbs": 2 * N_INTER},
-             f"kernel launches in the VBS + FME path {vf['launches']}, expected {N_INTER} and {2 * N_INTER}")
-    n_split = sum(int(o["split"].sum()) for o in vf["pkg"]["per_frame"])
-    _require(n_split > 0, "the VBS + FME path split no block")
-    fast = {}
-    for label, extra, fetch in (("main-fast-vbs-fme", FAST_VBS_FME, "pred_fetch_fme_vbs"),
-                                ("main-fast", FAST, "pred_fetch")):
-        run = _drive(label, extra, clip, {"rowscan_pass": K.rowscan_pass, "window_fetch": K.window_fetch,
-                                          fetch: getattr(K, fetch)}, dev)
-        passes = run["pkg"]["fast_me_passes"]
-        # encode: the chain's passes, one confirm read and one winner fetch per inter frame; decode: one fetch
-        _require(len(passes) == N_INTER and min(passes) >= 1, f"{label}: passes per inter frame {passes}")
-        _require(run["launches"] == {"rowscan_pass": sum(passes), "window_fetch": N_INTER, fetch: 2 * N_INTER},
-                 f"kernel launches in the {label} path {run['launches']}, expected {sum(passes)} passes, {N_INTER} "
-                 f"confirm reads and {2 * N_INTER} fetches")
-        print(f"[{label}] rowscan_pass passes per inter frame {passes}", flush=True)
-        fast[label] = run
-    n_split = sum(int(o["split"].sum()) for o in fast["main-fast-vbs-fme"]["pkg"]["per_frame"])
-    _require(n_split > 0, "the fast-ME VBS + FME path split no block")
+    # ---- phase 4: the main paths, each with its own launch counts (every kernel's)
+    n8 = 8 - 8 // INTRA_DUR  # inter frames of an 8-frame path
+    # full search: one search per inter frame (the whole-pel kernel keeps the winners' pixels, the others'
+    # come from one fetch), and one fetch per inter frame in decode
+    whole = _drive("main", {}, clip, dev, full_search=N_INTER, pred_fetch=N_INTER)
+    vf = _drive("main-vbs-fme", VBS_FME, clip, dev, full_search_fme_vbs=N_INTER, pred_fetch_fme_vbs=2 * N_INTER)
+    _require(sum(int(o["split"].sum()) for o in vf["pkg"]["per_frame"]) > 0, "the VBS + FME path split no block")
+    # fast ME: the chain's passes, one confirm read and one winner fetch per inter frame; decode: one fetch
+    fast = {"main-fast-vbs-fme": _drive("main-fast-vbs-fme", FAST_VBS_FME, clip, dev, rowscan_pass="passes",
+                                        window_fetch=N_INTER, pred_fetch_fme_vbs=2 * N_INTER),
+            "main-fast": _drive("main-fast", FAST, clip, dev, rowscan_pass="passes", window_fetch=N_INTER,
+                                pred_fetch=2 * N_INTER)}
+    _require(sum(int(o["split"].sum()) for o in fast["main-fast-vbs-fme"]["pkg"]["per_frame"]) > 0,
+             "the fast-ME VBS + FME path split no block")
+    tools = {
+        "main-vbs": _drive("main-vbs", TOOLS["main-vbs"], clip, dev, full_search_vbs=N_INTER,
+                           pred_fetch_vbs=2 * N_INTER),
+        "main-nref4": _drive("main-nref4", TOOLS["main-nref4"], clip, dev, full_search=N_INTER, pred_fetch=N_INTER),
+        "main-fme": _drive("main-fme", TOOLS["main-fme"], clip, dev, 8, full_search_fme=n8, pred_fetch_fme=2 * n8),
+        "main-fast-vbs": _drive("main-fast-vbs", TOOLS["main-fast-vbs"], clip, dev, 8, rowscan_pass="passes",
+                                window_fetch=n8, pred_fetch_vbs=2 * n8),
+        "main-fast-fme": _drive("main-fast-fme", TOOLS["main-fast-fme"], clip, dev, 8, rowscan_pass="passes",
+                                window_fetch=n8, pred_fetch_fme=2 * n8),
+        "main-intra1": _drive("main-intra1", TOOLS["main-intra1"], clip, dev, 8, full_search_vbs=n8,
+                              pred_fetch_vbs=2 * n8),
+        # mode 1: every frame is an inter frame against the all-128 plane
+        "main-pm1": _drive("main-pm1", TOOLS["main-pm1"], clip, dev, 8, full_search=8, pred_fetch=8),
+        # mode 2: one confirm read at zero MVPs per inter frame, no chain
+        "main-pm2": _drive("main-pm2", TOOLS["main-pm2"], clip, dev, 8, window_fetch=n8, pred_fetch=2 * n8),
+        "main-pm3": _drive("main-pm3", TOOLS["main-pm3"], clip, dev, 8, full_search=n8, pred_fetch=n8),
+    }
+    for label in ("main-vbs", "main-fast-vbs", "main-intra1"):
+        _require(sum(int(o["split"].sum()) for o in tools[label]["pkg"]["per_frame"]) > 0, f"{label} split no block")
+    refs_used = {int(r) for o in tools["main-nref4"]["pkg"]["per_frame"][1:8] for r in o["mv"][:, 2].unique()}
+    _require(len(refs_used) > 1, f"main-nref4: inter frames chose only reference {sorted(refs_used)}")
 
     # ---- the kernels' line: this run's counts, errors, times and bounds
     px = H * W
     out_a = nb * (12 + 4 + 1) + 2 * px
-    out_c = nb * 5 * (12 + 4 + 1)
+    out_v = nb * 5 * (12 + 4 + 1)
+
+    def mode_row(name, source, replaces, launches, nbytes, ops):
+        m = modes[name]
+        return _kernel_row(name, source, replaces, launches, m["err"], m["ms"], m["plain_ms"], nbytes, ops,
+                           int_ops_per_ms)
+
+    def with_mode(row, prefix, nbytes, ops, m):
+        """``row`` with another mode's numbers under ``<prefix>_*`` keys."""
+        bound_ms, bound_by = _bound(nbytes, ops, int_ops_per_ms)
+        row.update({f"{prefix}_max_abs_err": m["err"], f"{prefix}_ms": m["ms"], f"{prefix}_plain_ms": m["plain_ms"],
+                    f"{prefix}_bound_ms": bound_ms, f"{prefix}_bound_by": bound_by, f"{prefix}_library_ms": None})
+        return row
+
     kernels = [
-        _kernel_row("full_search", "full_search.cu", 213, whole["launches"]["full_search"], err_a, ms_a, plain_ms_a,
-                    2 * px + out_a, _search_ops(H, W, 1, False, dev), int_ops_per_ms),
-        _kernel_row("pred_fetch", "pred_fetch.cu", 1020, whole["launches"]["pred_fetch"], err_b, ms_b, plain_ms_b,
-                    nb * 12 + _fetch_bytes_read(mv_main, ref) + 2 * px, 0, int_ops_per_ms),
+        with_mode(_kernel_row("full_search", "full_search.cu", 213, whole["launches"]["full_search"], err_a, ms_a,
+                              plain_ms_a, 2 * px + out_a, _search_ops(H, W, 1, False, dev, vbs=False),
+                              int_ops_per_ms),
+                  "nref4", 5 * px + out_a, _search_ops(H, W, 4, False, dev, vbs=False), modes["full_search nref=4"]),
+        with_mode(with_mode(mode_row("full_search_vbs", "full_search.cu", 213,
+                                     tools["main-vbs"]["launches"]["full_search_vbs"], 2 * px + out_v,
+                                     _search_ops(H, W, 1, False, dev)),
+                            "nref4", 5 * px + out_v, _search_ops(H, W, 4, False, dev), modes["full_search_vbs nref=4"]),
+                  "sr16", 2 * px + out_v, _search_ops(H, W, 1, False, dev, sr=16), modes["full_search_vbs sr=16"]),
+        mode_row("full_search_fme", "full_search_fme.cu", 621, tools["main-fme"]["launches"]["full_search_fme"],
+                 px + planes.numel() + nb * 17, _search_ops(H, W, 1, True, dev, vbs=False)),
         _kernel_row("full_search_fme_vbs", "full_search_fme.cu", 621, vf["launches"]["full_search_fme_vbs"], err_c,
-                    ms_c, plain_ms_c, px + planes.numel() + out_c, _search_ops(H, W, 1, True, dev), int_ops_per_ms),
+                    ms_c, plain_ms_c, px + planes.numel() + out_v, _search_ops(H, W, 1, True, dev), int_ops_per_ms),
+        with_mode(_kernel_row("pred_fetch", "pred_fetch.cu", 1020, whole["launches"]["pred_fetch"], err_b, ms_b,
+                              plain_ms_b, nb * 12 + _fetch_bytes_read(mv_main, ref) + 2 * px, 0, int_ops_per_ms),
+                  "nref4", nb * 12 + _fetch_bytes_read(win4, ref4) + 2 * px, 0, modes["pred_fetch nref=4"]),
+        mode_row("pred_fetch_vbs", "pred_fetch.cu", 1020, tools["main-vbs"]["launches"]["pred_fetch_vbs"],
+                 nb * 5 * 12 + _fetch_bytes_read(win_v["mv"], ref, win_v["sub_mv"]) + 4 * px, 0),
+        mode_row("pred_fetch_fme", "pred_fetch.cu", 1020, tools["main-fme"]["launches"]["pred_fetch_fme"],
+                 nb * 12 + _fetch_bytes_read(win_f["mv"], planes, fme=True) + 2 * px, 0),
         _kernel_row("pred_fetch_fme_vbs", "pred_fetch.cu", 1020, vf["launches"]["pred_fetch_fme_vbs"], err_d, ms_d,
-                    plain_ms_d, nb * 5 * 12 + _fetch_bytes_read(win["mv"], planes, win["sub_mv"]) + 4 * px, 0,
+                    plain_ms_d, nb * 5 * 12 + _fetch_bytes_read(win["mv"], planes, win["sub_mv"], fme=True) + 4 * px, 0,
                     int_ops_per_ms),
     ]
     # the two fast-ME kernels: the FME mode's numbers, the whole-pel mode's under whole_pel_* keys

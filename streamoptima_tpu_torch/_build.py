@@ -52,7 +52,7 @@ def _sources() -> list[Path]:
 
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):  # the sources and the headers they share
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libstreamoptima_kernels_{h.hexdigest()[:16]}.so"
@@ -98,6 +98,10 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.so_full_search.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p]
     lib.so_full_search.restype = i
+    lib.so_full_search_vbs.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p, p, p]
+    lib.so_full_search_vbs.restype = i
+    lib.so_full_search_fme.argtypes = [p, p, i, i, i, i, i, p, p, p, p]
+    lib.so_full_search_fme.restype = i
     lib.so_full_search_fme_vbs.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p, p, p]
     lib.so_full_search_fme_vbs.restype = i
     lib.so_pred_fetch.argtypes = [p, p, p, i, i, i, i, i, p, p, p]

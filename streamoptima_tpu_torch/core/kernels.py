@@ -3,13 +3,18 @@
 ``full_search``          -- whole-pel full search with the winner's pixels
                             (csrc/full_search.cu; replaces me_pallas
                             _plane_search via full_search_pallas).
-``full_search_fme_vbs``  -- half-pel full search with the VBS quads, MVs only
+``full_search_vbs``      -- the same search with the VBS quads, MVs only
+                            (the VBS kernel of csrc/full_search.cu;
+                            full_search_pallas with vbs=True).
+``full_search_fme``      -- half-pel full search, MVs only
                             (csrc/full_search_fme.cu; replaces _plane_search
-                            via full_search_pallas_fme, vbs=True).
+                            via full_search_pallas_fme, vbs=False).
+``full_search_fme_vbs``  -- the same with the VBS quads (vbs=True).
 ``pred_fetch``           -- whole-pel prediction fetch (csrc/pred_fetch.cu;
                             replaces me_pallas.pred_fetch_compact).
-``pred_fetch_fme_vbs``   -- the same kernel in its FME mode with the quad
-                            plane, cases A, B and C.
+``pred_fetch_vbs``       -- the same with the quad plane.
+``pred_fetch_fme``       -- the same kernel in its FME mode, cases A, B and C.
+``pred_fetch_fme_vbs``   -- the FME mode with the quad plane.
 ``window_fetch``         -- the fast-ME region gather at any origin
                             (csrc/window_fetch.cu; replaces
                             me_pallas.window_fetch with window_prep).
@@ -127,56 +132,121 @@ def full_search(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int) -> dict
 full_search.launches = 0
 
 
-# ------------------------------------------------- FME + VBS full search
+# ------------------------------------------ the MVs-only full searches
+_BLOCK_KEYS = ("mv", "sad", "ok")
+_QUAD_KEYS = ("sub_mv", "sub_sad", "sub_ok")
+
+
+def _launch_search(entry: str, cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int, vbs: bool,
+                   smem: int) -> dict:
+    """Allocate the outputs and launch one MVs-only search kernel, which
+    stages ``smem`` bytes of shared memory per macroblock."""
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"bs={bs}, sr={sr}: the search windows exceed a block's shared memory")
+    from streamoptima_tpu_torch._build import library
+
+    h, w = cur.shape
+    nb, dev = (h // bs) * (w // bs), cur.device
+    shapes = {"mv": (nb, 3), "sad": (nb,), "ok": (nb,), "sub_mv": (nb, 4, 3), "sub_sad": (nb, 4), "sub_ok": (nb, 4)}
+    keys = _BLOCK_KEYS + (_QUAD_KEYS if vbs else ())
+    out = {k: torch.empty(shapes[k], dtype=torch.bool if k.endswith("ok") else torch.int32, device=dev) for k in keys}
+    with torch.cuda.device(dev):
+        rc = getattr(library(), f"so_{entry}")(cur.data_ptr(), refs.data_ptr(), refs.shape[0], h, w, sr, bs,
+                                               *(out[k].data_ptr() for k in keys), _stream(dev))
+    _launch_check(rc, entry)
+    return out
+
+
+def full_search_vbs_plain(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int) -> dict:
+    """Plain PyTorch version of the ``full_search_vbs`` kernel (any device)."""
+    return M.full_search_materialized(cur, refs, sr, bs, vbs=True)
+
+
+def full_search_vbs(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int) -> dict:
+    """Whole-pel full search of ``cur`` (h, w) over ``refs`` (nref, h, w),
+    both uint8, with the VBS quads.
+
+    Returns {"mv", "sad", "ok"} per block ((nb, 3) int32, (nb,) int32,
+    (nb,) bool) and {"sub_mv", "sub_sad", "sub_ok"} per quad ((nb, 4, 3),
+    (nb, 4), (nb, 4)) in Z order — the ``full_search_pallas(vbs=True,
+    want_pred=False)`` contract.  Each quad has its own validity (its own
+    origin and size in the strict bounds).  No valid candidate: mv =
+    (0, 0, 0), sad = INT32_MAX, ok False.
+    """
+    _check_plane(cur, "cur", 2)
+    _check_plane(refs, "refs", 3)
+    if refs.shape[1:] != cur.shape:
+        raise ValueError(f"refs {tuple(refs.shape)} do not match cur {tuple(cur.shape)}")
+    if bs % 2:
+        raise ValueError(f"VBS needs an even block size, got {bs}")
+    _check_search(cur, refs, refs.shape[0], sr, bs)
+    if cur.device.type == "cpu":
+        return full_search_vbs_plain(cur, refs, sr, bs)
+    out = _launch_search("full_search_vbs", cur, refs, sr, bs, True, bs * bs + (bs + 2 * sr) ** 2)
+    full_search_vbs.launches += 1
+    return out
+
+
+full_search_vbs.launches = 0
+
+
+def full_search_fme_plain(cur: torch.Tensor, planes: torch.Tensor, sr: int, bs: int) -> dict:
+    """Plain PyTorch version of the ``full_search_fme`` kernel (any device):
+    the stride-2 materialized search on the half-pel grid that the parity
+    planes interleave into."""
+    return M.full_search_materialized(cur, M.grid_of_planes(planes), 2 * sr, bs, fme=True)
+
+
 def full_search_fme_vbs_plain(cur: torch.Tensor, planes: torch.Tensor, sr: int, bs: int) -> dict:
-    """Plain PyTorch version of the ``full_search_fme_vbs`` kernel (any
-    device): the stride-2 materialized search on the half-pel grid that the
-    parity planes interleave into."""
+    """Plain PyTorch version of the ``full_search_fme_vbs`` kernel (any device)."""
     return M.full_search_materialized(cur, M.grid_of_planes(planes), 2 * sr, bs, fme=True, vbs=True)
 
 
-def full_search_fme_vbs(cur: torch.Tensor, planes: torch.Tensor, sr: int, bs: int) -> dict:
-    """Half-pel full search of ``cur`` (h, w) uint8 with VBS quads.
-
-    planes: (nref, 4, h, w) uint8, the parity planes of each reference
-    (``me.fme_parity_planes``).  Candidates span +-2sr on the half-pel grid.
-    Returns {"mv", "sad", "ok"} per block ((nb, 3) int32, (nb,) int32,
-    (nb,) bool) and {"sub_mv", "sub_sad", "sub_ok"} per quad ((nb, 4, 3),
-    (nb, 4), (nb, 4)) in Z order — the ``full_search_pallas_fme(vbs=True,
-    want_pred=False)`` contract.  No valid candidate: mv = (0, 0, 0),
-    sad = INT32_MAX, ok False.
-    """
+def _check_fme_search(cur: torch.Tensor, planes: torch.Tensor, sr: int, bs: int, vbs: bool) -> None:
     _check_plane(cur, "cur", 2)
     _check_plane(planes, "planes", 4)
     h, w = cur.shape
-    nref = planes.shape[0]
     if planes.shape[1:] != (4, h, w):
         raise ValueError(f"planes {tuple(planes.shape)} are not (nref, 4, {h}, {w})")
-    if bs % 2:
+    if vbs and bs % 2:
         raise ValueError(f"VBS needs an even block size, got {bs}")
-    _check_search(cur, planes, nref, 2 * sr, bs)
+    _check_search(cur, planes, planes.shape[0], 2 * sr, bs)
+
+
+def _fme_smem(sr: int, bs: int) -> int:
+    return bs * bs + 4 * ((bs + 2 * sr) ** 2 + 4)  # the block and the four plane windows
+
+
+def full_search_fme(cur: torch.Tensor, planes: torch.Tensor, sr: int, bs: int) -> dict:
+    """Half-pel full search of ``cur`` (h, w) uint8, block winners only.
+
+    planes: (nref, 4, h, w) uint8, the parity planes of each reference
+    (``me.fme_parity_planes``).  Candidates span +-2sr on the half-pel grid.
+    Returns {"mv", "sad", "ok"} ((nb, 3) int32, (nb,) int32, (nb,) bool) —
+    the ``full_search_pallas_fme(vbs=False, want_pred=False)`` contract.  No
+    valid candidate: mv = (0, 0, 0), sad = INT32_MAX, ok False.
+    """
+    _check_fme_search(cur, planes, sr, bs, False)
+    if cur.device.type == "cpu":
+        return full_search_fme_plain(cur, planes, sr, bs)
+    out = _launch_search("full_search_fme", cur, planes, sr, bs, False, _fme_smem(sr, bs))
+    full_search_fme.launches += 1
+    return out
+
+
+full_search_fme.launches = 0
+
+
+def full_search_fme_vbs(cur: torch.Tensor, planes: torch.Tensor, sr: int, bs: int) -> dict:
+    """``full_search_fme`` with the VBS quads: also {"sub_mv", "sub_sad",
+    "sub_ok"} per quad ((nb, 4, 3), (nb, 4), (nb, 4)) in Z order, each quad
+    with its own validity — the ``full_search_pallas_fme(vbs=True,
+    want_pred=False)`` contract.
+    """
+    _check_fme_search(cur, planes, sr, bs, True)
     if cur.device.type == "cpu":
         return full_search_fme_vbs_plain(cur, planes, sr, bs)
-    if bs * bs + 4 * ((bs + 2 * sr) ** 2 + 4) > _SMEM_LIMIT:
-        raise ValueError(f"bs={bs}, sr={sr}: the plane windows exceed a block's shared memory")
-    from streamoptima_tpu_torch._build import library
-
-    lib = library()
-    nb = (h // bs) * (w // bs)
-    dev = cur.device
-    out = {
-        "mv": torch.empty((nb, 3), dtype=torch.int32, device=dev),
-        "sad": torch.empty((nb,), dtype=torch.int32, device=dev),
-        "ok": torch.empty((nb,), dtype=torch.bool, device=dev),
-        "sub_mv": torch.empty((nb, 4, 3), dtype=torch.int32, device=dev),
-        "sub_sad": torch.empty((nb, 4), dtype=torch.int32, device=dev),
-        "sub_ok": torch.empty((nb, 4), dtype=torch.bool, device=dev),
-    }
-    with torch.cuda.device(dev):
-        rc = lib.so_full_search_fme_vbs(cur.data_ptr(), planes.data_ptr(), nref, h, w, sr, bs,
-                                        *(out[k].data_ptr() for k in ("mv", "sad", "ok", "sub_mv", "sub_sad",
-                                                                      "sub_ok")), _stream(dev))
-    _launch_check(rc, "full_search_fme_vbs")
+    out = _launch_search("full_search_fme_vbs", cur, planes, sr, bs, True, _fme_smem(sr, bs))
     full_search_fme_vbs.launches += 1
     return out
 
@@ -202,6 +272,23 @@ def _check_fetch(mv: torch.Tensor, refs: torch.Tensor, h: int, w: int, bs: int) 
     return mv.shape[0]
 
 
+def _launch_fetch(what: str, mv: torch.Tensor, sub_mv, planes: torch.Tensor, nref: int, bs: int, fme: bool):
+    """Allocate the prediction plane(s) and launch the ``pred_fetch`` kernel;
+    the quad plane is fetched when ``sub_mv`` is given."""
+    from streamoptima_tpu_torch._build import library
+
+    h, w = planes.shape[-2:]
+    dev = planes.device
+    pred = torch.empty((h, w), dtype=torch.int16, device=dev)
+    pred_q = None if sub_mv is None else torch.empty((h, w), dtype=torch.int16, device=dev)
+    with torch.cuda.device(dev):
+        rc = library().so_pred_fetch(mv.data_ptr(), None if sub_mv is None else sub_mv.data_ptr(),
+                                     planes.data_ptr(), nref, h, w, bs, int(fme), pred.data_ptr(),
+                                     None if pred_q is None else pred_q.data_ptr(), _stream(dev))
+    _launch_check(rc, what)
+    return pred if pred_q is None else (pred, pred_q)
+
+
 def pred_fetch(mv: torch.Tensor, refs: torch.Tensor, bs: int) -> torch.Tensor:
     """Whole-pel prediction plane for given MVs.
 
@@ -215,14 +302,7 @@ def pred_fetch(mv: torch.Tensor, refs: torch.Tensor, bs: int) -> torch.Tensor:
     _check_fetch(mv, refs, h, w, bs)
     if refs.device.type == "cpu":
         return pred_fetch_plain(mv, refs, bs)
-    from streamoptima_tpu_torch._build import library
-
-    lib = library()
-    pred = torch.empty((h, w), dtype=torch.int16, device=refs.device)
-    with torch.cuda.device(refs.device):
-        rc = lib.so_pred_fetch(mv.data_ptr(), None, refs.data_ptr(), nref, h, w, bs, 0, pred.data_ptr(), None,
-                               _stream(refs.device))
-    _launch_check(rc, "pred_fetch")
+    pred = _launch_fetch("pred_fetch", mv, None, refs, nref, bs, False)
     pred_fetch.launches += 1
     return pred
 
@@ -230,18 +310,90 @@ def pred_fetch(mv: torch.Tensor, refs: torch.Tensor, bs: int) -> torch.Tensor:
 pred_fetch.launches = 0
 
 
+def _quad_plane(sub_mv: torch.Tensor, grid: torch.Tensor, h: int, w: int, bs: int, fme: bool) -> torch.Tensor:
+    """Each quad's prediction at its own position: (h, w) int16."""
+    s = bs // 2
+    qx, qy = M.quad_origins(h, w, bs, grid.device)
+    quads = gather_predictions(sub_mv.reshape(-1, 3), grid, qx.reshape(-1), qy.reshape(-1), s, fme=fme)
+    return unquads_px(quads.reshape(-1, 4, s, s), h, w).to(torch.int16)
+
+
+def pred_fetch_vbs_plain(mv: torch.Tensor, sub_mv: torch.Tensor, refs: torch.Tensor,
+                         bs: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the ``pred_fetch`` kernel's whole-pel mode
+    with the quad plane (any device)."""
+    h, w = refs.shape[-2:]
+    return pred_fetch_plain(mv, refs, bs), _quad_plane(sub_mv, refs, h, w, bs, False)
+
+
+def pred_fetch_vbs(mv: torch.Tensor, sub_mv: torch.Tensor, refs: torch.Tensor,
+                   bs: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Whole-pel prediction planes for given block and quad MVs.
+
+    mv: (nb, 3), sub_mv: (nb, 4, 3) int32 [dx, dy, ref] (quads in Z order);
+    refs: (nref, h, w) uint8.  Returns (pred_full, pred_quads), both (h, w)
+    int16 with each (sub)block's window at its own position, zero outside the
+    frame.  Reference indices must lie in [0, nref).
+    """
+    _check_plane(refs, "refs", 3)
+    nref, h, w = refs.shape
+    if bs % 2:
+        raise ValueError(f"VBS needs an even block size, got {bs}")
+    nb = _check_fetch(mv, refs, h, w, bs)
+    _check_mv(sub_mv, "sub_mv", (nb, 4, 3), refs.device)
+    if refs.device.type == "cpu":
+        return pred_fetch_vbs_plain(mv, sub_mv, refs, bs)
+    out = _launch_fetch("pred_fetch_vbs", mv, sub_mv, refs, nref, bs, False)
+    pred_fetch_vbs.launches += 1
+    return out
+
+
+pred_fetch_vbs.launches = 0
+
+
+def pred_fetch_fme_plain(mv: torch.Tensor, planes: torch.Tensor, bs: int) -> torch.Tensor:
+    """Plain PyTorch version of the ``pred_fetch`` kernel's FME mode (any
+    device): ``pred.gather_predictions`` on the half-pel grid."""
+    h, w = planes.shape[-2:]
+    bx, by = M.block_origins(h, w, bs, planes.device)
+    return unblockify(gather_predictions(mv, M.grid_of_planes(planes), bx, by, bs, fme=True), h, w).to(torch.int16)
+
+
 def pred_fetch_fme_vbs_plain(mv: torch.Tensor, sub_mv: torch.Tensor, planes: torch.Tensor,
                              bs: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the ``pred_fetch`` kernel's FME + quads mode
-    (any device): ``pred.gather_predictions`` on the half-pel grid."""
+    """Plain PyTorch version of the ``pred_fetch`` kernel's FME mode with
+    the quad plane (any device)."""
     h, w = planes.shape[-2:]
-    s = bs // 2
-    grid = M.grid_of_planes(planes)
-    bx, by = M.block_origins(h, w, bs, planes.device)
-    full = unblockify(gather_predictions(mv, grid, bx, by, bs, fme=True), h, w)
-    qx, qy = M.quad_origins(h, w, bs, planes.device)
-    quads = gather_predictions(sub_mv.reshape(-1, 3), grid, qx.reshape(-1), qy.reshape(-1), s, fme=True)
-    return full.to(torch.int16), unquads_px(quads.reshape(-1, 4, s, s), h, w).to(torch.int16)
+    return pred_fetch_fme_plain(mv, planes, bs), _quad_plane(sub_mv, M.grid_of_planes(planes), h, w, bs, True)
+
+
+def _check_planes4(planes: torch.Tensor) -> tuple[int, int, int]:
+    _check_plane(planes, "planes", 4)
+    nref, four, h, w = planes.shape
+    if four != 4:
+        raise ValueError(f"planes {tuple(planes.shape)} are not (nref, 4, h, w)")
+    return nref, h, w
+
+
+def pred_fetch_fme(mv: torch.Tensor, planes: torch.Tensor, bs: int) -> torch.Tensor:
+    """Half-pel prediction plane for given block MVs.
+
+    mv: (nb, 3) int32 [dx, dy, ref] on the half-pel grid; planes: (nref, 4,
+    h, w) uint8 parity planes.  Returns (h, w) int16 with each block's
+    prediction at its own position: case A (the stride-2 grid window), B
+    (128) or C (the stride-1 grid window, zero off the grid).  Reference
+    indices must lie in [0, nref).
+    """
+    nref, h, w = _check_planes4(planes)
+    _check_fetch(mv, planes, h, w, bs)
+    if planes.device.type == "cpu":
+        return pred_fetch_fme_plain(mv, planes, bs)
+    pred = _launch_fetch("pred_fetch_fme", mv, None, planes, nref, bs, True)
+    pred_fetch_fme.launches += 1
+    return pred
+
+
+pred_fetch_fme.launches = 0
 
 
 def pred_fetch_fme_vbs(mv: torch.Tensor, sub_mv: torch.Tensor, planes: torch.Tensor,
@@ -251,31 +403,19 @@ def pred_fetch_fme_vbs(mv: torch.Tensor, sub_mv: torch.Tensor, planes: torch.Ten
     mv: (nb, 3), sub_mv: (nb, 4, 3) int32 [dx, dy, ref] on the half-pel grid
     (quads in Z order); planes: (nref, 4, h, w) uint8 parity planes.
     Returns (pred_full, pred_quads), both (h, w) int16 with each (sub)block's
-    prediction at its own position: case A (the stride-2 grid window), B
-    (128) or C (the stride-1 grid window, zero off the grid), per block and
-    per quad.  Reference indices must lie in [0, nref).
+    prediction at its own position: case A, B or C as in ``pred_fetch_fme``,
+    per block and per quad.  Reference indices must lie in [0, nref).
     """
-    _check_plane(planes, "planes", 4)
-    nref, _, h, w = planes.shape
-    if planes.shape[1] != 4:
-        raise ValueError(f"planes {tuple(planes.shape)} are not (nref, 4, h, w)")
+    nref, h, w = _check_planes4(planes)
     if bs % 2:
         raise ValueError(f"VBS needs an even block size, got {bs}")
     nb = _check_fetch(mv, planes, h, w, bs)
     _check_mv(sub_mv, "sub_mv", (nb, 4, 3), planes.device)
     if planes.device.type == "cpu":
         return pred_fetch_fme_vbs_plain(mv, sub_mv, planes, bs)
-    from streamoptima_tpu_torch._build import library
-
-    lib = library()
-    pred = torch.empty((h, w), dtype=torch.int16, device=planes.device)
-    pred_q = torch.empty((h, w), dtype=torch.int16, device=planes.device)
-    with torch.cuda.device(planes.device):
-        rc = lib.so_pred_fetch(mv.data_ptr(), sub_mv.data_ptr(), planes.data_ptr(), nref, h, w, bs, 1,
-                               pred.data_ptr(), pred_q.data_ptr(), _stream(planes.device))
-    _launch_check(rc, "pred_fetch_fme_vbs")
+    out = _launch_fetch("pred_fetch_fme_vbs", mv, sub_mv, planes, nref, bs, True)
     pred_fetch_fme_vbs.launches += 1
-    return pred, pred_q
+    return out
 
 
 pred_fetch_fme_vbs.launches = 0

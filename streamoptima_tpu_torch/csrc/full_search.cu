@@ -1,7 +1,8 @@
 // Whole-pel full-search motion estimation for Hopper (sm_90a).
 //
 // Replaces: streamoptima_tpu/core/me_pallas.py, _plane_search as reached
-// through full_search_pallas (whole-pel, want_pred=True, no VBS).  For every
+// through full_search_pallas (whole-pel, want_pred=True, no VBS; the VBS
+// mode is described below).  For every
 // 16x16 macroblock it evaluates every (ref, dy, dx) candidate in
 // [-sr, sr]^2, keeps the lexicographic minimum of (SAD, sec) with
 // sec = ((l1 << 3 | ref) << 8 | dxi) << 8 | dyi, and writes the winner's
@@ -24,33 +25,56 @@
 // all-ones key and reports sad = INT32_MAX, ok = 0, mv = (0, 0, 0) and a
 // zero pred (the caller substitutes 128, as the JAX engine does).  Making it
 // fast (several macroblocks per CTA, register-tiled SADs) is later work.
+//
+// VBS mode (the kernel's template argument, so neither mode's loop branches
+// on it): full_search_pallas(vbs=True, want_pred=False), the 8x8 quad
+// winners beside the block's, MVs only (the pixels come from the pred_fetch
+// kernel).  The same window staging serves the quads: every quad candidate
+// lies inside the block's (bs + 2sr)^2 window.  As in full_search_fme.cu,
+// each thread takes its four quad SADs from one pass over the pixels (the
+// block SAD is their sum) and keeps five packed minima, one per key, each
+// with its own validity: a quad checks its own origin and size (bs / 2)
+// against the strict bounds, so a quad may have a valid winner where its
+// block has none.  The tie-break key is the block's displacement's for all
+// five.  It does the non-VBS mode's bs^2 abs-diffs per candidate, over the
+// candidates valid for the block or one of its quads, and is bound the same
+// way: by operations.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <type_traits>
+
+#include "search_common.cuh"
+
 namespace {
 
-constexpr unsigned long long kNone = ~0ull;
+using so_search::kNone;
 
-__device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
-    for (int off = 16; off > 0; off >>= 1) {
-        unsigned long long o = __shfl_down_sync(0xffffffffu, v, off);
-        v = o < v ? o : v;
-    }
-    return v;
+// the reference's strict bounds for an n x n (sub)block at (px, py)
+__device__ __forceinline__ bool valid_whole(int px, int py, int n, int h, int w) {
+    return px >= 0 && px < w - n && py >= 0 && py < h - n;
 }
 
+// VBS: the block key and the four quad keys, MVs only; otherwise the block
+// key alone and the winner's pixels (pred_out)
+template <bool VBS>
 __global__ void full_search_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ refs,
                                    int nref, int h, int w, int sr, int bs,
                                    int32_t* __restrict__ mv_out, int32_t* __restrict__ sad_out,
-                                   uint8_t* __restrict__ ok_out, int16_t* __restrict__ pred_out) {
+                                   uint8_t* __restrict__ ok_out, int16_t* __restrict__ pred_out,
+                                   int32_t* __restrict__ smv_out, int32_t* __restrict__ ssad_out,
+                                   uint8_t* __restrict__ sok_out) {
+    // the current block: int32 for the non-VBS mode's plain abs-diffs, bytes for VBS's __sad
+    using Cur = std::conditional_t<VBS, uint8_t, int32_t>;
     extern __shared__ int32_t smem[];
-    __shared__ unsigned long long s_red[32];
+    __shared__ unsigned long long s_red[33];
     const int nd = 2 * sr + 1;
     const int ncand = nd * nd;
     const int ww = bs + 2 * sr;
-    int32_t* s_cur = smem;                                        // bs * bs
-    uint8_t* s_win = reinterpret_cast<uint8_t*>(smem + bs * bs);  // ww * ww
+    Cur* s_cur = reinterpret_cast<Cur*>(smem);                   // bs * bs
+    uint8_t* s_win = reinterpret_cast<uint8_t*>(s_cur + bs * bs);  // ww * ww
     const int bj = blockIdx.x, bi = blockIdx.y;
     const int bx = bj * bs, by = bi * bs;
     const int tid = threadIdx.x;
@@ -58,7 +82,8 @@ __global__ void full_search_kernel(const uint8_t* __restrict__ cur, const uint8_
     for (int t = tid; t < bs * bs; t += blockDim.x) {
         s_cur[t] = cur[(size_t)(by + t / bs) * w + bx + t % bs];
     }
-    unsigned long long best = kNone;
+    unsigned long long best[VBS ? 5 : 1];  // the block, then its quads in Z order
+    for (auto& k : best) k = kNone;
     for (int r = 0; r < nref; ++r) {
         const uint8_t* ref = refs + (size_t)r * h * w;
         __syncthreads();  // the previous reference's window is no longer read
@@ -71,72 +96,88 @@ __global__ void full_search_kernel(const uint8_t* __restrict__ cur, const uint8_
             const int dyi = c / nd, dxi = c % nd;
             const int dx = dxi - sr, dy = dyi - sr;
             const int px = bx + dx, py = by + dy;
-            // the reference's strict bounds (x + dx == W - bs is invalid)
-            if (px < 0 || px >= w - bs || py < 0 || py >= h - bs) continue;
             const uint8_t* wp = s_win + dyi * ww + dxi;
-            int sad = 0;
-            for (int i = 0; i < bs; ++i) {
-                const int32_t* cr = s_cur + i * bs;
-                const uint8_t* rr = wp + i * ww;
-                for (int j = 0; j < bs; ++j) sad += abs(cr[j] - (int)rr[j]);
+            if constexpr (!VBS) {
+                // the reference's strict bounds (x + dx == W - bs is invalid)
+                if (!valid_whole(px, py, bs, h, w)) continue;
+                int sad = 0;
+                for (int i = 0; i < bs; ++i) {
+                    const int32_t* cr = s_cur + i * bs;
+                    const uint8_t* rr = wp + i * ww;
+                    for (int j = 0; j < bs; ++j) sad += abs(cr[j] - (int)rr[j]);
+                }
+                const unsigned long long key =
+                    ((unsigned long long)(unsigned)sad << 32) | so_search::pack_sec(dx, dy, r, dxi, dyi);
+                best[0] = key < best[0] ? key : best[0];
+            } else {
+                const int s = bs / 2;
+                bool vq[4];
+                bool any = false;
+                for (int qi = 0; qi < 4; ++qi) {
+                    vq[qi] = valid_whole(px + (qi & 1) * s, py + (qi >> 1) * s, s, h, w);
+                    any |= vq[qi];
+                }
+                const bool vf = valid_whole(px, py, bs, h, w);
+                if (!vf && !any) continue;
+                unsigned qs[4];
+                so_search::quad_sads(s_cur, wp, ww, bs, qs);
+                so_search::keep_vbs(best, qs, vf, vq, so_search::pack_sec(dx, dy, r, dxi, dyi));
             }
-            const unsigned l1 = (unsigned)(abs(dx) + abs(dy));
-            const unsigned sec = ((((l1 << 3) | (unsigned)r) << 8 | (unsigned)dxi) << 8) | (unsigned)dyi;
-            const unsigned long long key = ((unsigned long long)(unsigned)sad << 32) | sec;
-            best = key < best ? key : best;
         }
     }
-    best = warp_min(best);
-    const int warp = tid >> 5, lane = tid & 31;
-    if (lane == 0) s_red[warp] = best;
-    __syncthreads();
-    if (warp == 0) {
-        const int nw = (blockDim.x + 31) >> 5;
-        best = warp_min(lane < nw ? s_red[lane] : kNone);
-        if (lane == 0) s_red[0] = best;
-    }
-    __syncthreads();
-    best = s_red[0];
-
-    const bool ok = best != kNone;
-    const unsigned sec = (unsigned)(best & 0xffffffffull);
-    const int wdy = ok ? (int)(sec & 0xff) - sr : 0;
-    const int wdx = ok ? (int)((sec >> 8) & 0xff) - sr : 0;
-    const int wref = ok ? (int)((sec >> 16) & 0x7) : 0;
     const int b = bi * gridDim.x + bj;
-    if (tid == 0) {
-        mv_out[3 * b] = wdx;
-        mv_out[3 * b + 1] = wdy;
-        mv_out[3 * b + 2] = wref;
-        sad_out[b] = ok ? (int32_t)(best >> 32) : 0x7fffffff;
-        ok_out[b] = ok ? 1 : 0;
+    const unsigned long long v = so_search::block_min(best[0], s_red);
+    if (tid == 0) so_search::store_winner(v, sr, mv_out + 3 * b, sad_out + b, ok_out + b);
+    if constexpr (VBS) {
+        for (int k = 1; k < 5; ++k) {
+            const unsigned long long vk = so_search::block_min(best[k], s_red);
+            const int q = 4 * b + k - 1;
+            if (tid == 0) so_search::store_winner(vk, sr, smv_out + 3 * q, ssad_out + q, sok_out + q);
+        }
+    } else {
+        // a valid winner's window lies inside the frame, so read it directly;
+        // no valid candidate: a zero pred (the caller substitutes 128)
+        const bool ok = v != kNone;
+        const unsigned sec = (unsigned)(v & 0xffffffffull);
+        const int wdy = ok ? (int)(sec & 0xff) - sr : 0;
+        const int wdx = ok ? (int)((sec >> 8) & 0xff) - sr : 0;
+        const int wref = ok ? (int)((sec >> 16) & 0x7) : 0;
+        const uint8_t* ref = refs + (size_t)wref * h * w;
+        for (int t = tid; t < bs * bs; t += blockDim.x) {
+            const int i = t / bs, j = t % bs;
+            pred_out[(size_t)(by + i) * w + bx + j] =
+                ok ? (int16_t)ref[(size_t)(by + wdy + i) * w + bx + wdx + j] : (int16_t)0;
+        }
     }
-    // a valid winner's window lies inside the frame, so read it directly
-    const uint8_t* ref = refs + (size_t)wref * h * w;
-    for (int t = tid; t < bs * bs; t += blockDim.x) {
-        const int i = t / bs, j = t % bs;
-        pred_out[(size_t)(by + i) * w + bx + j] =
-            ok ? (int16_t)ref[(size_t)(by + wdy + i) * w + bx + wdx + j] : (int16_t)0;
+}
+
+template <bool VBS>
+int launch(const void* cur, const void* refs, int nref, int h, int w, int sr, int bs, void* mv, void* sad, void* ok,
+           void* pred, void* smv, void* ssad, void* sok, void* stream) {
+    const int nd = 2 * sr + 1;
+    const int threads = std::min(((nd * nd + 31) / 32) * 32, 1024);  // threads stride over the rest
+    const int ww = bs + 2 * sr;
+    const size_t smem = (size_t)bs * bs * (VBS ? 1 : sizeof(int32_t)) + (size_t)ww * ww;
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(full_search_kernel<VBS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
+        if (e != cudaSuccess) return (int)e;
     }
+    dim3 grid(w / bs, h / bs);
+    full_search_kernel<VBS><<<grid, threads, smem, (cudaStream_t)stream>>>(
+        (const uint8_t*)cur, (const uint8_t*)refs, nref, h, w, sr, bs, (int32_t*)mv, (int32_t*)sad, (uint8_t*)ok,
+        (int16_t*)pred, (int32_t*)smv, (int32_t*)ssad, (uint8_t*)sok);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int so_full_search(const void* cur, const void* refs, int nref, int h, int w, int sr, int bs,
                               void* mv, void* sad, void* ok, void* pred, void* stream) {
-    const int nd = 2 * sr + 1;
-    int threads = ((nd * nd + 31) / 32) * 32;
-    if (threads > 1024) threads = 1024;
-    const int ww = bs + 2 * sr;
-    const size_t smem = (size_t)bs * bs * sizeof(int32_t) + (size_t)ww * ww;
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(full_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    dim3 grid(w / bs, h / bs);
-    full_search_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)cur, (const uint8_t*)refs, nref, h, w, sr, bs, (int32_t*)mv, (int32_t*)sad,
-        (uint8_t*)ok, (int16_t*)pred);
-    return (int)cudaGetLastError();
+    return launch<false>(cur, refs, nref, h, w, sr, bs, mv, sad, ok, pred, nullptr, nullptr, nullptr, stream);
+}
+
+extern "C" int so_full_search_vbs(const void* cur, const void* refs, int nref, int h, int w, int sr, int bs,
+                                  void* mv, void* sad, void* ok, void* smv, void* ssad, void* sok, void* stream) {
+    return launch<true>(cur, refs, nref, h, w, sr, bs, mv, sad, ok, nullptr, smv, ssad, sok, stream);
 }

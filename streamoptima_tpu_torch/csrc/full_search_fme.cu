@@ -1,9 +1,9 @@
-// Half-pel (FME) full-search motion estimation with VBS quads for Hopper
-// (sm_90a).
+// Half-pel (FME) full-search motion estimation, with or without the VBS
+// quads, for Hopper (sm_90a).
 //
 // Replaces: streamoptima_tpu/core/me_pallas.py, _plane_search as reached
-// through full_search_pallas_fme (vbs=True, want_pred=False), together with
-// the plane-winner merge _assemble.  For every macroblock it evaluates every
+// through full_search_pallas_fme (vbs=True or False, want_pred=False),
+// together with the plane-winner merge _assemble.  For every macroblock it evaluates every
 // (ref, dy, dx) candidate of the half-pel grid in [-2sr, 2sr]^2 and keeps,
 // for the block and for each of its four quads, the lexicographic minimum
 // of (SAD, sec) with sec = ((l1 << 3 | ref) << 8 | dxi) << 8 | dyi on the
@@ -38,40 +38,21 @@
 // check their own origin and size against the reference's strict bounds and
 // the FME margin on the (2h-1, 2w-1) grid.  Five block-wide unsigned mins
 // give the winners; a key that never saw a valid candidate stays all-ones
-// and reports mv = (0, 0, 0), sad = INT32_MAX, ok = 0.  Making it fast
-// (packed byte SADs, several candidates per thread sharing loads) is later
-// work.
+// and reports mv = (0, 0, 0), sad = INT32_MAX, ok = 0.  Without VBS (the
+// kernel's template argument, so neither mode's loop branches on it) only the
+// block key is kept: candidates valid for the block alone, one SAD each.
+// Making it fast (packed byte SADs, several candidates per thread sharing
+// loads) is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "search_common.cuh"
+
 namespace {
 
-constexpr unsigned long long kNone = ~0ull;
+using so_search::kNone;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
-    for (int off = 16; off > 0; off >>= 1) {
-        unsigned long long o = __shfl_down_sync(0xffffffffu, v, off);
-        v = o < v ? o : v;
-    }
-    return v;
-}
-
-// block-wide min of one key per thread; every thread gets the result
-__device__ unsigned long long block_min(unsigned long long v, unsigned long long* s_red) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    v = warp_min(v);
-    __syncthreads();  // s_red may still be read by a previous call
-    if (lane == 0) s_red[warp] = v;
-    __syncthreads();
-    if (warp == 0) {
-        v = warp_min(lane < (int)(blockDim.x >> 5) ? s_red[lane] : kNone);
-        if (lane == 0) s_red[32] = v;
-    }
-    __syncthreads();
-    return s_red[32];
-}
 
 // the reference's candidate bounds on the half-pel grid (H2, W2) for an
 // n x n (sub)block at grid position (gx, gy), with the FME margin
@@ -80,11 +61,13 @@ __device__ __forceinline__ bool valid_fme(int gx, int gy, int n, int H2, int W2)
            gy + 2 * n >= 0 && gy + 2 * n < H2 - n;
 }
 
-__global__ void full_search_fme_vbs_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ planes,
-                                           int nref, int h, int w, int sr, int bs,
-                                           int32_t* __restrict__ mv_out, int32_t* __restrict__ sad_out,
-                                           uint8_t* __restrict__ ok_out, int32_t* __restrict__ smv_out,
-                                           int32_t* __restrict__ ssad_out, uint8_t* __restrict__ sok_out) {
+// VBS: the block key and the four quad keys; otherwise the block key alone
+template <bool VBS>
+__global__ void full_search_fme_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ planes,
+                                       int nref, int h, int w, int sr, int bs,
+                                       int32_t* __restrict__ mv_out, int32_t* __restrict__ sad_out,
+                                       uint8_t* __restrict__ ok_out, int32_t* __restrict__ smv_out,
+                                       int32_t* __restrict__ ssad_out, uint8_t* __restrict__ sok_out) {
     extern __shared__ uint8_t smem[];
     __shared__ unsigned long long s_red[33];
     const int gsr = 2 * sr;               // grid search range
@@ -117,61 +100,63 @@ __global__ void full_search_fme_vbs_kernel(const uint8_t* __restrict__ cur, cons
             const int dyi = c / nd, dxi = c % nd;
             const int dx = dxi - gsr, dy = dyi - gsr;
             const int gx = 2 * bx + dx, gy = 2 * by + dy;
-            bool vq[4];
+            bool vq[4] = {false, false, false, false};
             bool any = false;
-            for (int qi = 0; qi < 4; ++qi) {
-                vq[qi] = valid_fme(gx + 2 * (qi & 1) * s, gy + 2 * (qi >> 1) * s, s, H2, W2);
-                any |= vq[qi];
+            if constexpr (VBS) {
+                for (int qi = 0; qi < 4; ++qi) {
+                    vq[qi] = valid_fme(gx + 2 * (qi & 1) * s, gy + 2 * (qi >> 1) * s, s, H2, W2);
+                    any |= vq[qi];
+                }
             }
             const bool vf = valid_fme(gx, gy, bs, H2, W2);
             if (!vf && !any) continue;
             // parity plane (dy & 1, dx & 1) at whole-pel offset (dy >> 1, dx >> 1)
             const uint8_t* wp = s_win + ((dy & 1) * 2 + (dx & 1)) * pstride + ((dy >> 1) + sr) * ww + (dx >> 1) + sr;
-            unsigned qs[4] = {0u, 0u, 0u, 0u};
-            for (int i = 0; i < bs; ++i) {
-                const uint8_t* cr = s_cur + i * bs;
-                const uint8_t* rr = wp + i * ww;
-                const int qrow = (i >= s) * 2;
-                unsigned a = 0u, b = 0u;
-                for (int j = 0; j < s; ++j) a = __sad((unsigned)cr[j], (unsigned)rr[j], a);
-                for (int j = s; j < bs; ++j) b = __sad((unsigned)cr[j], (unsigned)rr[j], b);
-                qs[qrow] += a;
-                qs[qrow + 1] += b;
-            }
-            const unsigned l1 = (unsigned)(abs(dx) + abs(dy));
-            const unsigned long long sec =
-                ((((l1 << 3) | (unsigned)r) << 8 | (unsigned)dxi) << 8) | (unsigned)dyi;
-            if (vf) {
-                const unsigned long long key =
-                    ((unsigned long long)(qs[0] + qs[1] + qs[2] + qs[3]) << 32) | sec;
+            const unsigned long long sec = so_search::pack_sec(dx, dy, r, dxi, dyi);
+            if constexpr (!VBS) {
+                unsigned a = 0u;
+                for (int i = 0; i < bs; ++i) {
+                    const uint8_t* cr = s_cur + i * bs;
+                    const uint8_t* rr = wp + i * ww;
+                    for (int j = 0; j < bs; ++j) a = __sad((unsigned)cr[j], (unsigned)rr[j], a);
+                }
+                const unsigned long long key = ((unsigned long long)a << 32) | sec;
                 best[0] = key < best[0] ? key : best[0];
-            }
-            for (int qi = 0; qi < 4; ++qi) {
-                if (!vq[qi]) continue;
-                const unsigned long long key = ((unsigned long long)qs[qi] << 32) | sec;
-                best[qi + 1] = key < best[qi + 1] ? key : best[qi + 1];
+            } else {
+                unsigned qs[4];
+                so_search::quad_sads(s_cur, wp, ww, bs, qs);
+                so_search::keep_vbs(best, qs, vf, vq, sec);
             }
         }
     }
     const int b = bi * gridDim.x + bj;
-    for (int k = 0; k < 5; ++k) {
-        const unsigned long long v = block_min(best[k], s_red);
+    for (int k = 0; k < (VBS ? 5 : 1); ++k) {
+        const unsigned long long v = so_search::block_min(best[k], s_red);
         if (tid != 0) continue;
-        const bool ok = v != kNone;
-        const unsigned sec = (unsigned)(v & 0xffffffffull);
-        int32_t* mv = k == 0 ? mv_out + 3 * b : smv_out + 3 * (4 * b + k - 1);
-        mv[0] = ok ? (int)((sec >> 8) & 0xff) - gsr : 0;
-        mv[1] = ok ? (int)(sec & 0xff) - gsr : 0;
-        mv[2] = ok ? (int)((sec >> 16) & 0x7) : 0;
-        const int32_t sad = ok ? (int32_t)(v >> 32) : 0x7fffffff;
         if (k == 0) {
-            sad_out[b] = sad;
-            ok_out[b] = ok ? 1 : 0;
+            so_search::store_winner(v, gsr, mv_out + 3 * b, sad_out + b, ok_out + b);
         } else {
-            ssad_out[4 * b + k - 1] = sad;
-            sok_out[4 * b + k - 1] = ok ? 1 : 0;
+            const int q = 4 * b + k - 1;
+            so_search::store_winner(v, gsr, smv_out + 3 * q, ssad_out + q, sok_out + q);
         }
     }
+}
+
+template <bool VBS>
+int launch(const void* cur, const void* planes, int nref, int h, int w, int sr, int bs, void* mv, void* sad,
+           void* ok, void* smv, void* ssad, void* sok, void* stream) {
+    const int ww = bs + 2 * sr;
+    const size_t smem = (size_t)bs * bs + 4 * ((size_t)ww * ww + 4);
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(full_search_fme_kernel<VBS>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    dim3 grid(w / bs, h / bs);
+    full_search_fme_kernel<VBS><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        (const uint8_t*)cur, (const uint8_t*)planes, nref, h, w, sr, bs, (int32_t*)mv, (int32_t*)sad,
+        (uint8_t*)ok, (int32_t*)smv, (int32_t*)ssad, (uint8_t*)sok);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -179,16 +164,10 @@ __global__ void full_search_fme_vbs_kernel(const uint8_t* __restrict__ cur, cons
 extern "C" int so_full_search_fme_vbs(const void* cur, const void* planes, int nref, int h, int w, int sr, int bs,
                                       void* mv, void* sad, void* ok, void* smv, void* ssad, void* sok,
                                       void* stream) {
-    const int ww = bs + 2 * sr;
-    const size_t smem = (size_t)bs * bs + 4 * ((size_t)ww * ww + 4);
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(full_search_fme_vbs_kernel,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    dim3 grid(w / bs, h / bs);
-    full_search_fme_vbs_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)cur, (const uint8_t*)planes, nref, h, w, sr, bs, (int32_t*)mv, (int32_t*)sad,
-        (uint8_t*)ok, (int32_t*)smv, (int32_t*)ssad, (uint8_t*)sok);
-    return (int)cudaGetLastError();
+    return launch<true>(cur, planes, nref, h, w, sr, bs, mv, sad, ok, smv, ssad, sok, stream);
+}
+
+extern "C" int so_full_search_fme(const void* cur, const void* planes, int nref, int h, int w, int sr, int bs,
+                                  void* mv, void* sad, void* ok, void* stream) {
+    return launch<false>(cur, planes, nref, h, w, sr, bs, mv, sad, ok, nullptr, nullptr, nullptr, stream);
 }

@@ -1,8 +1,9 @@
-// Prediction fetch for Hopper (sm_90a): whole-pel, or half-pel (FME) with
-// the VBS quads.
+// Prediction fetch for Hopper (sm_90a): whole-pel or half-pel (FME), each
+// with or without the VBS quad plane.
 //
-// Replaces: streamoptima_tpu/core/me_pallas.py, pred_fetch_compact, in both
-// of its modes (whole-pel; FME parity planes with the quad plane), together
+// Replaces: streamoptima_tpu/core/me_pallas.py, pred_fetch_compact, in its
+// four modes (whole-pel or FME parity planes, with or without the quad
+// plane: `fme` picks the planes, a null `pred_q` drops the quads), together
 // with the FME case-B mask the JAX decoder applies after it
 // (fme_caseB_valid2) and the XLA gather step it sends case-C FME frames to.
 // Each output pixel takes its (sub)block's prediction for the block's MV

@@ -1,0 +1,93 @@
+// Pieces shared by the full-search kernels (full_search.cu and
+// full_search_fme.cu): the packed (SAD, sec) key, its block-wide minimum,
+// the four quad SADs of one candidate, and the winner's write-back.
+//
+// A key is SAD << 32 | sec with sec = ((l1 << 3 | ref) << 8 | dxi) << 8 | dyi,
+// so the lexicographic (SAD, sec) minimum of core/me.py is one unsigned min.
+// A key that never saw a valid candidate stays all-ones (kNone).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace so_search {
+
+constexpr unsigned long long kNone = ~0ull;
+
+__device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
+    for (int off = 16; off > 0; off >>= 1) {
+        unsigned long long o = __shfl_down_sync(0xffffffffu, v, off);
+        v = o < v ? o : v;
+    }
+    return v;
+}
+
+// block-wide min of one key per thread (blockDim.x a multiple of 32); every
+// thread gets the result; s_red holds 33 keys
+__device__ __forceinline__ unsigned long long block_min(unsigned long long v, unsigned long long* s_red) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    v = warp_min(v);
+    __syncthreads();  // s_red may still be read by a previous call
+    if (lane == 0) s_red[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+        v = warp_min(lane < (int)(blockDim.x >> 5) ? s_red[lane] : kNone);
+        if (lane == 0) s_red[32] = v;
+    }
+    __syncthreads();
+    return s_red[32];
+}
+
+// the tie-break half of a key: displacement (dx, dy) = (dxi, dyi) - range
+__device__ __forceinline__ unsigned long long pack_sec(int dx, int dy, int ref, int dxi, int dyi) {
+    const unsigned l1 = (unsigned)(abs(dx) + abs(dy));
+    return ((((l1 << 3) | (unsigned)ref) << 8 | (unsigned)dxi) << 8) | (unsigned)dyi;
+}
+
+// the four 8x8 quad SADs (Z order) of a bs x bs block against the window
+// at wp (row stride ww), in one pass over the pixels
+__device__ __forceinline__ void quad_sads(const uint8_t* cur, const uint8_t* wp, int ww, int bs, unsigned qs[4]) {
+    const int s = bs / 2;
+    qs[0] = qs[1] = qs[2] = qs[3] = 0u;
+    for (int i = 0; i < bs; ++i) {
+        const uint8_t* cr = cur + i * bs;
+        const uint8_t* rr = wp + i * ww;
+        const int qrow = (i >= s) * 2;
+        unsigned a = 0u, b = 0u;
+        for (int j = 0; j < s; ++j) a = __sad((unsigned)cr[j], (unsigned)rr[j], a);
+        for (int j = s; j < bs; ++j) b = __sad((unsigned)cr[j], (unsigned)rr[j], b);
+        qs[qrow] += a;
+        qs[qrow + 1] += b;
+    }
+}
+
+// fold one candidate into the block key (best[0], when the block is valid
+// there) and the quad keys (best[1..4], each where its quad is valid); the
+// block SAD is the sum of the quads'
+__device__ __forceinline__ void keep_vbs(unsigned long long best[5], const unsigned qs[4], bool vf, const bool vq[4],
+                                         unsigned long long sec) {
+    if (vf) {
+        const unsigned long long key = ((unsigned long long)(qs[0] + qs[1] + qs[2] + qs[3]) << 32) | sec;
+        best[0] = key < best[0] ? key : best[0];
+    }
+    for (int qi = 0; qi < 4; ++qi) {
+        if (!vq[qi]) continue;
+        const unsigned long long key = ((unsigned long long)qs[qi] << 32) | sec;
+        best[qi + 1] = key < best[qi + 1] ? key : best[qi + 1];
+    }
+}
+
+// a winner key -> mv (dx, dy, ref), sad and ok; no valid candidate gives
+// mv (0, 0, 0), sad INT32_MAX and ok 0
+__device__ __forceinline__ void store_winner(unsigned long long v, int range, int32_t* mv, int32_t* sad,
+                                             uint8_t* ok) {
+    const bool found = v != kNone;
+    const unsigned sec = (unsigned)(v & 0xffffffffull);
+    mv[0] = found ? (int)((sec >> 8) & 0xff) - range : 0;
+    mv[1] = found ? (int)(sec & 0xff) - range : 0;
+    mv[2] = found ? (int)((sec >> 16) & 0x7) : 0;
+    *sad = found ? (int32_t)(v >> 32) : 0x7fffffff;
+    *ok = found ? 1 : 0;
+}
+
+}  // namespace so_search

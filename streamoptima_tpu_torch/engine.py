@@ -1,34 +1,42 @@
 """PyTorch engine: per-frame encode/decode steps on one device.
 
 ``TorchCodec`` is the counterpart of ``streamoptima_tpu.jax_engine.JaxCodec``
-for I/P frames (an intra frame every ``intra_dur``), one reference frame and
-mode-0 intra.  The full search runs in two configurations:
+on one device, for every configuration but rate control, ROI and two-pass:
+I/P frames (an intra frame every ``intra_dur``), up to eight reference
+frames in a FIFO, intra mode 0 or 1 (mode 1 is mode 0 on the transposed
+frame), VBS and half-pel FME each on or off, full search or fast ME, and
+the three parallel modes' semantics.
 
-- whole-pel, no VBS: on a CUDA device the inter search runs the
-  ``full_search`` kernel (which also returns the winner's pixels) and decode
-  predicts through the ``pred_fetch`` kernel;
-- VBS + half-pel FME together: each reference's parity planes are computed
-  once per frame, the search runs the ``full_search_fme_vbs`` kernel (MVs
-  only) and both encode (on the winners) and decode (on the transmitted
-  MVs) predict through the ``pred_fetch_fme_vbs`` kernel, block and quad
-  planes in one launch.
+The full search is one kernel launch per inter frame, by tool set:
+``full_search`` (whole-pel, which also returns the winners' pixels),
+``full_search_vbs``, ``full_search_fme`` or ``full_search_fme_vbs``.  Under
+FME each reference's four parity planes are computed once per frame and
+serve the search and the fetch.  The winners' pixels (and decode's, from the
+transmitted MVs) come from the ``pred_fetch`` kernel in the matching mode:
+``pred_fetch``, ``pred_fetch_vbs``, ``pred_fetch_fme`` or
+``pred_fetch_fme_vbs``, block and quad planes in one launch.
 
 Fast ME (``fast_me``: a 3x3 search around the previous block's MV, chained
-in raster order) runs in the same two configurations.  The chain is solved
-per block row: the ``rowscan_pass`` kernel walks every row exactly from a
-guessed seed MV, and the seeds (each row's is the last MV of the row above)
-are iterated until they stop changing, starting from the previous frame's.
-One confirm pass at the converged MVPs then reads every block's candidate
-region through the ``window_fetch`` kernel and derives the block and quad
-winners (``core/fastme.py``); the winners' pixels come from the same
-``pred_fetch`` / ``pred_fetch_fme_vbs`` kernels.  Decode is the same as for
-the full search: a fast-ME stream is an ordinary MV stream.
+in raster order) solves the chain per block row: the ``rowscan_pass``
+kernel walks every row exactly from a guessed seed MV, and the seeds (each
+row's is the last MV of the row above) are iterated until they stop
+changing, starting from the previous frame's.  One confirm pass at the
+converged MVPs then reads every block's candidate region through the
+``window_fetch`` kernel and derives the block and quad winners
+(``core/fastme.py``).  Decode is the same as for the full search: a fast-ME
+stream is an ordinary MV stream.
+
+Parallel modes (the reference's multiprocessing modes, run in order on one
+device): mode 1 codes every frame as an inter frame against the all-128
+plane, by full search; mode 2 runs fast ME from a zero MVP for every block
+(no chain: one confirm pass at g = 0); mode 3 keeps the intra frames and
+predicts every inter frame from the all-128 plane.
 
 On the CPU every kernel takes its plain PyTorch version.  Every value it
 produces is bit-identical to the JAX engine's on the same input and config
 (MVs, split flags, coefficients, sizes, reconstructions).
 
-Configurations outside the slice raise ``NotImplementedError`` naming the
+Configurations outside the port raise ``NotImplementedError`` naming the
 feature; ``engine='compat'`` (the host reference engine) raises
 ``ValueError``.  Neither is a fallback.
 """
@@ -58,18 +66,10 @@ def check_slice(cfg: CodecConfig) -> None:
     """Refuse, by name, every configuration the port does not run yet."""
     if cfg.compat:
         raise ValueError("engine='compat' is the host reference engine; TorchCodec ports engine='jax'")
-    unported = {
-        # the FME + VBS search kernel serves the two together only, and
-        # fast ME is ported with both or with neither
-        "fast_me with exactly one of vbs_enable and fme_enable": cfg.fast_me and cfg.vbs_enable != cfg.fme_enable,
-        "vbs_enable without fme_enable": cfg.vbs_enable and not cfg.fme_enable,
-        "fme_enable without vbs_enable": cfg.fme_enable and not cfg.vbs_enable,
+    unported = {  # two_pass first: it implies rc_flag
+        "two_pass": cfg.two_pass,
         "rc_flag": cfg.rc_active,
         "roi_qp_map": cfg.roi_qp_map is not None,
-        "two_pass": cfg.two_pass,
-        "intra_mode=1": cfg.intra_mode == 1,
-        "parallel_mode != 0": cfg.parallel_mode != 0,
-        "n_ref_frames > 1": cfg.n_ref_frames > 1,
     }
     for name, on in unported.items():
         if on:
@@ -77,12 +77,13 @@ def check_slice(cfg: CodecConfig) -> None:
 
 
 class TorchCodec:
-    """PyTorch encoder/decoder for the ported slice, on an explicit ``device``."""
+    """PyTorch encoder/decoder for the ported configurations, on an explicit ``device``."""
 
     def __init__(self, cfg: CodecConfig, y_frames=None, *, device):
         check_slice(cfg)
         self.cfg = cfg
-        self.vbs = cfg.vbs_enable  # VBS and FME come together (check_slice)
+        self.vbs = cfg.vbs_enable
+        self.fme = cfg.fme_enable
         self.device = torch.device(device)
         self.y = None if y_frames is None else np.asarray(y_frames, dtype=np.uint8)
         # the clip is uploaded once; frames are device slices
@@ -93,13 +94,17 @@ class TorchCodec:
         self.nbr, self.nbc = cfg.block_rows, cfg.blocks_per_row
         self.nb = self.nbr * self.nbc
         self.qps = torch.full((self.nb,), cfg.qp, dtype=torch.int32, device=self.device)
-        # non-border blocks may split (jax_engine.py:68-69)
+        # non-border blocks may split (jax_engine.py:68-71); intra mode 1
+        # numbers the blocks in the transposed frame's raster order
         border = torch.zeros((self.nbr, self.nbc), dtype=torch.bool, device=self.device)
         border[0, :] = True
         border[:, 0] = True
         self.vbs_eligible = ~border.reshape(-1)
+        self.vbs_eligible_t = ~border.T.reshape(-1)
         bx, by = block_origins(self.h, self.w, self.bs, self.device)
         self.bx, self.by = bx.to(torch.int32), by.to(torch.int32)
+        # parallel mode 1 searches every frame in full (jax_engine.py:714)
+        self.fast = cfg.fast_me and cfg.parallel_mode != 1
         #: fast ME: ``rowscan_pass`` launches of each inter frame of the last encode
         self.fast_me_passes: list[int] = []
 
@@ -107,10 +112,19 @@ class TorchCodec:
     def _plane128(self) -> torch.Tensor:
         return torch.full((self.h, self.w), 128, dtype=torch.uint8, device=self.device)
 
+    def _inter_refs(self, refs: list, initial: bool) -> tuple[list, bool]:
+        """The references an inter frame predicts from: the FIFO, or under
+        parallel modes 1 and 3 the all-128 plane alone."""
+        if self.cfg.parallel_mode in (1, 3):
+            return [self._plane128()], True
+        return refs, initial
+
     def _planes(self, refs: list, initial: bool) -> torch.Tensor:
-        """Parity planes of the reference list (wrap quirk K17: no wrap only
-        for the synthetic all-128 initial reference)."""
-        return fme_parity_planes(torch.stack(refs), wrap_row_pass=not initial)
+        """The stack the searches and fetches read: (nref, 4, h, w) parity
+        planes under FME (wrap quirk K17: no wrap only for the synthetic
+        all-128 initial reference), else the (nref, h, w) frames."""
+        stack = torch.stack(refs)
+        return fme_parity_planes(stack, wrap_row_pass=not initial) if self.fme else stack
 
     def _dequant(self, qtc_full: torch.Tensor, qtc_quads: torch.Tensor):
         rf = idct2_int(rescale(qtc_full.to(torch.int32), self.qps))
@@ -118,11 +132,23 @@ class TorchCodec:
             return rf, None
         return rf, idct2_int(rescale(qtc_quads.to(torch.int32), qp_minus_1(self.qps)[:, None]))
 
-    def _select(self, res_full, res_quads, sad, sub_sad, ftype: int, ok=None, sub_ok=None):
+    def _select(self, res_full, res_quads, sad, sub_sad, ftype: int, ok=None, sub_ok=None, transposed=False):
         return rd.transform_and_select(res_full, res_quads, sad, sub_sad, ftype, self.qps,
                                        qp_nominal=int(self.cfg.qp), lam=self.cfg.lam, vbs_enable=self.vbs,
-                                       vbs_eligible=self.vbs_eligible, bs=self.bs, sbs=self.sbs,
-                                       ok_full=ok, ok_quads=sub_ok)
+                                       vbs_eligible=self.vbs_eligible_t if transposed else self.vbs_eligible,
+                                       bs=self.bs, sbs=self.sbs, ok_full=ok, ok_quads=sub_ok)
+
+    def _fetch(self, mv, sub_mv, planes):
+        """Each block's, and under VBS each quad's, prediction at the given
+        MVs: (nb, bs, bs) and (nb, 4, s, s) int32 (None without VBS), from
+        the ``pred_fetch`` kernel in the tool set's mode."""
+        bs = self.bs
+        if self.vbs:
+            fetch = K.pred_fetch_fme_vbs if self.fme else K.pred_fetch_vbs
+            pf, pq = fetch(mv, sub_mv, planes, bs)
+            return blockify(pf, bs).to(torch.int32), quads_px(pq, bs).to(torch.int32)
+        pf = (K.pred_fetch_fme if self.fme else K.pred_fetch)(mv, planes, bs)
+        return blockify(pf, bs).to(torch.int32), None
 
     def _recon_inter(self, pred_full, pred_q, split, qtc_full, qtc_quads) -> torch.Tensor:
         rf, rq = self._dequant(qtc_full, qtc_quads)
@@ -135,18 +161,25 @@ class TorchCodec:
     def _recon_intra(self, mv, split, sub_mv, qtc_full, qtc_quads) -> torch.Tensor:
         rf, rq = self._dequant(qtc_full, qtc_quads)
         # without VBS rq is None, and the split flags and sub-MVs go unread
-        frame = I.intra_reconstruct_mode0(rf, mv, self.h, self.w, self.bs, self.cfg.search_range,
-                                          residual_quads=rq, split=split, sub_mv=sub_mv)
+        sr = self.cfg.search_range
+        if self.cfg.intra_mode == 1:  # mode 0 on the transposed frame (jax_engine.py:699-704)
+            rq = None if rq is None else rq.transpose(-1, -2)
+            frame = I.intra_reconstruct_mode0(rf.transpose(-1, -2), mv, self.w, self.h, self.bs, sr,
+                                              residual_quads=rq, split=split, sub_mv=sub_mv).T.contiguous()
+        else:
+            frame = I.intra_reconstruct_mode0(rf, mv, self.h, self.w, self.bs, sr, residual_quads=rq, split=split,
+                                              sub_mv=sub_mv)
         return wrap_uint8(frame)
 
-    def _outputs(self, cur, mv, sub_mv, sel, recon) -> dict:
+    def _outputs(self, cur, mv, sub_mv, sel, recon, row_bits=None) -> dict:
         split, qtc_full, qtc_quads, lens, mae = sel
         return {
             "mv": mv, "split": split, "sub_mv": sub_mv,
             # |qtc| <= 4080 (orthonormal 16x16 DCT of +-255 residuals)
             "qtc_full": qtc_full.to(torch.int16),
             "qtc_quads": qtc_quads.to(torch.int16),
-            "size": lens.sum(), "row_bits": lens.reshape(self.nbr, self.nbc).sum(dim=1),
+            "size": lens.sum(),
+            "row_bits": lens.reshape(self.nbr, self.nbc).sum(dim=1) if row_bits is None else row_bits,
             "recon": recon,
             "mae": mae.mean(),
             "psnr": metrics.psnr(cur, recon),
@@ -155,17 +188,36 @@ class TorchCodec:
     # ------------------------------------------------------------- steps
     def _intra_step(self, cur: torch.Tensor) -> dict:
         cfg = self.cfg
+        mode1 = cfg.intra_mode == 1
         work = cur.to(torch.int32)
-        s = I.intra_search_mode0(work, self.bs, cfg.search_range, cfg.intra_canvas[1], self.vbs)
+        if mode1:  # the search runs on the transposed frame (jax_engine.py:776-815)
+            work = work.T
+        canvas_w = cfg.intra_canvas[0] if mode1 else cfg.intra_canvas[1]
+        s = I.intra_search_mode0(work, self.bs, cfg.search_range, canvas_w, self.vbs)
         sub_mv = s["sub_mv"] if self.vbs else None
         res_full, res_quads = I.intra_residuals_mode0(work, s["mv"], self.bs, cfg.search_range, sub_mv)
+        if mode1:
+            res_full = res_full.transpose(-1, -2)
+            res_quads = None if res_quads is None else res_quads.transpose(-1, -2)
         sub_sad = s["sub_sad"].reshape(self.nb, 4) if self.vbs else None
-        sel = self._select(res_full, res_quads, s["sad"].reshape(-1), sub_sad, 0)
+        sel = self._select(res_full, res_quads, s["sad"].reshape(-1), sub_sad, 0, transposed=mode1)
         mv = s["mv"].reshape(-1)
         sub_mv = sub_mv.reshape(self.nb, 4) if self.vbs else torch.zeros((self.nb, 4), dtype=torch.int32,
                                                                           device=self.device)
         recon = self._recon_intra(mv, sel[0], sub_mv, sel[1], sel[2])
-        return self._outputs(cur, mv, sub_mv, sel, recon)
+        # row bits sum pixel rows of blocks either way
+        row_bits = sel[3].reshape(self.nbc, self.nbr).sum(dim=0) if mode1 else None
+        return self._outputs(cur, mv, sub_mv, sel, recon, row_bits)
+
+    def _confirm(self, cur_blocks: torch.Tensor, planes: torch.Tensor, g: torch.Tensor) -> dict:
+        """The fast-ME 3x3 searches around MVPs ``g`` (nb, 3), block and
+        quads, from one ``window_fetch`` read of every block's region."""
+        n, fme = self.bs, self.fme
+        by0, bx0 = FM.region_base(g, self.by, self.bx, fme)
+        win = K.window_fetch(planes.reshape(-1, self.h, self.w), by0, bx0, n + 2)
+        scale = 2 if fme else 1
+        dims = (2 * self.h - 1, 2 * self.w - 1) if fme else (self.h, self.w)
+        return FM.confirm(win, cur_blocks, g, scale * self.bx, scale * self.by, n, dims, fme, self.vbs)
 
     def _fast_search_rowscan(self, cur: torch.Tensor, cur_blocks: torch.Tensor, planes: torch.Tensor,
                              g0: torch.Tensor | None) -> dict:
@@ -177,13 +229,12 @@ class TorchCodec:
         it; ``g0`` (the previous frame's converged MVPs) only saves passes.
         Testing convergence reads one flag back per pass.  planes: the
         parity planes (nref, 4, h, w) under FME, else the references."""
-        fme = self.vbs  # FME comes with VBS (check_slice)
-        S, L, n = self.nbr, self.nbc, self.bs
+        S = self.nbr
         zero = torch.zeros((1, 3), dtype=torch.int32, device=self.device)
-        seeds = zero.expand(S, 3).contiguous() if g0 is None else g0.reshape(S, L, 3)[:, 0].contiguous()
+        seeds = zero.expand(S, 3).contiguous() if g0 is None else g0.reshape(S, self.nbc, 3)[:, 0].contiguous()
         passes, changed = 0, True
         while changed and passes <= S + 1:
-            mvs = K.rowscan_pass(cur, planes, seeds, n, fme)
+            mvs = K.rowscan_pass(cur, planes, seeds, self.bs, self.fme)
             passes += 1
             nxt = torch.cat([zero, mvs[:-1, -1]])
             changed = not torch.equal(nxt, seeds)
@@ -191,54 +242,50 @@ class TorchCodec:
         self.fast_me_passes.append(passes)
         # at the fixpoint the confirm pass at the MVPs re-derives the same MVs
         g = torch.cat([zero, mvs.reshape(self.nb, 3)[:-1]])
-        by0, bx0 = FM.region_base(g, self.by, self.bx, fme)
-        win = K.window_fetch(planes.reshape(-1, self.h, self.w), by0, bx0, n + 2)
-        scale = 2 if fme else 1
-        dims = (2 * self.h - 1, 2 * self.w - 1) if fme else (self.h, self.w)
-        out = FM.confirm(win, cur_blocks, g, scale * self.bx, scale * self.by, n, dims, fme, self.vbs)
+        out = self._confirm(cur_blocks, planes, g)
         out["g_next"] = g
         return out
 
+    def _full_search(self, cur: torch.Tensor, planes: torch.Tensor):
+        """One full-search launch and the winners' predictions; blocks and
+        quads without a valid candidate take mv = (0, 0, 0) against 128s."""
+        sr, bs = self.cfg.search_range, self.bs
+        if not (self.vbs or self.fme):
+            s = K.full_search(cur, planes, sr, bs)  # returns the winners' pixels itself
+            pred_full, pred_q = blockify(s["pred"], bs).to(torch.int32), None
+        else:
+            search = {(False, True): K.full_search_vbs, (True, False): K.full_search_fme,
+                      (True, True): K.full_search_fme_vbs}[self.fme, self.vbs]
+            s = search(cur, planes, sr, bs)
+            pred_full, pred_q = self._fetch(s["mv"], s.get("sub_mv"), planes)
+        pred_full = torch.where(s["ok"][:, None, None], pred_full, 128)
+        if pred_q is not None:
+            pred_q = torch.where(s["sub_ok"][:, :, None, None], pred_q, 128)
+        return s, pred_full, pred_q
+
     def _inter_step(self, cur: torch.Tensor, refs: list, initial: bool, g0: torch.Tensor | None = None) -> dict:
-        cfg = self.cfg
         cur_blocks = blockify(cur, self.bs).to(torch.int32)
-        if cfg.fast_me:
-            planes = self._planes(refs, initial) if self.vbs else torch.stack(refs)
-            s = self._fast_search_rowscan(cur, cur_blocks, planes, g0)
+        planes = self._planes(refs, initial)
+        if self.fast:
+            if self.cfg.parallel_mode == 2:  # every block's MVP is zero (jax_engine.py:237-295)
+                s = self._confirm(cur_blocks, planes, torch.zeros((self.nb, 3), dtype=torch.int32,
+                                                                  device=self.device))
+            else:
+                s = self._fast_search_rowscan(cur, cur_blocks, planes, g0)
             # a block without a valid candidate keeps its MVP as MV (K8) and is
             # predicted at that MV like any other: no 128 mask here
-            if self.vbs:
-                pf, pq = K.pred_fetch_fme_vbs(s["mv"], s["sub_mv"], planes, self.bs)
-                pred_full, pred_q = blockify(pf, self.bs).to(torch.int32), quads_px(pq, self.bs).to(torch.int32)
-                sel = self._select(cur_blocks - pred_full, split_quads(cur_blocks) - pred_q, s["sad"], s["sub_sad"],
-                                   1, ok=s["ok"], sub_ok=s["sub_ok"])
-                sub_mv = s["sub_mv"]
-            else:
-                pred_full, pred_q = blockify(K.pred_fetch(s["mv"], planes, self.bs), self.bs).to(torch.int32), None
-                sel = self._select(cur_blocks - pred_full, None, s["sad"], None, 1, ok=s["ok"])
-                sub_mv = torch.zeros((self.nb, 4, 3), dtype=torch.int32, device=self.device)
-            recon = self._recon_inter(pred_full, pred_q, sel[0], sel[1], sel[2])
-            out = self._outputs(cur, s["mv"], sub_mv, sel, recon)
-            out["g_next"] = s["g_next"]
-            return out
-        if not self.vbs:
-            s = K.full_search(cur, torch.stack(refs), cfg.search_range, self.bs)
-            # blocks without a valid candidate take mv = (0, 0, 0) against 128s
-            pred_full = torch.where(s["ok"][:, None, None], blockify(s["pred"], self.bs).to(torch.int32), 128)
-            sel = self._select(cur_blocks - pred_full, None, s["sad"], None, 1, ok=s["ok"])
-            recon = self._recon_inter(pred_full, None, sel[0], sel[1], sel[2])
-            sub_mv = torch.zeros((self.nb, 4, 3), dtype=torch.int32, device=self.device)
-            return self._outputs(cur, s["mv"], sub_mv, sel, recon)
-        planes = self._planes(refs, initial)
-        s = K.full_search_fme_vbs(cur, planes, cfg.search_range, self.bs)
-        # the winners' pixels (case A wherever ok); no valid candidate: 128s
-        pf, pq = K.pred_fetch_fme_vbs(s["mv"], s["sub_mv"], planes, self.bs)
-        pred_full = torch.where(s["ok"][:, None, None], blockify(pf, self.bs).to(torch.int32), 128)
-        pred_q = torch.where(s["sub_ok"][:, :, None, None], quads_px(pq, self.bs).to(torch.int32), 128)
-        sel = self._select(cur_blocks - pred_full, split_quads(cur_blocks) - pred_q, s["sad"], s["sub_sad"], 1,
-                           ok=s["ok"], sub_ok=s["sub_ok"])
+            pred_full, pred_q = self._fetch(s["mv"], s.get("sub_mv"), planes)
+        else:
+            s, pred_full, pred_q = self._full_search(cur, planes)
+        res_q = split_quads(cur_blocks) - pred_q if self.vbs else None
+        sel = self._select(cur_blocks - pred_full, res_q, s["sad"], s.get("sub_sad"), 1, ok=s["ok"],
+                           sub_ok=s.get("sub_ok"))
         recon = self._recon_inter(pred_full, pred_q, sel[0], sel[1], sel[2])
-        return self._outputs(cur, s["mv"], s["sub_mv"], sel, recon)
+        sub_mv = s["sub_mv"] if self.vbs else torch.zeros((self.nb, 4, 3), dtype=torch.int32, device=self.device)
+        out = self._outputs(cur, s["mv"], sub_mv, sel, recon)
+        if "g_next" in s:
+            out["g_next"] = s["g_next"]
+        return out
 
     # ------------------------------------------------------------ encode
     def _encode_pass(self):
@@ -251,11 +298,11 @@ class TorchCodec:
         g_carry = None  # fast ME: the last inter frame's converged MVPs warm-start the next
         for i in range(cfg.frames):
             cur = self._y_dev[i]
-            if i % cfg.intra_dur == 0:
+            if i % cfg.intra_dur == 0 and cfg.parallel_mode != 1:
                 out, ftype = self._intra_step(cur), 0
             else:
-                out, ftype = self._inter_step(cur, refs, initial, g_carry), 1
-                g_carry = out.pop("g_next", None)
+                out, ftype = self._inter_step(cur, *self._inter_refs(refs, initial), g_carry), 1
+                g_carry = out.pop("g_next", g_carry)
             ftypes.append(ftype)
             per_frame.append(out)
             if i < cfg.frames - 1:
@@ -290,7 +337,7 @@ class TorchCodec:
             "residual size per frame": [int(v) for v in sizes],
             "reconstructed frames": torch.stack([o["recon"] for o in per_frame]).cpu().numpy(),
         }
-        if cfg.fast_me:
+        if self.fast:
             pkg["fast_me_passes"] = list(self.fast_me_passes)
         if package:
             pkg["MVS per Frame"] = [mvs_to_list(o, ft, self.nb) for o, ft in zip(per_frame, ftypes)]
@@ -305,6 +352,9 @@ class TorchCodec:
         output) into a list of (h, w) uint8 device tensors."""
         cfg = self.cfg
         n, nb, bs, s = len(frame_types), self.nb, self.bs, self.sbs
+        # parallel mode 1 decodes every frame as an inter frame against the
+        # all-128 plane (jax_engine.py:1180-1196)
+        all_inter = cfg.parallel_mode == 1
         # host pass: pack the clip's MVs, split flags and coefficients for
         # one upload each.  A block is split or not, so its full-block and
         # quad coefficients share one (bs, bs) payload slot.
@@ -321,9 +371,10 @@ class TorchCodec:
                 smv_all[i, :, :, 0] = smv_np
             else:
                 refs_used = np.concatenate([mv_np[:, 2], smv_np[:, :, 2].reshape(-1)])
-                if refs_used.min(initial=0) < 0 or refs_used.max(initial=0) >= nref:
+                held = 1 if cfg.parallel_mode in (1, 3) else nref
+                if refs_used.min(initial=0) < 0 or refs_used.max(initial=0) >= held:
                     raise ValueError(f"corrupt stream: frame {i} references a frame outside "
-                                     f"its {nref}-frame reference list")
+                                     f"its {held}-frame reference list")
                 mv_all[i] = mv_np
                 smv_all[i] = smv_np
             split_all[i] = split_np
@@ -341,16 +392,13 @@ class TorchCodec:
         initial = True
         for i in range(n):
             qf, qq = unpack_payload(d_split[i], d_pay[i], self.vbs)
-            if int(frame_types[i]) == 0:
+            if int(frame_types[i]) == 0 and not all_inter:
                 f = self._recon_intra(d_mv[i, :, 0], d_split[i], d_smv[i, :, :, 0] if self.vbs else None, qf, qq)
                 refs = []
-            elif self.vbs:
-                pf, pq = K.pred_fetch_fme_vbs(d_mv[i], d_smv[i], self._planes(refs, initial), bs)
-                f = self._recon_inter(blockify(pf, bs).to(torch.int32), quads_px(pq, bs).to(torch.int32),
-                                      d_split[i], qf, qq)
             else:
-                pred = K.pred_fetch(d_mv[i], torch.stack(refs), bs)
-                f = self._recon_inter(blockify(pred, bs).to(torch.int32), None, d_split[i], qf, qq)
+                pf, pq = self._fetch(d_mv[i], d_smv[i] if self.vbs else None,
+                                     self._planes(*self._inter_refs(refs, initial)))
+                f = self._recon_inter(pf, pq, d_split[i], qf, qq)
             out.append(f)
             if i < n - 1:
                 if len(refs) >= cfg.n_ref_frames:

@@ -1,13 +1,16 @@
 """Where the 720p main path's time goes on one CUDA card.
 
-    python3 -m streamoptima_tpu_torch.profile_main_path [--frames 16] [--reps 20] [--vbs-fme] [--fast]
+    python3 -m streamoptima_tpu_torch.profile_main_path [--frames 16] [--reps 20] [--vbs] [--fme] [--nref N]
+                                                         [--fast]
 
 Runs the ``chip_smoke.py`` configuration (720p IPPP, bs=16, sr=8, qp=4,
-intra_dur=8, one reference, whole-pel full search; with ``--vbs-fme`` its
-VBS + half-pel FME path instead; with ``--fast`` fast ME at sr=16, whole-pel
-or, with both flags, with VBS + FME) on ``synthetic_clip`` (seed 42) and
-prints, for one intra step, one inter step, a whole encode and a device
-decode of the same clip:
+intra_dur=8, one reference, whole-pel full search) with the tools the flags
+add: ``--vbs`` variable block size, ``--fme`` half-pel FME, ``--nref N`` N
+reference frames, ``--fast`` fast ME at sr=16.  So ``--vbs`` is
+``[main-vbs]``, ``--nref 4`` ``[main-nref4]``, ``--vbs --fme``
+``[main-vbs-fme]`` and ``--fast --vbs --fme`` ``[main-fast-vbs-fme]``.  On
+``synthetic_clip`` (seed 42) it prints, for one intra step, one inter step,
+a whole encode and a device decode of the same clip:
 
 - the host-clock median and quartiles of synchronised runs, without the
   profiler;
@@ -17,7 +20,9 @@ decode of the same clip:
 
 Under ``--fast`` the inter step is timed warm-started from its own converged
 MVPs, as every inter frame after a clip's first runs, and the passes per
-inter frame of the encode are printed.
+inter frame of the encode are printed.  The inter step codes frame N
+(N = ``--nref``, below ``intra_dur``) from the reconstructions of frames 0
+to N - 1: the reference FIFO the encode holds there, full.
 
 Writes nothing but standard output.  Needs a CUDA card.
 """
@@ -72,7 +77,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--reps", type=int, default=20, help="timed runs per step; whole runs take half")
-    ap.add_argument("--vbs-fme", action="store_true", help="the VBS + half-pel FME path")
+    ap.add_argument("--vbs", action="store_true", help="variable block size")
+    ap.add_argument("--fme", action="store_true", help="half-pel FME")
+    ap.add_argument("--nref", type=int, default=1, help="reference frames (1 to 8)")
     ap.add_argument("--fast", action="store_true", help="fast ME at sr=16 instead of the full search at sr=8")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -83,23 +90,26 @@ def main() -> None:
 
     n = args.frames
     cfg = CodecConfig(height=720, width=1280, frames=n, block_size=16, search_range=16 if args.fast else 8, qp=4,
-                      intra_dur=8, lam=0.015, vbs_enable=args.vbs_fme, fme_enable=args.vbs_fme, fast_me=args.fast)
-    print(f"[config] 720p, {n} frames, sr={cfg.search_range}, {'VBS + half-pel FME' if args.vbs_fme else 'whole-pel'} "
-          f"{'fast ME' if args.fast else 'full search'}")
+                      intra_dur=8, lam=0.015, vbs_enable=args.vbs, fme_enable=args.fme, fast_me=args.fast,
+                      n_ref_frames=args.nref)
+    tools = " + ".join(t for t, on in (("VBS", args.vbs), ("half-pel FME", args.fme)) if on) or "whole-pel"
+    print(f"[config] 720p, {n} frames, sr={cfg.search_range}, {tools}, {'fast ME' if args.fast else 'full search'}, "
+          f"{args.nref} reference frame(s)")
     codec = TorchCodec(cfg, synthetic_clip(720, 1280, n), device=torch.device("cuda"))
     pkg = codec.encode(package=False)
     fts = pkg["frame_type_seq"]
     pairs = [frame_arrays_of(o, ft) for o, ft in zip(pkg["per_frame"], fts)]
     mvs, res = [m for m, _ in pairs], [r for _, r in pairs]
-    y0, y1 = codec._y_dev[0], codec._y_dev[1]
-    refs = [pkg["per_frame"][0]["recon"]]
+    y0, y1 = codec._y_dev[0], codec._y_dev[args.nref]
+    refs = [o["recon"] for o in pkg["per_frame"][:args.nref]]  # the full FIFO at frame nref
     g0 = None
     if args.fast:
         print(f"[fast ME] rowscan_pass passes per inter frame of the encode: {pkg['fast_me_passes']}")
         g0 = codec._inter_step(y1, refs, False)["g_next"]
 
     steps = (("intra step (1 frame)", lambda: codec._intra_step(y0), args.reps),
-             ("inter step (1 frame)", lambda: codec._inter_step(y1, refs, False, g0), args.reps),
+             (f"inter step (1 frame, {args.nref} reference(s))", lambda: codec._inter_step(y1, refs, False, g0),
+              args.reps),
              (f"encode, {n} frames", lambda: codec.encode(package=False), max(args.reps // 2, 1)),
              (f"device decode, {n} frames", lambda: codec.decode(fts, res, [[]] * n, mvs), max(args.reps // 2, 1)))
     medians = {}

@@ -137,6 +137,12 @@ def test_list_package_roundtrip_and_files(encoded, tmp_path):
     ({"parallel_mode": 2, "vbs_enable": True, "fme_enable": True}, "parallel_mode"),
 ])
 def test_unported_features_raise_by_name(kw, feature):
+    """RC and ROI raise by name.  Every other feature of the list is ported
+    now: it constructs, and beside an ROI map the ROI map is named."""
+    if feature not in ("rc_flag", "roi_qp_map"):
+        TorchCodec(_cfg(8, **kw), device="cpu")
+        VideoCodec(_cfg(8, **kw), device="cpu")
+        kw, feature = dict(kw, roi_qp_map=np.zeros(24, np.int32)), "roi_qp_map"
     with pytest.raises(NotImplementedError, match=feature):
         TorchCodec(_cfg(8, **kw), device="cpu")
     with pytest.raises(NotImplementedError, match=feature):
@@ -170,7 +176,9 @@ def test_corrupt_reference_index_rejected_before_launch(encoded):
 def test_port_runs_without_importing_jax(tmp_path):
     """A fresh interpreter (not a fork of this JAX process) drives the port's
     encode -> text bitstream -> decode, whole-pel and VBS + FME, full search
-    and fast ME, and never imports jax or the JAX package."""
+    and fast ME, VBS alone with two references and intra mode 1, and fast ME
+    with FME alone under parallel mode 2, and never imports jax or the JAX
+    package."""
     code = textwrap.dedent(f"""
         import sys
         import numpy as np
@@ -178,7 +186,9 @@ def test_port_runs_without_importing_jax(tmp_path):
         import streamoptima_tpu_torch.profile_main_path
         import streamoptima_tpu_torch.core.fastme
         vf = {{"vbs_enable": True, "fme_enable": True}}
-        for extra in ({{}}, vf, {{"fast_me": True}}, {{"fast_me": True, **vf}}):
+        tools = {{"vbs_enable": True, "n_ref_frames": 2, "intra_mode": 1}}
+        pm2 = {{"fast_me": True, "fme_enable": True, "parallel_mode": 2}}
+        for extra in ({{}}, vf, {{"fast_me": True}}, {{"fast_me": True, **vf}}, tools, pm2):
             cfg = CodecConfig(height=32, width=48, frames=3, search_range=4, qp=4, intra_dur=2, **extra)
             v = VideoCodec(cfg, synthetic_clip(32, 48, 3), device="cpu")
             pkg = v.encode(package=False)

@@ -139,16 +139,26 @@ def test_fast_me_list_package_roundtrip(encoded, tmp_path):
 
 @pytest.mark.parametrize("one", ["vbs_enable", "fme_enable"])
 def test_fast_me_with_one_of_vbs_fme_refused_by_name(one):
+    """Fast ME with exactly one of VBS and FME is ported now (its parity with
+    JaxCodec is ``tests/test_torch_tools.py``'s); beside rate control it is
+    refused, naming rate control."""
     cfg = CodecConfig(**BASE, **{one: True})
-    with pytest.raises(NotImplementedError, match="fast_me with exactly one of vbs_enable and fme_enable"):
-        check_slice(cfg)
-    with pytest.raises(NotImplementedError, match="fast_me"):
-        VideoCodec(cfg, device="cpu")
+    check_slice(cfg)
+    VideoCodec(cfg, device="cpu")
+    rc = CodecConfig(**BASE, **{one: True}, rc_flag=1, target_br="1 mbps", qp_rate_tables=[[1.0] * 12] * 2)
+    with pytest.raises(NotImplementedError, match="rc_flag"):
+        check_slice(rc)
+    with pytest.raises(NotImplementedError, match="rc_flag"):
+        VideoCodec(rc, device="cpu")
 
 
 @pytest.mark.parametrize("kw,feature", [({"parallel_mode": 2}, "parallel_mode"), ({"n_ref_frames": 2}, "n_ref_frames"),
                                         ({"intra_mode": 1}, "intra_mode=1")])
 def test_fast_me_outside_the_slice_still_refused_by_name(kw, feature):
+    """``feature`` is ported now with every fast-ME mode; an ROI map beside
+    it is refused by name."""
     for mode in MODES.values():
-        with pytest.raises(NotImplementedError, match=feature):
-            TorchCodec(CodecConfig(**mode, **kw), device="cpu")
+        TorchCodec(CodecConfig(**mode, **kw), device="cpu")
+        roi = np.zeros(mode["height"] * mode["width"] // 256, np.int32)
+        with pytest.raises(NotImplementedError, match="roi_qp_map"):
+            TorchCodec(CodecConfig(**mode, **kw, roi_qp_map=roi), device="cpu")

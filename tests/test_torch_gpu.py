@@ -247,3 +247,135 @@ def test_engine_fast_me_on_card_matches_cpu(cuda, extra):
     for fa, fb in zip(a["per_frame"], b["per_frame"]):
         for k in ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "size"):
             assert torch.equal(fa[k].cpu(), fb[k]), k
+
+
+# ---------------------------------- the tool matrix: VBS or FME alone, nref <= 8
+@pytest.mark.parametrize("content", ["random", "flat"])
+@pytest.mark.parametrize("nref", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_search_kernel_modes_match_plain_up_to_eight_references(cuda, nref, content):
+    """Whole-pel with and without VBS, FME with and without VBS: each search
+    kernel against its plain version, on random content and on all-tie
+    content where the tie-break crosses references."""
+    h, w, sr = 48, 64, 4
+    rng = np.random.default_rng(nref)
+    if content == "flat":
+        cur = torch.full((h, w), 90, dtype=torch.uint8, device=cuda)
+        refs = torch.full((nref, h, w), 90, dtype=torch.uint8, device=cuda)
+    else:
+        cur = torch.from_numpy(rng.integers(0, 256, (h, w), dtype=np.uint8)).to(cuda)
+        refs = torch.from_numpy(rng.integers(0, 256, (nref, h, w), dtype=np.uint8)).to(cuda)
+    planes = M.fme_parity_planes(refs, True)
+    _search_equal(K.full_search(cur, refs, sr, 16), K.full_search_plain(cur, refs, sr, 16))
+    for fn, plain, inp in ((K.full_search_vbs, K.full_search_vbs_plain, refs),
+                           (K.full_search_fme, K.full_search_fme_plain, planes),
+                           (K.full_search_fme_vbs, K.full_search_fme_vbs_plain, planes)):
+        n0 = fn.launches
+        got = fn(cur, inp, sr, 16)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1
+        want = plain(cur, inp, sr, 16)
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (fn.__name__, k)
+
+
+@pytest.mark.parametrize("h,w,sr", [(64, 96, 8), (96, 128, 16), (48, 16, 4), (64, 64, 40)])
+def test_vbs_search_kernel_matches_plain_at_other_shapes(cuda, h, w, sr):
+    """One block column (no block valid, every quad valid) and a range whose
+    candidates outnumber the threads."""
+    rng = np.random.default_rng(h + w + sr)
+    cur = torch.from_numpy(rng.integers(0, 256, (h, w), dtype=np.uint8)).to(cuda)
+    refs = torch.from_numpy(rng.integers(0, 256, (2, h, w), dtype=np.uint8)).to(cuda)
+    got, want = K.full_search_vbs(cur, refs, sr, 16), K.full_search_vbs_plain(cur, refs, sr, 16)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("nref", [1, 3, 8])
+@pytest.mark.parametrize("bound", [4, 60, 5000])
+def test_fetch_kernel_modes_match_plain(cuda, bound, nref):
+    """Whole-pel with the quad plane and FME without it, every case, MVs far
+    past the frame too, up to eight references."""
+    rng = np.random.default_rng(bound + nref)
+    h, w = 64, 96
+    nb = (h // 16) * (w // 16)
+    refs = torch.from_numpy(rng.integers(0, 256, (nref, h, w), dtype=np.uint8)).to(cuda)
+    planes = M.fme_parity_planes(refs, True)
+    mv = np.stack([rng.integers(-bound, bound + 1, nb), rng.integers(-bound, bound + 1, nb),
+                   rng.integers(0, nref, nb)], 1).astype(np.int32)
+    smv = np.stack([rng.integers(-bound, bound + 1, (nb, 4)), rng.integers(-bound, bound + 1, (nb, 4)),
+                    rng.integers(0, nref, (nb, 4))], 2).astype(np.int32)
+    mv, smv = torch.from_numpy(mv).to(cuda), torch.from_numpy(smv).to(cuda)
+    n0 = (K.pred_fetch_vbs.launches, K.pred_fetch_fme.launches)
+    got_v, got_f = K.pred_fetch_vbs(mv, smv, refs, 16), K.pred_fetch_fme(mv, planes, 16)
+    torch.cuda.synchronize()
+    assert (K.pred_fetch_vbs.launches, K.pred_fetch_fme.launches) == (n0[0] + 1, n0[1] + 1)
+    want_v = K.pred_fetch_vbs_plain(mv, smv, refs, 16)
+    assert torch.equal(got_v[0], want_v[0]) and torch.equal(got_v[1], want_v[1])
+    assert torch.equal(got_f, K.pred_fetch_fme_plain(mv, planes, 16))
+    assert torch.equal(K.pred_fetch(mv, refs, 16), K.pred_fetch_plain(mv, refs, 16))
+    got_fv = K.pred_fetch_fme_vbs(mv, smv, planes, 16)
+    want_fv = K.pred_fetch_fme_vbs_plain(mv, smv, planes, 16)
+    assert torch.equal(got_fv[0], want_fv[0]) and torch.equal(got_fv[1], want_fv[1])
+
+
+@pytest.mark.parametrize("fme", [False, True])
+@pytest.mark.parametrize("nref", [3, 8])
+def test_rowscan_pass_kernel_matches_plain_with_many_references(cuda, nref, fme):
+    rng = np.random.default_rng(nref + fme)
+    cur, planes = _chain_inputs(cuda, rng, 96, 256, nref, fme, "random")
+    seeds = torch.from_numpy(np.stack([rng.integers(-5, 6, 6), rng.integers(-5, 6, 6), rng.integers(0, nref, 6)],
+                                      1).astype(np.int32)).to(cuda)
+    assert torch.equal(K.rowscan_pass(cur, planes, seeds, 16, fme), K.rowscan_pass_plain(cur, planes, seeds, 16, fme))
+
+
+TOOLS = {
+    "vbs": dict(search_range=8, vbs_enable=True),
+    "fme": dict(search_range=8, fme_enable=True),
+    "fast_vbs": dict(search_range=16, fast_me=True, vbs_enable=True),
+    "fast_fme": dict(search_range=16, fast_me=True, fme_enable=True),
+    "nref3": dict(search_range=8, n_ref_frames=3),
+    "nref8_vbs_fme": dict(search_range=8, n_ref_frames=8, vbs_enable=True, fme_enable=True, intra_dur=10),
+    "nref3_fast_vbs_fme": dict(search_range=16, n_ref_frames=3, fast_me=True, vbs_enable=True, fme_enable=True),
+    "intra1_sr8_vbs": dict(search_range=8, intra_mode=1, vbs_enable=True),
+    "intra1_sr16": dict(search_range=16, intra_mode=1),
+    "pm1": dict(search_range=8, parallel_mode=1),
+    "pm2_fast": dict(search_range=16, parallel_mode=2, fast_me=True),
+    "pm2_fast_vbs_fme": dict(search_range=16, parallel_mode=2, fast_me=True, vbs_enable=True, fme_enable=True),
+    "pm3": dict(search_range=8, parallel_mode=3),
+    "pm3_fast": dict(search_range=16, parallel_mode=3, fast_me=True),
+}
+
+
+@pytest.mark.parametrize("name", list(TOOLS))
+def test_tool_matrix_on_card_never_calls_a_plain_version(cuda, name, monkeypatch):
+    """The CPU port's encode first (plain versions), then the card's with
+    every ``*_plain`` function patched to raise: encode and decode on the
+    card must equal it and go through the kernels only."""
+    from streamoptima_tpu_torch.core import fastme as FM
+    from streamoptima_tpu_torch.engine import frame_arrays_of
+
+    kw = dict(height=64, width=96, frames=11, qp=4, intra_dur=4, lam=0.015)
+    kw.update(TOOLS[name])
+    cfg = CodecConfig(**kw)
+    clip = synthetic_clip(64, 96, 11, seed=3)
+    b = TorchCodec(cfg, clip, device="cpu").encode(package=False)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod in (K, FM):
+        for attr in dir(mod):
+            if attr.endswith("_plain"):
+                monkeypatch.setattr(mod, attr, refuse)
+    codec = TorchCodec(cfg, clip, device=cuda)
+    a = codec.encode(package=False)
+    np.testing.assert_array_equal(a["reconstructed frames"], b["reconstructed frames"])
+    assert a.get("fast_me_passes") == b.get("fast_me_passes")
+    for fa, fb in zip(a["per_frame"], b["per_frame"]):
+        for k in ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "size", "row_bits"):
+            assert torch.equal(fa[k].cpu(), fb[k]), k
+    fts = a["frame_type_seq"]
+    pairs = [frame_arrays_of(o, ft) for o, ft in zip(a["per_frame"], fts)]
+    dec = codec.decode(fts, [r for _, r in pairs], [[]] * len(fts), [m for m, _ in pairs])
+    np.testing.assert_array_equal(torch.stack(dec).cpu().numpy(), b["reconstructed frames"])
