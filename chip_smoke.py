@@ -29,6 +29,23 @@ All are 720p, bs=16, qp=4, intra_dur=8, lam=0.015 on
   (intra mode 1, VBS, sr=16), ``[main-pm1]``, ``[main-pm2]`` (fast ME, sr=16)
   and ``[main-pm3]`` (the three parallel modes).
 
+The mesh (``streamoptima_tpu_torch.parallel``) runs on six shards of the one
+card, ``make_mesh(cfg, devices=[cuda:0] * 6)``: data 2 x tile 3, each tile
+240 rows with ``search_range + 1`` halo rows of its neighbours.  Six shards
+on one card measure correctness and the host's cost, not scaling.
+
+- ``[mesh]``: ``[main]``'s config, 16 frames; ``[mesh-vbs-fme]``:
+  ``[main-vbs-fme]``'s, 16 frames; ``[mesh-vbs]`` and ``[mesh-fme]``: VBS or
+  FME alone, 8 frames.  Each, besides ``_drive``'s checks, must equal the
+  single-device encode bit for bit (MVs, coefficients, sizes, PSNR,
+  reconstructions, text bitstream bytes) and the ``tile_comm="all_gather"``
+  encode; every launch of its search and fetch is a band launch, three per
+  inter frame.
+
+Before the paths, the band phase holds each search and fetch mode on the
+three tiles' halo bands (sr = 8, zero rows past the frame's edges) against
+its plain version, and times the three launches of one frame.
+
 Should the run outgrow its time, the 16-frame full-search paths are the ones
 to cut to 8 frames first.
 
@@ -51,7 +68,10 @@ The two fast-ME rows carry the whole-pel mode's numbers under
 and ``pred_fetch`` carry their numbers at four references (``[main-nref4]``)
 under ``nref4_*`` keys, and ``full_search_vbs`` its numbers at sr=16
 (``[main-intra1]``: 33^2 candidates, more than a CUDA block's 1024 threads)
-under ``sr16_*`` keys.
+under ``sr16_*`` keys.  The eight band modes are rows of their own
+(``"<kernel> band"``): time, plain time and bound per launch (the mean over
+the three tiles; ``frame_ms`` is one frame's three launches), launches on
+the mesh paths.
 """
 from __future__ import annotations
 
@@ -65,6 +85,7 @@ import numpy as np
 import torch
 
 from streamoptima_tpu_torch import CodecConfig, _build, native, synthetic_clip
+from streamoptima_tpu_torch import bitstream as BS
 from streamoptima_tpu_torch.codec import VideoCodec
 from streamoptima_tpu_torch.core import fastme as FM
 from streamoptima_tpu_torch.core import kernels as K
@@ -72,7 +93,9 @@ from streamoptima_tpu_torch.core import me as M
 from streamoptima_tpu_torch.core import transform as T
 from streamoptima_tpu_torch.core.blocks import blockify
 from streamoptima_tpu_torch.core.pred import gather_predictions
-from streamoptima_tpu_torch.engine import TorchCodec
+from streamoptima_tpu_torch.engine import TorchCodec, frame_arrays_of
+from streamoptima_tpu_torch.parallel import ShardedCodec, make_mesh
+from streamoptima_tpu_torch.parallel.mesh import _halo_band
 
 H, W, FRAMES = 720, 1280, 16
 BS_, SR, QP, INTRA_DUR = 16, 8, 4, 8
@@ -99,6 +122,15 @@ TOOLS = {
 KERNELS = {name: getattr(K, name) for name in (
     "full_search", "full_search_vbs", "full_search_fme", "full_search_fme_vbs", "pred_fetch", "pred_fetch_vbs",
     "pred_fetch_fme", "pred_fetch_fme_vbs", "rowscan_pass", "window_fetch")}
+N_SHARDS, N_TILES = 6, 3  # make_mesh at 720p (45 block rows): data 2 x tile 3
+#: the band modes: kernel -> (source, the TPU function's line, VBS, FME)
+BAND_MODES = {
+    "full_search": ("full_search.cu", 213, False, False), "full_search_vbs": ("full_search.cu", 213, True, False),
+    "full_search_fme": ("full_search_fme.cu", 621, False, True),
+    "full_search_fme_vbs": ("full_search_fme.cu", 621, True, True),
+    "pred_fetch": ("pred_fetch.cu", 1020, False, False), "pred_fetch_vbs": ("pred_fetch.cu", 1020, True, False),
+    "pred_fetch_fme": ("pred_fetch.cu", 1020, False, True), "pred_fetch_fme_vbs": ("pred_fetch.cu", 1020, True, True),
+}
 
 
 def _cfg(h=H, w=W, frames=FRAMES, **kw) -> CodecConfig:
@@ -151,14 +183,18 @@ def _bound(nbytes: float, ops: float, int_ops_per_ms: float) -> tuple[float, str
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _search_ops(h: int, w: int, nref: int, fme: bool, dev, vbs: bool = True, sr: int = SR) -> int:
+def _search_ops(h: int, w: int, nref: int, fme: bool, dev, vbs: bool = True, sr: int = SR, g_row0: int = 0,
+                frame_h: int | None = None) -> int:
     """Abs-diff-accumulates the search kernels do on these inputs: every
     pixel of every candidate that is valid for the block (or, with VBS, for
-    the block or one of its quads)."""
+    the block or one of its quads); for a tile, frame rows [g_row0, g_row0 +
+    h) of a ``frame_h``-row frame."""
     bx, by = M.block_origins(h, w, BS_, dev)
     qx, qy = M.quad_origins(h, w, BS_, dev)
+    by, qy = by + g_row0, qy + g_row0
+    fh = h if frame_h is None else frame_h
     scale, gsr = (2, 2 * sr) if fme else (1, sr)
-    H, W = (2 * h - 1, 2 * w - 1) if fme else (h, w)
+    H, W = (2 * fh - 1, 2 * w - 1) if fme else (fh, w)
     ok = M.candidate_valid_mask(scale * bx, scale * by, gsr, BS_, H, W, fme=fme)
     if vbs:
         vq = M.candidate_valid_mask(scale * qx.reshape(-1), scale * qy.reshape(-1), gsr, BS_ // 2, H, W, fme=fme)
@@ -166,19 +202,25 @@ def _search_ops(h: int, w: int, nref: int, fme: bool, dev, vbs: bool = True, sr:
     return int(ok.sum()) * BS_ * BS_ * nref
 
 
-def _fetch_bytes_read(mv, refs, sub_mv=None, fme=False) -> int:
+def _fetch_bytes_read(mv, refs, sub_mv=None, fme=False, band_row0=0, g_row0=0, grid=None) -> int:
     """Distinct reference bytes the fetch reads for these MVs: the plain
-    gather on a grid of byte indices (fills 0 and 128 lie below them)."""
+    gather on a grid of byte indices (fills 0 and 128 lie below them); with
+    a band, as the band fetch reads it."""
     base = 1000
     idx = torch.arange(refs.numel(), device=refs.device, dtype=torch.int64).reshape(refs.shape) + base
-    h, w = refs.shape[-2:]
-    grid = M.grid_of_planes(idx) if fme else idx
+    w = refs.shape[-1]
+    h = mv.shape[0] // (w // BS_) * BS_
+    fh = refs.shape[-2] if grid is None else grid[0]
+    g = M.grid_of_planes(idx) if fme else idx
+    scale = 2 if fme else 1
+    band = {"grid_dims": (scale * fh - (scale - 1), scale * w - (scale - 1)),
+            "origin_row": scale * (g_row0 - band_row0)}
     bx, by = M.block_origins(h, w, BS_, refs.device)
-    got = [gather_predictions(mv, grid, bx, by, BS_, fme=fme).reshape(-1)]
+    got = [gather_predictions(mv, g, bx, by + g_row0, BS_, fme=fme, **band).reshape(-1)]
     if sub_mv is not None:
         qx, qy = M.quad_origins(h, w, BS_, refs.device)
-        got.append(gather_predictions(sub_mv.reshape(-1, 3), grid, qx.reshape(-1), qy.reshape(-1), BS_ // 2,
-                                      fme=fme).reshape(-1))
+        got.append(gather_predictions(sub_mv.reshape(-1, 3), g, qx.reshape(-1), qy.reshape(-1) + g_row0, BS_ // 2,
+                                      fme=fme, **band).reshape(-1))
     got = torch.cat(got)
     return int(torch.unique(got[got >= base]).numel())
 
@@ -231,19 +273,29 @@ def _adversarial_mvs(rng, nb: int, bound: int) -> np.ndarray:
     return mv
 
 
-def _drive(label: str, extra: dict, clip: np.ndarray, dev, frames: int = FRAMES, **expected) -> dict:
+def _drive(label: str, extra: dict, clip: np.ndarray, dev, frames: int = FRAMES, mesh: bool = False,
+           **expected) -> dict:
     """One path through the facade: encode -> text bitstream -> decode from
     the files -> in-memory decode, each bit-exact with the encoder's
     reconstructions.  Every kernel's launch count is zeroed just before the
     encode and read just after the file decode; ``expected`` names the
     kernels the path must launch and how often ("passes": the encode's
-    ``rowscan_pass`` passes), every other kernel never."""
+    ``rowscan_pass`` passes), every other kernel never.  ``mesh``: on the
+    six-shard mesh of the card, not on the device."""
     clip = clip[:frames]
-    warm = VideoCodec(_cfg(frames=3, **extra), clip[:3], device=dev)  # one-time library / allocator set-up
+
+    def where(cfg):
+        return {"mesh": make_mesh(cfg, devices=[dev] * N_SHARDS)} if mesh else {"device": dev}
+
+    warm_cfg = _cfg(frames=3, **extra)
+    warm = VideoCodec(warm_cfg, clip[:3], **where(warm_cfg))  # one-time library / allocator set-up
     warm.encode(compute_ssim=False, package=False)
+    cfg = _cfg(frames=frames, **extra)
+    if mesh:
+        _require(where(cfg)["mesh"].devices.shape == (N_SHARDS // N_TILES, N_TILES), f"{label}: mesh shape")
     for fn in KERNELS.values():
         fn.launches = 0
-    enc = VideoCodec(_cfg(frames=frames, **extra), clip, device=dev)
+    enc = VideoCodec(cfg, clip, **where(cfg))
     torch.cuda.synchronize()
     pkg = enc.encode(package=False)  # ends in a device-to-host copy of the stats: synchronised
     enc_s = pkg["timing"]["total_s"]
@@ -252,7 +304,7 @@ def _drive(label: str, extra: dict, clip: np.ndarray, dev, frames: int = FRAMES,
         t0 = time.perf_counter()
         enc.transmit_bitstream(mv_f, res_f)
         tx_s = time.perf_counter() - t0
-        dec = VideoCodec(_cfg(frames=frames, **extra), device=dev)
+        dec = VideoCodec(cfg, **where(cfg))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         decoded = dec.decode_bitstream(mv_f, res_f)  # ends in a device-to-host copy
@@ -293,6 +345,40 @@ def _drive(label: str, extra: dict, clip: np.ndarray, dev, frames: int = FRAMES,
     _require(launches == {k: v for k, v in expected.items() if v},
              f"kernel launches in the {label} path {launches}, expected {expected}")
     return {"launches": launches, "pkg": pkg, "n_inter": n_inter}
+
+
+def _stream_bytes(pkg: dict, cfg: CodecConfig) -> bytes:
+    """The text bitstream of an encode(package=False) package."""
+    pairs = [frame_arrays_of(o, ft) for o, ft in zip(pkg["per_frame"], pkg["frame_type_seq"])]
+    with tempfile.TemporaryDirectory() as d:
+        mv_f, res_f = Path(d) / "mv.txt", Path(d) / "res.txt"
+        BS.write_bitstream(mv_f, res_f, pkg["frame_type_seq"], [m for m, _ in pairs], pkg["Qp_per_row_per_frame"],
+                           [r for _, r in pairs], cfg)
+        return mv_f.read_bytes() + b"|" + res_f.read_bytes()
+
+
+def _require_same_encode(what: str, a: dict, b: dict) -> None:
+    """Two encode(package=False) packages equal bit for bit."""
+    for k in ("frame_type_seq", "residual size per frame", "PSNR per frame", "MAE per Frame"):
+        _require(a[k] == b[k], f"{what}: {k} differs")
+    _require(np.array_equal(a["reconstructed frames"], b["reconstructed frames"]), f"{what}: reconstructions differ")
+    for i, (fa, fb) in enumerate(zip(a["per_frame"], b["per_frame"])):
+        for k in ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "row_bits"):
+            _require(torch.equal(fa[k].cpu(), fb[k].cpu()), f"{what}: frame {i} {k} differs")
+
+
+def _check_mesh(label: str, extra: dict, clip: np.ndarray, dev, run: dict, frames: int = FRAMES) -> None:
+    """A mesh path's encode against the single-device encode and against the
+    all-gather mesh encode, bit for bit (after the counted run)."""
+    cfg = _cfg(frames=frames, **extra)
+    clip = clip[:frames]
+    single = TorchCodec(cfg, clip, device=dev).encode(package=False)
+    _require_same_encode(f"{label} vs the single-device encode", run["pkg"], single)
+    _require(_stream_bytes(run["pkg"], cfg) == _stream_bytes(single, cfg), f"{label}: text bitstream bytes differ")
+    gathered = ShardedCodec(cfg, make_mesh(cfg, devices=[dev] * N_SHARDS), clip, tile_comm="all_gather")
+    _require_same_encode(f"{label} all_gather vs halo", gathered.encode(package=False), run["pkg"])
+    print(f"[{label}] == the single-device encode (MVs, coefficients, sizes, PSNR, recon, text bitstream bytes) and "
+          f"== tile_comm='all_gather', bit for bit", flush=True)
 
 
 def main() -> None:
@@ -495,6 +581,64 @@ def main() -> None:
               f"0) on adversarial and converged confirm origins; {ch['wms']:.4f} ms vs plain (one indexing read) "
               f"{ch['wplain_ms']:.4f} ms (host enqueue {host_f:.4f} ms per call)", flush=True)
 
+    # band inputs: each mode on the three tiles of a tile-3 split (240 rows), a halo of sr + 1 rows of each
+    # neighbour and zero rows past the frame's edges, as the mesh paths call them
+    h_t, halo = H // N_TILES, SR + 1
+    nb_t = nb // N_TILES
+    band_pairs = {name: [] for name in ("clip", "flat_ties")}  # per tile: cur, band, its parity planes, band kwargs
+    for name in band_pairs:
+        c, r = pairs[name]
+        for t in range(N_TILES):
+            band = _halo_band(list(r[0].split(h_t)), t, halo, dev)[None].contiguous()
+            band_pairs[name].append((c[t * h_t:(t + 1) * h_t].contiguous(), band,
+                                     M.fme_parity_planes(band, wrap_row_pass=True),
+                                     {"band_row0": halo, "g_row0": t * h_t, "grid": (H, W)}))
+    bands = band_pairs["clip"]
+    band = {}  # mode -> this run's max error, times per launch, and the bound's bytes and operations (three tiles)
+
+    def hold_band(name: str, sets: dict, reps: int, plain_reps: int, nbytes: float, ops: float, what: str) -> None:
+        """``sets``: input set -> per tile, the call's positional inputs and band kwargs."""
+        fn, plain = KERNELS[name], getattr(K, f"{name}_plain")
+        err = max(_check_equal(f"{name} band {k} tile {t}", fn(*a, **kw), plain(*a, **kw))
+                  for k, calls in sets.items() for t, (a, kw) in enumerate(calls))
+        calls = next(iter(sets.values()))
+        ms, host = _time_ms(lambda: [fn(*a, **kw) for a, kw in calls], reps, cyc)
+        plain_ms, _ = _time_ms(lambda: [plain(*a, **kw) for a, kw in calls], plain_reps, cyc)
+        band[name] = {"err": err, "ms": ms / N_TILES, "plain_ms": plain_ms / N_TILES, "frame_ms": ms,
+                      "bytes": nbytes / N_TILES, "ops": ops / N_TILES}
+        print(f"[band] {name} 720p, {N_TILES} tiles of {h_t} rows, halo {halo} ({what}): bit-equal (tolerance 0) on "
+              f"{list(sets)}; {ms:.4f} ms for the three launches of a frame ({ms / N_TILES:.4f} per launch) vs plain "
+              f"{plain_ms:.4f} ms (host enqueue {host / N_TILES:.4f} ms per launch)", flush=True)
+
+    out_v_t = nb_t * 5 * (12 + 4 + 1)
+    for name in ("full_search", "full_search_vbs", "full_search_fme", "full_search_fme_vbs"):
+        _, _, vbs, fme = BAND_MODES[name]
+        sets = {k: [((c, p if fme else b, SR, BS_), kw) for c, b, p, kw in v] for k, v in band_pairs.items()}
+        nbytes = sum(c.numel() + (p if fme else b).numel() for c, b, p, _ in bands) + N_TILES * (
+            out_v_t if vbs else nb_t * 17 + (0 if fme else 2 * h_t * W))
+        ops = sum(_search_ops(h_t, W, 1, fme, dev, vbs=vbs, g_row0=t * h_t, frame_h=H) for t in range(N_TILES))
+        hold_band(name, sets, 50, 5, nbytes, ops, f"sr={SR}" + (" half-pel" if fme else "") + (" VBS" if vbs else ""))
+    # the fetches: the band search's winners, and adversarial MVs whose windows reach into and past the halo
+    winners = {False: [K.full_search_vbs(c, b, SR, BS_, **kw) for c, b, _, kw in bands],
+               True: [K.full_search_fme_vbs(c, p, SR, BS_, **kw) for c, _, p, kw in bands]}
+    for name in ("pred_fetch", "pred_fetch_vbs", "pred_fetch_fme", "pred_fetch_fme_vbs"):
+        _, _, vbs, fme = BAND_MODES[name]
+        reach = (2 if fme else 1) * 3 * halo
+        adv_sets, win_sets, nbytes = [], [], 0
+        for t, (c, b, p, kw) in enumerate(bands):
+            refs_t = p if fme else b
+            mv_a = _adversarial_mvs(rng, nb, reach)[:nb_t]
+            mv_a[:, 1] = rng.integers(-reach, reach + 1, nb_t)
+            smv_a = np.stack([_adversarial_mvs(rng, nb, reach)[:nb_t] for _ in range(4)], 1)
+            mv_a, smv_a = torch.from_numpy(mv_a).to(dev), torch.from_numpy(smv_a).to(dev)
+            wn = winners[fme][t]
+            adv_sets.append(((mv_a, smv_a, refs_t, BS_) if vbs else (mv_a, refs_t, BS_), kw))
+            win_sets.append(((wn["mv"], wn["sub_mv"], refs_t, BS_) if vbs else (wn["mv"], refs_t, BS_), kw))
+            nbytes += nb_t * (5 if vbs else 1) * 12 + (4 if vbs else 2) * h_t * W + _fetch_bytes_read(
+                wn["mv"], refs_t, wn["sub_mv"] if vbs else None, fme, **kw)
+        hold_band(name, {"search_winners": win_sets, "adversarial": adv_sets}, 200, 20, nbytes, 0,
+                  ("half-pel, cases A, B, C" if fme else "whole-pel") + (" with the quad plane" if vbs else ""))
+
     x = rng.integers(-255, 256, (nb, 16, 16)).astype(np.int32)
     x[0], x[1] = 255, -255
     t = rng.integers(-12288, 12289, (nb, 16, 16)).astype(np.int32)
@@ -555,6 +699,19 @@ def main() -> None:
     }
     for label in ("main-vbs", "main-fast-vbs", "main-intra1"):
         _require(sum(int(o["split"].sum()) for o in tools[label]["pkg"]["per_frame"]) > 0, f"{label} split no block")
+    # the mesh: three band searches per inter frame (and, but for the whole-pel kernel that keeps its
+    # winners' pixels, three winner fetches), three band fetches per inter frame in decode
+    tiled = {"n": N_TILES * N_INTER, "n8": N_TILES * n8}
+    meshes = {
+        "mesh": ({}, FRAMES, {"full_search": tiled["n"], "pred_fetch": tiled["n"]}),
+        "mesh-vbs-fme": (VBS_FME, FRAMES, {"full_search_fme_vbs": tiled["n"], "pred_fetch_fme_vbs": 2 * tiled["n"]}),
+        "mesh-vbs": (TOOLS["main-vbs"], 8, {"full_search_vbs": tiled["n8"], "pred_fetch_vbs": 2 * tiled["n8"]}),
+        "mesh-fme": (TOOLS["main-fme"], 8, {"full_search_fme": tiled["n8"], "pred_fetch_fme": 2 * tiled["n8"]}),
+    }
+    mesh_runs = {}
+    for label, (extra, frames, expected) in meshes.items():
+        mesh_runs[label] = _drive(label, extra, clip, dev, frames, mesh=True, **expected)
+        _check_mesh(label, extra, clip, dev, mesh_runs[label], frames)
     refs_used = {int(r) for o in tools["main-nref4"]["pkg"]["per_frame"][1:8] for r in o["mv"][:, 2].unique()}
     _require(len(refs_used) > 1, f"main-nref4: inter frames chose only reference {sorted(refs_used)}")
 
@@ -615,6 +772,13 @@ def main() -> None:
     for row, wp in zip(rows[True], rows[False]):
         row.update({f"whole_pel_{k}": wp[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                                       "bound_by", "library_ms")})
+        kernels.append(row)
+    for name, (source, replaces, _, _) in BAND_MODES.items():  # the band modes, per launch on a tile
+        b = band[name]
+        launches = sum(r["launches"].get(name, 0) for r in mesh_runs.values())
+        row = _kernel_row(f"{name} band", source, replaces, launches, b["err"], b["ms"], b["plain_ms"], b["bytes"],
+                          b["ops"], int_ops_per_ms)
+        row["frame_ms"] = b["frame_ms"]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

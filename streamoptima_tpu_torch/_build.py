@@ -96,15 +96,16 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     lib = ctypes.CDLL(str(build().path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.so_full_search.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p]
+    band = [i, i, i, i]  # bandh, band_row0, g_row0, H
+    lib.so_full_search.argtypes = [p, p, i, i, i, i, i, *band, p, p, p, p, p]
     lib.so_full_search.restype = i
-    lib.so_full_search_vbs.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p, p, p]
+    lib.so_full_search_vbs.argtypes = [p, p, i, i, i, i, i, *band, p, p, p, p, p, p, p]
     lib.so_full_search_vbs.restype = i
-    lib.so_full_search_fme.argtypes = [p, p, i, i, i, i, i, p, p, p, p]
+    lib.so_full_search_fme.argtypes = [p, p, i, i, i, i, i, *band, p, p, p, p]
     lib.so_full_search_fme.restype = i
-    lib.so_full_search_fme_vbs.argtypes = [p, p, i, i, i, i, i, p, p, p, p, p, p, p]
+    lib.so_full_search_fme_vbs.argtypes = [p, p, i, i, i, i, i, *band, p, p, p, p, p, p, p]
     lib.so_full_search_fme_vbs.restype = i
-    lib.so_pred_fetch.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
+    lib.so_pred_fetch.argtypes = [p, p, p, i, i, i, i, i, *band, p, p, p]
     lib.so_pred_fetch.restype = i
     lib.so_window_fetch.argtypes = [p, p, p, i, i, i, i, i, i, p, p]
     lib.so_window_fetch.restype = i

@@ -12,6 +12,13 @@ Counterpart of ``streamoptima_tpu.codec.VideoCodec`` for the main path::
 The bitstream is written through ``bitstream.write_bitstream`` with the
 array-form interchange (byte-identical to the JAX engine's files); the
 binary container waits for a later port.
+
+With ``mesh=`` in place of ``device=`` (``parallel.make_mesh``), encode and
+decode go through ``parallel.ShardedCodec``, GOP- and row-tile-sharded over
+the mesh's devices, with the same package and streams::
+
+    mesh = make_mesh(cfg, devices=["cuda:0"] * 6)   # or ["cpu"] * 8
+    codec = VideoCodec(cfg, y_frames, mesh=mesh)
 """
 from __future__ import annotations
 
@@ -25,16 +32,24 @@ from streamoptima_tpu_torch import metrics
 from streamoptima_tpu_torch.config import CodecConfig
 from streamoptima_tpu_torch.io.video import VideoManager
 from streamoptima_tpu_torch.engine import TorchCodec, check_slice, frame_arrays_of
+from streamoptima_tpu_torch.parallel import ShardedCodec
 
 
 class VideoCodec:
-    """Encode/decode facade over ``TorchCodec`` with file-level APIs."""
+    """Encode/decode facade over ``TorchCodec`` on one ``device``, or over
+    ``ShardedCodec`` on a ``mesh``, with file-level APIs."""
 
-    def __init__(self, cfg: CodecConfig, y_frames=None, *, device):
+    def __init__(self, cfg: CodecConfig, y_frames=None, *, device=None, mesh=None):
+        if (device is None) == (mesh is None):
+            raise TypeError("VideoCodec runs on one device or on a mesh: give exactly one of device= and mesh=")
         self.cfg = cfg
-        self.device = torch.device(device)
-        self._dec = TorchCodec(cfg, device=self.device)  # refuses configs outside the slice
-        self._enc = TorchCodec(cfg, y_frames, device=self.device) if y_frames is not None else None
+        self.mesh = mesh
+        if mesh is not None:  # both refuse configs outside the slice
+            self._enc = ShardedCodec(cfg, mesh, y_frames) if y_frames is not None else None
+            self._dec = self._enc or ShardedCodec(cfg, mesh)
+        else:
+            self._dec = TorchCodec(cfg, device=device)
+            self._enc = TorchCodec(cfg, y_frames, device=device) if y_frames is not None else None
         self._pkg = None
         self._decoded = None
 

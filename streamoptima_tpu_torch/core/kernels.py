@@ -22,6 +22,14 @@
                             or FME (csrc/rowscan_pass.cu; replaces
                             me_pallas.rowscan_pass with pass_prep).
 
+The searches and fetches also take a band of the frame in place of the
+whole frame (a mesh tile's, ``parallel/mesh.py``; me_pallas's ``read_row0``,
+``g_px0`` and ``grid_dims``): ``cur`` (or the MVs' blocks) are frame rows
+[g_row0, g_row0 + h), held at rows [band_row0, band_row0 + h) of the
+(bandh, w) reference band, and ``grid`` is the whole frame's (H, w).  Every
+bound and case is evaluated at frame rows; the defaults (0, 0, the band's
+own size) are the whole-frame call.
+
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take.  A tensor on the CPU goes to the kernel's plain
 PyTorch version (``<wrapper>_plain``); a CUDA tensor launches the kernel or
@@ -71,6 +79,26 @@ def _check_search(cur: torch.Tensor, refs: torch.Tensor, nref: int, grid_sr: int
         raise ValueError(f"the search runs on cpu or cuda tensors, not {cur.device}")
 
 
+def _check_band(cur_hw: tuple, band_hw: tuple, band_row0: int, g_row0: int, grid, reach=None) -> int:
+    """Check a band's geometry (module docstring); returns the frame height H.
+
+    ``reach``: the frame rows above and below cur that a search reads; the
+    band must hold those that lie in the frame."""
+    h, w = cur_hw
+    bandh, bw = band_hw
+    H, W = (bandh, w) if grid is None else grid
+    if bw != w or W != w:
+        raise ValueError(f"refs {bandh}x{bw} in a {H}x{W} frame do not match cur's width {w}")
+    if min(band_row0, g_row0) < 0 or band_row0 + h > bandh or g_row0 + h > H:
+        raise ValueError(f"cur's {h} rows at refs row {band_row0} (frame row {g_row0}) do not fit refs of {bandh} "
+                         f"rows in a {H}-row frame")
+    if reach is not None and (band_row0 < min(reach[0], g_row0)
+                              or bandh - band_row0 - h < min(reach[1], H - g_row0 - h)):
+        raise ValueError(f"refs hold {band_row0} rows above cur and {bandh - band_row0 - h} below; the search "
+                         f"reads {reach[0]} above and {reach[1]} below")
+    return H
+
+
 def _launch_check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
@@ -81,19 +109,28 @@ def _stream(dev: torch.device) -> int:
 
 
 # ------------------------------------------------------------ full search
-def full_search_plain(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int) -> dict:
+def _grid(refs: torch.Tensor, grid) -> tuple[int, int]:
+    return (refs.shape[-2], refs.shape[-1]) if grid is None else tuple(grid)
+
+
+def full_search_plain(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int, *, band_row0: int = 0,
+                      g_row0: int = 0, grid=None) -> dict:
     """Plain PyTorch version of the ``full_search`` kernel (any device)."""
     h, w = cur.shape
-    out = M.full_search_materialized(cur, refs, sr, bs)
+    dims = _grid(refs, grid)
+    out = M.full_search_materialized(cur, refs, sr, bs, row_offset=band_row0, grid_dims=dims,
+                                     valid_row_offset=g_row0)
     bx, by = M.block_origins(h, w, bs, cur.device)
-    g = gather_predictions(out["mv"], refs, bx, by, bs)
+    g = gather_predictions(out["mv"], refs, bx, by + g_row0, bs, grid_dims=dims, origin_row=g_row0 - band_row0)
     g = torch.where(out["ok"][:, None, None], g, 0)  # no valid candidate: zeros
     out["pred"] = unblockify(g, h, w).to(torch.int16)
     return out
 
 
-def full_search(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int) -> dict:
-    """Whole-pel full search of ``cur`` (h, w) over ``refs`` (nref, h, w).
+def full_search(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int, *, band_row0: int = 0, g_row0: int = 0,
+                grid=None) -> dict:
+    """Whole-pel full search of ``cur`` (h, w) over ``refs`` (nref, bandh, w),
+    the frames or a band of them (module docstring).
 
     Both uint8.  Returns {"mv": (nb, 3) int32 [dx, dy, ref], "sad": (nb,)
     int32, "ok": (nb,) bool, "pred": (h, w) int16} — the non-VBS contract of
@@ -104,12 +141,11 @@ def full_search(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int) -> dict
     _check_plane(cur, "cur", 2)
     _check_plane(refs, "refs", 3)
     h, w = cur.shape
-    nref = refs.shape[0]
-    if refs.shape[1:] != cur.shape:
-        raise ValueError(f"refs {tuple(refs.shape)} do not match cur {tuple(cur.shape)}")
+    nref, bandh = refs.shape[:2]
+    H = _check_band(cur.shape, refs.shape[1:], band_row0, g_row0, grid, (sr, sr))
     _check_search(cur, refs, nref, sr, bs)
     if cur.device.type == "cpu":
-        return full_search_plain(cur, refs, sr, bs)
+        return full_search_plain(cur, refs, sr, bs, band_row0=band_row0, g_row0=g_row0, grid=(H, w))
     if bs * bs * 4 + (bs + 2 * sr) ** 2 > _SMEM_LIMIT:
         raise ValueError(f"bs={bs}, sr={sr}: the search window exceeds a block's shared memory")
     from streamoptima_tpu_torch._build import library
@@ -122,8 +158,8 @@ def full_search(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int) -> dict
     ok = torch.empty((nb,), dtype=torch.bool, device=dev)
     pred = torch.empty((h, w), dtype=torch.int16, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.so_full_search(cur.data_ptr(), refs.data_ptr(), nref, h, w, sr, bs, mv.data_ptr(),
-                                sad.data_ptr(), ok.data_ptr(), pred.data_ptr(), _stream(dev))
+        rc = lib.so_full_search(cur.data_ptr(), refs.data_ptr(), nref, h, w, sr, bs, bandh, band_row0, g_row0, H,
+                                mv.data_ptr(), sad.data_ptr(), ok.data_ptr(), pred.data_ptr(), _stream(dev))
     _launch_check(rc, "full_search")
     full_search.launches += 1
     return {"mv": mv, "sad": sad, "ok": ok, "pred": pred}
@@ -138,9 +174,10 @@ _QUAD_KEYS = ("sub_mv", "sub_sad", "sub_ok")
 
 
 def _launch_search(entry: str, cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int, vbs: bool,
-                   smem: int) -> dict:
+                   smem: int, band: tuple) -> dict:
     """Allocate the outputs and launch one MVs-only search kernel, which
-    stages ``smem`` bytes of shared memory per macroblock."""
+    stages ``smem`` bytes of shared memory per macroblock; ``band`` is
+    (band_row0, g_row0, H)."""
     if smem > _SMEM_LIMIT:
         raise ValueError(f"bs={bs}, sr={sr}: the search windows exceed a block's shared memory")
     from streamoptima_tpu_torch._build import library
@@ -152,19 +189,23 @@ def _launch_search(entry: str, cur: torch.Tensor, refs: torch.Tensor, sr: int, b
     out = {k: torch.empty(shapes[k], dtype=torch.bool if k.endswith("ok") else torch.int32, device=dev) for k in keys}
     with torch.cuda.device(dev):
         rc = getattr(library(), f"so_{entry}")(cur.data_ptr(), refs.data_ptr(), refs.shape[0], h, w, sr, bs,
-                                               *(out[k].data_ptr() for k in keys), _stream(dev))
+                                               refs.shape[-2], *band, *(out[k].data_ptr() for k in keys),
+                                               _stream(dev))
     _launch_check(rc, entry)
     return out
 
 
-def full_search_vbs_plain(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int) -> dict:
+def full_search_vbs_plain(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int, *, band_row0: int = 0,
+                          g_row0: int = 0, grid=None) -> dict:
     """Plain PyTorch version of the ``full_search_vbs`` kernel (any device)."""
-    return M.full_search_materialized(cur, refs, sr, bs, vbs=True)
+    return M.full_search_materialized(cur, refs, sr, bs, vbs=True, row_offset=band_row0,
+                                      grid_dims=_grid(refs, grid), valid_row_offset=g_row0)
 
 
-def full_search_vbs(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int) -> dict:
-    """Whole-pel full search of ``cur`` (h, w) over ``refs`` (nref, h, w),
-    both uint8, with the VBS quads.
+def full_search_vbs(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int, *, band_row0: int = 0,
+                    g_row0: int = 0, grid=None) -> dict:
+    """Whole-pel full search of ``cur`` (h, w) over ``refs`` (nref, bandh,
+    w), the frames or a band of them, both uint8, with the VBS quads.
 
     Returns {"mv", "sad", "ok"} per block ((nb, 3) int32, (nb,) int32,
     (nb,) bool) and {"sub_mv", "sub_sad", "sub_ok"} per quad ((nb, 4, 3),
@@ -175,14 +216,14 @@ def full_search_vbs(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int) -> 
     """
     _check_plane(cur, "cur", 2)
     _check_plane(refs, "refs", 3)
-    if refs.shape[1:] != cur.shape:
-        raise ValueError(f"refs {tuple(refs.shape)} do not match cur {tuple(cur.shape)}")
+    H = _check_band(cur.shape, refs.shape[1:], band_row0, g_row0, grid, (sr, sr))
     if bs % 2:
         raise ValueError(f"VBS needs an even block size, got {bs}")
     _check_search(cur, refs, refs.shape[0], sr, bs)
     if cur.device.type == "cpu":
-        return full_search_vbs_plain(cur, refs, sr, bs)
-    out = _launch_search("full_search_vbs", cur, refs, sr, bs, True, bs * bs + (bs + 2 * sr) ** 2)
+        return full_search_vbs_plain(cur, refs, sr, bs, band_row0=band_row0, g_row0=g_row0, grid=(H, cur.shape[1]))
+    out = _launch_search("full_search_vbs", cur, refs, sr, bs, True, bs * bs + (bs + 2 * sr) ** 2,
+                         (band_row0, g_row0, H))
     full_search_vbs.launches += 1
     return out
 
@@ -190,46 +231,63 @@ def full_search_vbs(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int) -> 
 full_search_vbs.launches = 0
 
 
-def full_search_fme_plain(cur: torch.Tensor, planes: torch.Tensor, sr: int, bs: int) -> dict:
-    """Plain PyTorch version of the ``full_search_fme`` kernel (any device):
-    the stride-2 materialized search on the half-pel grid that the parity
-    planes interleave into."""
-    return M.full_search_materialized(cur, M.grid_of_planes(planes), 2 * sr, bs, fme=True)
+def _fme_search_plain(cur, planes, sr, bs, vbs, band_row0, g_row0, grid) -> dict:
+    """The stride-2 materialized search on the half-pel grid that the parity
+    planes interleave into (rows and bounds on the grid: doubled)."""
+    H, W = _grid(planes, grid)
+    return M.full_search_materialized(cur, M.grid_of_planes(planes), 2 * sr, bs, fme=True, vbs=vbs,
+                                      row_offset=2 * band_row0, grid_dims=(2 * H - 1, 2 * W - 1),
+                                      valid_row_offset=2 * g_row0)
 
 
-def full_search_fme_vbs_plain(cur: torch.Tensor, planes: torch.Tensor, sr: int, bs: int) -> dict:
+def full_search_fme_plain(cur: torch.Tensor, planes: torch.Tensor, sr: int, bs: int, *, band_row0: int = 0,
+                          g_row0: int = 0, grid=None) -> dict:
+    """Plain PyTorch version of the ``full_search_fme`` kernel (any device)."""
+    return _fme_search_plain(cur, planes, sr, bs, False, band_row0, g_row0, grid)
+
+
+def full_search_fme_vbs_plain(cur: torch.Tensor, planes: torch.Tensor, sr: int, bs: int, *, band_row0: int = 0,
+                              g_row0: int = 0, grid=None) -> dict:
     """Plain PyTorch version of the ``full_search_fme_vbs`` kernel (any device)."""
-    return M.full_search_materialized(cur, M.grid_of_planes(planes), 2 * sr, bs, fme=True, vbs=True)
+    return _fme_search_plain(cur, planes, sr, bs, True, band_row0, g_row0, grid)
 
 
-def _check_fme_search(cur: torch.Tensor, planes: torch.Tensor, sr: int, bs: int, vbs: bool) -> None:
+def _check_fme_search(cur: torch.Tensor, planes: torch.Tensor, sr: int, bs: int, vbs: bool, band_row0: int,
+                      g_row0: int, grid) -> int:
+    """Check an FME search's inputs; returns the frame height H.  The
+    candidates' half-pel rows reach sr frame rows above cur and, through the
+    interpolation, sr + 1 below."""
     _check_plane(cur, "cur", 2)
     _check_plane(planes, "planes", 4)
-    h, w = cur.shape
-    if planes.shape[1:] != (4, h, w):
-        raise ValueError(f"planes {tuple(planes.shape)} are not (nref, 4, {h}, {w})")
+    if planes.shape[1] != 4:
+        raise ValueError(f"planes {tuple(planes.shape)} are not (nref, 4, bandh, w)")
+    H = _check_band(cur.shape, planes.shape[2:], band_row0, g_row0, grid, (sr, sr + 1))
     if vbs and bs % 2:
         raise ValueError(f"VBS needs an even block size, got {bs}")
     _check_search(cur, planes, planes.shape[0], 2 * sr, bs)
+    return H
 
 
 def _fme_smem(sr: int, bs: int) -> int:
     return bs * bs + 4 * ((bs + 2 * sr) ** 2 + 4)  # the block and the four plane windows
 
 
-def full_search_fme(cur: torch.Tensor, planes: torch.Tensor, sr: int, bs: int) -> dict:
+def full_search_fme(cur: torch.Tensor, planes: torch.Tensor, sr: int, bs: int, *, band_row0: int = 0,
+                    g_row0: int = 0, grid=None) -> dict:
     """Half-pel full search of ``cur`` (h, w) uint8, block winners only.
 
-    planes: (nref, 4, h, w) uint8, the parity planes of each reference
-    (``me.fme_parity_planes``).  Candidates span +-2sr on the half-pel grid.
+    planes: (nref, 4, bandh, w) uint8, the parity planes of each reference
+    (``me.fme_parity_planes``) or of a band of it (module docstring; the
+    grid is then (2H - 1, 2w - 1)).  Candidates span +-2sr on the half-pel
+    grid.
     Returns {"mv", "sad", "ok"} ((nb, 3) int32, (nb,) int32, (nb,) bool) —
     the ``full_search_pallas_fme(vbs=False, want_pred=False)`` contract.  No
     valid candidate: mv = (0, 0, 0), sad = INT32_MAX, ok False.
     """
-    _check_fme_search(cur, planes, sr, bs, False)
+    H = _check_fme_search(cur, planes, sr, bs, False, band_row0, g_row0, grid)
     if cur.device.type == "cpu":
-        return full_search_fme_plain(cur, planes, sr, bs)
-    out = _launch_search("full_search_fme", cur, planes, sr, bs, False, _fme_smem(sr, bs))
+        return full_search_fme_plain(cur, planes, sr, bs, band_row0=band_row0, g_row0=g_row0, grid=(H, cur.shape[1]))
+    out = _launch_search("full_search_fme", cur, planes, sr, bs, False, _fme_smem(sr, bs), (band_row0, g_row0, H))
     full_search_fme.launches += 1
     return out
 
@@ -237,16 +295,19 @@ def full_search_fme(cur: torch.Tensor, planes: torch.Tensor, sr: int, bs: int) -
 full_search_fme.launches = 0
 
 
-def full_search_fme_vbs(cur: torch.Tensor, planes: torch.Tensor, sr: int, bs: int) -> dict:
+def full_search_fme_vbs(cur: torch.Tensor, planes: torch.Tensor, sr: int, bs: int, *, band_row0: int = 0,
+                        g_row0: int = 0, grid=None) -> dict:
     """``full_search_fme`` with the VBS quads: also {"sub_mv", "sub_sad",
     "sub_ok"} per quad ((nb, 4, 3), (nb, 4), (nb, 4)) in Z order, each quad
     with its own validity — the ``full_search_pallas_fme(vbs=True,
     want_pred=False)`` contract.
     """
-    _check_fme_search(cur, planes, sr, bs, True)
+    H = _check_fme_search(cur, planes, sr, bs, True, band_row0, g_row0, grid)
     if cur.device.type == "cpu":
-        return full_search_fme_vbs_plain(cur, planes, sr, bs)
-    out = _launch_search("full_search_fme_vbs", cur, planes, sr, bs, True, _fme_smem(sr, bs))
+        return full_search_fme_vbs_plain(cur, planes, sr, bs, band_row0=band_row0, g_row0=g_row0,
+                                         grid=(H, cur.shape[1]))
+    out = _launch_search("full_search_fme_vbs", cur, planes, sr, bs, True, _fme_smem(sr, bs),
+                         (band_row0, g_row0, H))
     full_search_fme_vbs.launches += 1
     return out
 
@@ -255,54 +316,74 @@ full_search_fme_vbs.launches = 0
 
 
 # ------------------------------------------------------------- pred fetch
-def pred_fetch_plain(mv: torch.Tensor, refs: torch.Tensor, bs: int) -> torch.Tensor:
+# Each fetch returns the (h, w) planes of the rows its MVs' blocks cover: the
+# whole frame, or with a band (module docstring) the h = nb / (w / bs) * bs
+# rows at g_row0.  A read in the frame but outside the band takes the band's
+# nearest row, as the JAX band gather does.
+def _fetch_origins(h: int, w: int, bs: int, g_row0: int, device):
+    bx, by = M.block_origins(h, w, bs, device)
+    return bx, by + g_row0
+
+
+def pred_fetch_plain(mv: torch.Tensor, refs: torch.Tensor, bs: int, *, band_row0: int = 0, g_row0: int = 0,
+                     grid=None) -> torch.Tensor:
     """Plain PyTorch version of the ``pred_fetch`` kernel (any device)."""
-    h, w = refs.shape[-2:]
-    bx, by = M.block_origins(h, w, bs, refs.device)
-    return unblockify(gather_predictions(mv, refs, bx, by, bs), h, w).to(torch.int16)
+    w = refs.shape[-1]
+    h = mv.shape[0] // (w // bs) * bs
+    bx, by = _fetch_origins(h, w, bs, g_row0, refs.device)
+    return unblockify(gather_predictions(mv, refs, bx, by, bs, grid_dims=_grid(refs, grid),
+                                         origin_row=g_row0 - band_row0), h, w).to(torch.int16)
 
 
-def _check_fetch(mv: torch.Tensor, refs: torch.Tensor, h: int, w: int, bs: int) -> int:
-    if h % bs or w % bs or mv.shape[0] != (h // bs) * (w // bs):
-        raise ValueError(f"mv has {mv.shape[0]} blocks; a {h}x{w} frame at bs={bs} has "
-                         f"{(h // bs) * (w // bs)}")
+def _check_fetch(mv: torch.Tensor, refs: torch.Tensor, bs: int, band_row0: int, g_row0: int, grid):
+    """Check a fetch's MVs and band; returns (h, w, H) of the output rows
+    and the frame."""
+    bandh, w = refs.shape[-2:]
+    nbc = w // bs
+    if w % bs or mv.shape[0] % max(nbc, 1) or mv.shape[0] == 0:
+        raise ValueError(f"mv has {mv.shape[0]} blocks, not whole rows of a {w}-pixel-wide frame at bs={bs}")
+    h = mv.shape[0] // nbc * bs
+    H = _check_band((h, w), (bandh, w), band_row0, g_row0, grid)
     _check_mv(mv, "mv", (mv.shape[0], 3), refs.device)
     if refs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"pred_fetch runs on cpu or cuda tensors, not {refs.device}")
-    return mv.shape[0]
+    return h, w, H
 
 
-def _launch_fetch(what: str, mv: torch.Tensor, sub_mv, planes: torch.Tensor, nref: int, bs: int, fme: bool):
-    """Allocate the prediction plane(s) and launch the ``pred_fetch`` kernel;
-    the quad plane is fetched when ``sub_mv`` is given."""
+def _launch_fetch(what: str, mv: torch.Tensor, sub_mv, planes: torch.Tensor, bs: int, fme: bool, h: int,
+                  band: tuple):
+    """Allocate the (h, w) prediction plane(s) and launch the ``pred_fetch``
+    kernel; the quad plane is fetched when ``sub_mv`` is given.  ``band`` is
+    (band_row0, g_row0, H)."""
     from streamoptima_tpu_torch._build import library
 
-    h, w = planes.shape[-2:]
+    bandh, w = planes.shape[-2:]
     dev = planes.device
     pred = torch.empty((h, w), dtype=torch.int16, device=dev)
     pred_q = None if sub_mv is None else torch.empty((h, w), dtype=torch.int16, device=dev)
     with torch.cuda.device(dev):
         rc = library().so_pred_fetch(mv.data_ptr(), None if sub_mv is None else sub_mv.data_ptr(),
-                                     planes.data_ptr(), nref, h, w, bs, int(fme), pred.data_ptr(),
-                                     None if pred_q is None else pred_q.data_ptr(), _stream(dev))
+                                     planes.data_ptr(), planes.shape[0], h, w, bs, int(fme), bandh, *band,
+                                     pred.data_ptr(), None if pred_q is None else pred_q.data_ptr(), _stream(dev))
     _launch_check(rc, what)
     return pred if pred_q is None else (pred, pred_q)
 
 
-def pred_fetch(mv: torch.Tensor, refs: torch.Tensor, bs: int) -> torch.Tensor:
+def pred_fetch(mv: torch.Tensor, refs: torch.Tensor, bs: int, *, band_row0: int = 0, g_row0: int = 0,
+               grid=None) -> torch.Tensor:
     """Whole-pel prediction plane for given MVs.
 
-    mv: (nb, 3) int32 [dx, dy, ref] in block raster order; refs: (nref, h, w)
-    uint8.  Returns (h, w) int16: each block's window at (by + dy, bx + dx)
-    of ``refs[ref]``, zero outside the frame.  Reference indices must lie in
-    [0, nref): the decoder checks the stream on the host before calling.
+    mv: (nb, 3) int32 [dx, dy, ref] in block raster order; refs: (nref,
+    bandh, w) uint8, the frames or a band of them.  Returns (h, w) int16:
+    each block's window at (by + dy, bx + dx) of ``refs[ref]``, zero outside
+    the frame.  Reference indices must lie in [0, nref): the decoder checks
+    the stream on the host before calling.
     """
     _check_plane(refs, "refs", 3)
-    nref, h, w = refs.shape
-    _check_fetch(mv, refs, h, w, bs)
+    h, w, H = _check_fetch(mv, refs, bs, band_row0, g_row0, grid)
     if refs.device.type == "cpu":
-        return pred_fetch_plain(mv, refs, bs)
-    pred = _launch_fetch("pred_fetch", mv, None, refs, nref, bs, False)
+        return pred_fetch_plain(mv, refs, bs, band_row0=band_row0, g_row0=g_row0, grid=(H, w))
+    pred = _launch_fetch("pred_fetch", mv, None, refs, bs, False, h, (band_row0, g_row0, H))
     pred_fetch.launches += 1
     return pred
 
@@ -310,40 +391,45 @@ def pred_fetch(mv: torch.Tensor, refs: torch.Tensor, bs: int) -> torch.Tensor:
 pred_fetch.launches = 0
 
 
-def _quad_plane(sub_mv: torch.Tensor, grid: torch.Tensor, h: int, w: int, bs: int, fme: bool) -> torch.Tensor:
+def _quad_plane(sub_mv: torch.Tensor, grid: torch.Tensor, h: int, w: int, bs: int, fme: bool, g_row0: int,
+                grid_dims: tuple, origin_row: int) -> torch.Tensor:
     """Each quad's prediction at its own position: (h, w) int16."""
     s = bs // 2
     qx, qy = M.quad_origins(h, w, bs, grid.device)
-    quads = gather_predictions(sub_mv.reshape(-1, 3), grid, qx.reshape(-1), qy.reshape(-1), s, fme=fme)
+    quads = gather_predictions(sub_mv.reshape(-1, 3), grid, qx.reshape(-1), qy.reshape(-1) + g_row0, s, fme=fme,
+                               grid_dims=grid_dims, origin_row=origin_row)
     return unquads_px(quads.reshape(-1, 4, s, s), h, w).to(torch.int16)
 
 
-def pred_fetch_vbs_plain(mv: torch.Tensor, sub_mv: torch.Tensor, refs: torch.Tensor,
-                         bs: int) -> tuple[torch.Tensor, torch.Tensor]:
+def pred_fetch_vbs_plain(mv: torch.Tensor, sub_mv: torch.Tensor, refs: torch.Tensor, bs: int, *,
+                         band_row0: int = 0, g_row0: int = 0, grid=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the ``pred_fetch`` kernel's whole-pel mode
     with the quad plane (any device)."""
-    h, w = refs.shape[-2:]
-    return pred_fetch_plain(mv, refs, bs), _quad_plane(sub_mv, refs, h, w, bs, False)
+    w = refs.shape[-1]
+    h = mv.shape[0] // (w // bs) * bs
+    dims = _grid(refs, grid)
+    return (pred_fetch_plain(mv, refs, bs, band_row0=band_row0, g_row0=g_row0, grid=dims),
+            _quad_plane(sub_mv, refs, h, w, bs, False, g_row0, dims, g_row0 - band_row0))
 
 
-def pred_fetch_vbs(mv: torch.Tensor, sub_mv: torch.Tensor, refs: torch.Tensor,
-                   bs: int) -> tuple[torch.Tensor, torch.Tensor]:
+def pred_fetch_vbs(mv: torch.Tensor, sub_mv: torch.Tensor, refs: torch.Tensor, bs: int, *, band_row0: int = 0,
+                   g_row0: int = 0, grid=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Whole-pel prediction planes for given block and quad MVs.
 
     mv: (nb, 3), sub_mv: (nb, 4, 3) int32 [dx, dy, ref] (quads in Z order);
-    refs: (nref, h, w) uint8.  Returns (pred_full, pred_quads), both (h, w)
-    int16 with each (sub)block's window at its own position, zero outside the
-    frame.  Reference indices must lie in [0, nref).
+    refs: (nref, bandh, w) uint8, the frames or a band of them.  Returns
+    (pred_full, pred_quads), both (h, w) int16 with each (sub)block's window
+    at its own position, zero outside the frame.  Reference indices must lie
+    in [0, nref).
     """
     _check_plane(refs, "refs", 3)
-    nref, h, w = refs.shape
     if bs % 2:
         raise ValueError(f"VBS needs an even block size, got {bs}")
-    nb = _check_fetch(mv, refs, h, w, bs)
-    _check_mv(sub_mv, "sub_mv", (nb, 4, 3), refs.device)
+    h, w, H = _check_fetch(mv, refs, bs, band_row0, g_row0, grid)
+    _check_mv(sub_mv, "sub_mv", (mv.shape[0], 4, 3), refs.device)
     if refs.device.type == "cpu":
-        return pred_fetch_vbs_plain(mv, sub_mv, refs, bs)
-    out = _launch_fetch("pred_fetch_vbs", mv, sub_mv, refs, nref, bs, False)
+        return pred_fetch_vbs_plain(mv, sub_mv, refs, bs, band_row0=band_row0, g_row0=g_row0, grid=(H, w))
+    out = _launch_fetch("pred_fetch_vbs", mv, sub_mv, refs, bs, False, h, (band_row0, g_row0, H))
     pred_fetch_vbs.launches += 1
     return out
 
@@ -351,44 +437,57 @@ def pred_fetch_vbs(mv: torch.Tensor, sub_mv: torch.Tensor, refs: torch.Tensor,
 pred_fetch_vbs.launches = 0
 
 
-def pred_fetch_fme_plain(mv: torch.Tensor, planes: torch.Tensor, bs: int) -> torch.Tensor:
+def _fme_fetch_args(planes: torch.Tensor, band_row0: int, g_row0: int, grid):
+    """The half-pel grid of the planes, its whole-frame dims and its origin row."""
+    H, W = _grid(planes, grid)
+    return M.grid_of_planes(planes), (2 * H - 1, 2 * W - 1), 2 * (g_row0 - band_row0)
+
+
+def pred_fetch_fme_plain(mv: torch.Tensor, planes: torch.Tensor, bs: int, *, band_row0: int = 0, g_row0: int = 0,
+                         grid=None) -> torch.Tensor:
     """Plain PyTorch version of the ``pred_fetch`` kernel's FME mode (any
     device): ``pred.gather_predictions`` on the half-pel grid."""
-    h, w = planes.shape[-2:]
-    bx, by = M.block_origins(h, w, bs, planes.device)
-    return unblockify(gather_predictions(mv, M.grid_of_planes(planes), bx, by, bs, fme=True), h, w).to(torch.int16)
+    w = planes.shape[-1]
+    h = mv.shape[0] // (w // bs) * bs
+    bx, by = _fetch_origins(h, w, bs, g_row0, planes.device)
+    g, dims, origin = _fme_fetch_args(planes, band_row0, g_row0, grid)
+    return unblockify(gather_predictions(mv, g, bx, by, bs, fme=True, grid_dims=dims, origin_row=origin),
+                      h, w).to(torch.int16)
 
 
-def pred_fetch_fme_vbs_plain(mv: torch.Tensor, sub_mv: torch.Tensor, planes: torch.Tensor,
-                             bs: int) -> tuple[torch.Tensor, torch.Tensor]:
+def pred_fetch_fme_vbs_plain(mv: torch.Tensor, sub_mv: torch.Tensor, planes: torch.Tensor, bs: int, *,
+                             band_row0: int = 0, g_row0: int = 0, grid=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the ``pred_fetch`` kernel's FME mode with
     the quad plane (any device)."""
-    h, w = planes.shape[-2:]
-    return pred_fetch_fme_plain(mv, planes, bs), _quad_plane(sub_mv, M.grid_of_planes(planes), h, w, bs, True)
+    w = planes.shape[-1]
+    h = mv.shape[0] // (w // bs) * bs
+    g, dims, origin = _fme_fetch_args(planes, band_row0, g_row0, grid)
+    return (pred_fetch_fme_plain(mv, planes, bs, band_row0=band_row0, g_row0=g_row0, grid=grid),
+            _quad_plane(sub_mv, g, h, w, bs, True, g_row0, dims, origin))
 
 
-def _check_planes4(planes: torch.Tensor) -> tuple[int, int, int]:
+def _check_planes4(planes: torch.Tensor) -> None:
     _check_plane(planes, "planes", 4)
-    nref, four, h, w = planes.shape
-    if four != 4:
-        raise ValueError(f"planes {tuple(planes.shape)} are not (nref, 4, h, w)")
-    return nref, h, w
+    if planes.shape[1] != 4:
+        raise ValueError(f"planes {tuple(planes.shape)} are not (nref, 4, bandh, w)")
 
 
-def pred_fetch_fme(mv: torch.Tensor, planes: torch.Tensor, bs: int) -> torch.Tensor:
+def pred_fetch_fme(mv: torch.Tensor, planes: torch.Tensor, bs: int, *, band_row0: int = 0, g_row0: int = 0,
+                   grid=None) -> torch.Tensor:
     """Half-pel prediction plane for given block MVs.
 
     mv: (nb, 3) int32 [dx, dy, ref] on the half-pel grid; planes: (nref, 4,
-    h, w) uint8 parity planes.  Returns (h, w) int16 with each block's
-    prediction at its own position: case A (the stride-2 grid window), B
-    (128) or C (the stride-1 grid window, zero off the grid).  Reference
+    bandh, w) uint8 parity planes of the frames or of a band of them.
+    Returns (h, w) int16 with each block's prediction at its own position:
+    case A (the stride-2 grid window), B (128) or C (the stride-1 grid
+    window, zero off the grid), each decided at frame rows.  Reference
     indices must lie in [0, nref).
     """
-    nref, h, w = _check_planes4(planes)
-    _check_fetch(mv, planes, h, w, bs)
+    _check_planes4(planes)
+    h, w, H = _check_fetch(mv, planes, bs, band_row0, g_row0, grid)
     if planes.device.type == "cpu":
-        return pred_fetch_fme_plain(mv, planes, bs)
-    pred = _launch_fetch("pred_fetch_fme", mv, None, planes, nref, bs, True)
+        return pred_fetch_fme_plain(mv, planes, bs, band_row0=band_row0, g_row0=g_row0, grid=(H, w))
+    pred = _launch_fetch("pred_fetch_fme", mv, None, planes, bs, True, h, (band_row0, g_row0, H))
     pred_fetch_fme.launches += 1
     return pred
 
@@ -396,24 +495,25 @@ def pred_fetch_fme(mv: torch.Tensor, planes: torch.Tensor, bs: int) -> torch.Ten
 pred_fetch_fme.launches = 0
 
 
-def pred_fetch_fme_vbs(mv: torch.Tensor, sub_mv: torch.Tensor, planes: torch.Tensor,
-                       bs: int) -> tuple[torch.Tensor, torch.Tensor]:
+def pred_fetch_fme_vbs(mv: torch.Tensor, sub_mv: torch.Tensor, planes: torch.Tensor, bs: int, *,
+                       band_row0: int = 0, g_row0: int = 0, grid=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Half-pel prediction planes for given block and quad MVs.
 
     mv: (nb, 3), sub_mv: (nb, 4, 3) int32 [dx, dy, ref] on the half-pel grid
-    (quads in Z order); planes: (nref, 4, h, w) uint8 parity planes.
-    Returns (pred_full, pred_quads), both (h, w) int16 with each (sub)block's
-    prediction at its own position: case A, B or C as in ``pred_fetch_fme``,
-    per block and per quad.  Reference indices must lie in [0, nref).
+    (quads in Z order); planes: (nref, 4, bandh, w) uint8 parity planes of
+    the frames or of a band of them.  Returns (pred_full, pred_quads), both
+    (h, w) int16 with each (sub)block's prediction at its own position: case
+    A, B or C as in ``pred_fetch_fme``, per block and per quad.  Reference
+    indices must lie in [0, nref).
     """
-    nref, h, w = _check_planes4(planes)
+    _check_planes4(planes)
     if bs % 2:
         raise ValueError(f"VBS needs an even block size, got {bs}")
-    nb = _check_fetch(mv, planes, h, w, bs)
-    _check_mv(sub_mv, "sub_mv", (nb, 4, 3), planes.device)
+    h, w, H = _check_fetch(mv, planes, bs, band_row0, g_row0, grid)
+    _check_mv(sub_mv, "sub_mv", (mv.shape[0], 4, 3), planes.device)
     if planes.device.type == "cpu":
-        return pred_fetch_fme_vbs_plain(mv, sub_mv, planes, bs)
-    out = _launch_fetch("pred_fetch_fme_vbs", mv, sub_mv, planes, nref, bs, True)
+        return pred_fetch_fme_vbs_plain(mv, sub_mv, planes, bs, band_row0=band_row0, g_row0=g_row0, grid=(H, w))
+    out = _launch_fetch("pred_fetch_fme_vbs", mv, sub_mv, planes, bs, True, h, (band_row0, g_row0, H))
     pred_fetch_fme_vbs.launches += 1
     return out
 

@@ -67,23 +67,27 @@ def fme_upsample(frame: torch.Tensor, wrap_row_pass: bool) -> torch.Tensor:
     return grid_of_planes(fme_parity_planes(frame[None], wrap_row_pass)[0]).to(torch.int32)
 
 
-def sad_maps(cur: torch.Tensor, ref: torch.Tensor, sr: int, bs: int, stride: int = 1) -> torch.Tensor:
+def sad_maps(cur: torch.Tensor, ref: torch.Tensor, sr: int, bs: int, stride: int = 1,
+             row_offset: int = 0) -> torch.Tensor:
     """Block SADs for every displacement: (ndy, ndx, nbr, nbc) int32.
 
     cur: (h, w); ref: (H, W) reference grid (the half-pel grid when
     ``stride`` is 2).  Block (bi, bj) of size ``bs`` reads its window from
-    grid position (stride*bi*bs + dy, stride*bj*bs + dx) with row and column
-    step ``stride``.  Windows reaching outside the grid read zeros; those
-    candidates are invalid and must be masked with ``candidate_valid_mask``.
+    grid position (stride*bi*bs + dy + row_offset, stride*bj*bs + dx) with
+    row and column step ``stride``; ``row_offset`` places cur inside a taller
+    band of the frame (a mesh tile's halo band).  Windows reaching outside
+    the grid read zeros; those candidates are invalid and must be masked
+    with ``candidate_valid_mask``.
     """
     h, w = cur.shape
     nbr, nbc = h // bs, w // bs
     nd = 2 * sr + 1
     dev = cur.device
     c32 = cur.to(torch.int32)
-    rp = F.pad(ref.to(torch.int32), (sr, sr, sr, sr))
+    below = max(sr, stride * (h - 1) + row_offset + sr + 1 - ref.shape[0])  # zero rows the last block reads
+    rp = F.pad(ref.to(torch.int32), (sr, sr, sr, below))
     col_idx = stride * torch.arange(w, device=dev)[None, :] + torch.arange(nd, device=dev)[:, None]  # (nd, w)
-    row_idx = stride * torch.arange(h, device=dev)
+    row_idx = stride * torch.arange(h, device=dev) + row_offset
     out = []
     for dyi in range(nd):
         rows = rp[row_idx + dyi]  # (h, Wp): grid rows stride*y + dy
@@ -166,7 +170,8 @@ def _regroup_quads(a: torch.Tensor, nbr: int, nbc: int) -> torch.Tensor:
 
 
 def full_search_materialized(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int, *, fme: bool = False,
-                             vbs: bool = False) -> dict:
+                             vbs: bool = False, row_offset: int = 0, grid_dims: tuple | None = None,
+                             valid_row_offset: int | None = None) -> dict:
     """Full search over the reference grids ``refs`` (nref, H, W).
 
     Whole-pel: ``refs`` are the frames and ``sr`` the search range.  FME:
@@ -174,31 +179,41 @@ def full_search_materialized(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs:
     (twice the search range); windows step 2 on the grid.  SADs are computed
     once per quad (bs/2) under VBS; a block's SAD is the sum of its quads'.
 
+    Band form (``me.full_search_materialized``'s, for mesh tiles): ``refs``
+    may be a band of the frame taller than ``cur``.  ``row_offset`` is cur
+    row 0's row in ``refs`` and ``valid_row_offset`` its row in the whole
+    grid (default ``row_offset``), both in grid units; ``grid_dims`` is the
+    whole grid's (H, W) for validity (default the refs' own).
+
     Returns {"mv": (nb, 3) int32, "sad": (nb,) int32, "ok": (nb,) bool},
     plus {"sub_mv": (nb, 4, 3), "sub_sad": (nb, 4), "sub_ok": (nb, 4)} in
     Z order when ``vbs``.
     """
     h, w = cur.shape
     nref, H, W = refs.shape
+    if grid_dims is not None:
+        H, W = grid_dims
+    y0 = row_offset if valid_row_offset is None else valid_row_offset
     nd = 2 * sr + 1
     stride = 2 if fme else 1
     nbr, nbc = h // bs, w // bs
     dev = cur.device
     if vbs:
         s = bs // 2
-        sub = torch.stack([sad_maps(cur, refs[r], sr, s, stride) for r in range(nref)])  # (nref, nd, nd, 2nbr, 2nbc)
+        sub = torch.stack([sad_maps(cur, refs[r], sr, s, stride, row_offset)
+                           for r in range(nref)])  # (nref, nd, nd, 2nbr, 2nbc)
         full = sub.reshape(nref, nd, nd, nbr, 2, nbc, 2).sum(dim=(4, 6), dtype=torch.int32)
     else:
-        full = torch.stack([sad_maps(cur, refs[r], sr, bs, stride) for r in range(nref)])
+        full = torch.stack([sad_maps(cur, refs[r], sr, bs, stride, row_offset) for r in range(nref)])
     full = full.reshape(nref, nd, nd, -1)
     bx, by = block_origins(h, w, bs, dev)
-    vm = candidate_valid_mask(stride * bx, stride * by, sr, bs, H, W, fme)
+    vm = candidate_valid_mask(stride * bx, stride * by + y0, sr, bs, H, W, fme)
     mv, sad, ok = argmin_displacement(full, vm[None].expand_as(full), sr)
     out = {"mv": mv, "sad": sad, "ok": ok}
     if vbs:
         sub = sub.reshape(nref, nd, nd, -1)
         qx, qy = block_origins(h, w, s, dev)
-        vs = candidate_valid_mask(stride * qx, stride * qy, sr, s, H, W, fme)
+        vs = candidate_valid_mask(stride * qx, stride * qy + y0, sr, s, H, W, fme)
         smv, ssad, sok = argmin_displacement(sub, vs[None].expand_as(sub), sr)
         out["sub_mv"] = _regroup_quads(smv, nbr, nbc)
         out["sub_sad"] = _regroup_quads(ssad, nbr, nbc)

@@ -25,15 +25,22 @@ import torch
 
 
 def gather_predictions(mvs: torch.Tensor, grid: torch.Tensor, bx: torch.Tensor, by: torch.Tensor, n: int,
-                       fme: bool = False) -> torch.Tensor:
+                       fme: bool = False, grid_dims: tuple | None = None, origin_row: int = 0) -> torch.Tensor:
     """Predicted (sub)blocks for chosen MVs.
 
     mvs: (nb, 3) int [dx, dy, ref]; grid: (nref, H, W) reference grids (the
     frames, or the (2h-1, 2w-1) half-pel grids under ``fme``); bx, by: (nb,)
     (sub)block top-left pixel coordinates (not doubled); n: the (sub)block
     size.  Returns (nb, n, n) int32.
+
+    Band form (the JAX twin's, for mesh tiles): ``grid`` may be a band of
+    whole rows of the reference grid.  ``grid_dims`` is the whole grid's
+    (H, W), which every case and bound uses, and ``origin_row`` the band's
+    first row in grid units.  A read in the grid but outside the band takes
+    the band's nearest row.
     """
-    H, W = grid.shape[-2:]
+    H, W = grid.shape[-2:] if grid_dims is None else grid_dims
+    band_h = grid.shape[-2]
     scale = 2 if fme else 1
     mvs = mvs.to(torch.int64)
     px = scale * bx.to(torch.int64) + mvs[:, 0]
@@ -45,7 +52,8 @@ def gather_predictions(mvs: torch.Tensor, grid: torch.Tensor, bx: torch.Tensor, 
         rows = py[:, None] + step * i[None, :]
         cols = px[:, None] + step * i[None, :]
         inside = ((rows >= 0) & (rows < H))[:, :, None] & ((cols >= 0) & (cols < W))[:, None, :]
-        g = grid[ref, rows.clamp(0, H - 1)[:, :, None], cols.clamp(0, W - 1)[:, None, :]]
+        band_rows = (rows.clamp(0, H - 1) - origin_row).clamp(0, band_h - 1)
+        g = grid[ref, band_rows[:, :, None], cols.clamp(0, W - 1)[:, None, :]]
         return torch.where(inside, g.to(torch.int32), 0)
 
     g1 = window(1)  # cases A (whole-pel) and C

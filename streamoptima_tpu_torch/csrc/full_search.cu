@@ -39,6 +39,16 @@
 // five.  It does the non-VBS mode's bs^2 abs-diffs per candidate, over the
 // candidates valid for the block or one of its quads, and is bound the same
 // way: by operations.
+//
+// Band inputs (both modes; _plane_search's read_row0, g_px0 and grid_dims):
+// for a mesh tile, cur is frame rows [g_row0, g_row0 + h) and refs a band of
+// bandh rows holding cur row 0 at band row band_row0 (the tile and its
+// search-range halos); H is the frame's height.  The window is staged from
+// band rows, zero outside the band, and every bound is evaluated at frame
+// rows, so a tile's winners are the whole frame's.  The wrapper checks that
+// the band holds every row a valid candidate reads.  The defaults (bandh = H
+// = h, band_row0 = g_row0 = 0) are the whole-frame search: plain arguments,
+// one loop for both.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,8 +71,8 @@ __device__ __forceinline__ bool valid_whole(int px, int py, int n, int h, int w)
 // key alone and the winner's pixels (pred_out)
 template <bool VBS>
 __global__ void full_search_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ refs,
-                                   int nref, int h, int w, int sr, int bs,
-                                   int32_t* __restrict__ mv_out, int32_t* __restrict__ sad_out,
+                                   int nref, int h, int w, int sr, int bs, int bandh, int band_row0,
+                                   int g_row0, int H, int32_t* __restrict__ mv_out, int32_t* __restrict__ sad_out,
                                    uint8_t* __restrict__ ok_out, int16_t* __restrict__ pred_out,
                                    int32_t* __restrict__ smv_out, int32_t* __restrict__ ssad_out,
                                    uint8_t* __restrict__ sok_out) {
@@ -76,7 +86,9 @@ __global__ void full_search_kernel(const uint8_t* __restrict__ cur, const uint8_
     Cur* s_cur = reinterpret_cast<Cur*>(smem);                   // bs * bs
     uint8_t* s_win = reinterpret_cast<uint8_t*>(s_cur + bs * bs);  // ww * ww
     const int bj = blockIdx.x, bi = blockIdx.y;
-    const int bx = bj * bs, by = bi * bs;
+    const int bx = bj * bs, by = bi * bs;  // in cur
+    const int gy = g_row0 + by;            // the block's frame row
+    const int wy = band_row0 + by - sr;    // the band row of the window's top row
     const int tid = threadIdx.x;
 
     for (int t = tid; t < bs * bs; t += blockDim.x) {
@@ -85,21 +97,21 @@ __global__ void full_search_kernel(const uint8_t* __restrict__ cur, const uint8_
     unsigned long long best[VBS ? 5 : 1];  // the block, then its quads in Z order
     for (auto& k : best) k = kNone;
     for (int r = 0; r < nref; ++r) {
-        const uint8_t* ref = refs + (size_t)r * h * w;
+        const uint8_t* ref = refs + (size_t)r * bandh * w;
         __syncthreads();  // the previous reference's window is no longer read
         for (int t = tid; t < ww * ww; t += blockDim.x) {
-            const int y = by - sr + t / ww, x = bx - sr + t % ww;
-            s_win[t] = (y >= 0 && y < h && x >= 0 && x < w) ? ref[(size_t)y * w + x] : 0;
+            const int y = wy + t / ww, x = bx - sr + t % ww;
+            s_win[t] = (y >= 0 && y < bandh && x >= 0 && x < w) ? ref[(size_t)y * w + x] : 0;
         }
         __syncthreads();
         for (int c = tid; c < ncand; c += blockDim.x) {
             const int dyi = c / nd, dxi = c % nd;
             const int dx = dxi - sr, dy = dyi - sr;
-            const int px = bx + dx, py = by + dy;
+            const int px = bx + dx, py = gy + dy;
             const uint8_t* wp = s_win + dyi * ww + dxi;
             if constexpr (!VBS) {
                 // the reference's strict bounds (x + dx == W - bs is invalid)
-                if (!valid_whole(px, py, bs, h, w)) continue;
+                if (!valid_whole(px, py, bs, H, w)) continue;
                 int sad = 0;
                 for (int i = 0; i < bs; ++i) {
                     const int32_t* cr = s_cur + i * bs;
@@ -114,10 +126,10 @@ __global__ void full_search_kernel(const uint8_t* __restrict__ cur, const uint8_
                 bool vq[4];
                 bool any = false;
                 for (int qi = 0; qi < 4; ++qi) {
-                    vq[qi] = valid_whole(px + (qi & 1) * s, py + (qi >> 1) * s, s, h, w);
+                    vq[qi] = valid_whole(px + (qi & 1) * s, py + (qi >> 1) * s, s, H, w);
                     any |= vq[qi];
                 }
-                const bool vf = valid_whole(px, py, bs, h, w);
+                const bool vf = valid_whole(px, py, bs, H, w);
                 if (!vf && !any) continue;
                 unsigned qs[4];
                 so_search::quad_sads(s_cur, wp, ww, bs, qs);
@@ -135,25 +147,27 @@ __global__ void full_search_kernel(const uint8_t* __restrict__ cur, const uint8_
             if (tid == 0) so_search::store_winner(vk, sr, smv_out + 3 * q, ssad_out + q, sok_out + q);
         }
     } else {
-        // a valid winner's window lies inside the frame, so read it directly;
-        // no valid candidate: a zero pred (the caller substitutes 128)
+        // a valid winner's window lies inside the frame and the band, so read
+        // it directly; no valid candidate: a zero pred (the caller
+        // substitutes 128)
         const bool ok = v != kNone;
         const unsigned sec = (unsigned)(v & 0xffffffffull);
         const int wdy = ok ? (int)(sec & 0xff) - sr : 0;
         const int wdx = ok ? (int)((sec >> 8) & 0xff) - sr : 0;
         const int wref = ok ? (int)((sec >> 16) & 0x7) : 0;
-        const uint8_t* ref = refs + (size_t)wref * h * w;
+        const uint8_t* ref = refs + (size_t)wref * bandh * w;
         for (int t = tid; t < bs * bs; t += blockDim.x) {
             const int i = t / bs, j = t % bs;
             pred_out[(size_t)(by + i) * w + bx + j] =
-                ok ? (int16_t)ref[(size_t)(by + wdy + i) * w + bx + wdx + j] : (int16_t)0;
+                ok ? (int16_t)ref[(size_t)(wy + sr + wdy + i) * w + bx + wdx + j] : (int16_t)0;
         }
     }
 }
 
 template <bool VBS>
-int launch(const void* cur, const void* refs, int nref, int h, int w, int sr, int bs, void* mv, void* sad, void* ok,
-           void* pred, void* smv, void* ssad, void* sok, void* stream) {
+int launch(const void* cur, const void* refs, int nref, int h, int w, int sr, int bs, int bandh, int band_row0,
+           int g_row0, int H, void* mv, void* sad, void* ok, void* pred, void* smv, void* ssad, void* sok,
+           void* stream) {
     const int nd = 2 * sr + 1;
     const int threads = std::min(((nd * nd + 31) / 32) * 32, 1024);  // threads stride over the rest
     const int ww = bs + 2 * sr;
@@ -165,19 +179,23 @@ int launch(const void* cur, const void* refs, int nref, int h, int w, int sr, in
     }
     dim3 grid(w / bs, h / bs);
     full_search_kernel<VBS><<<grid, threads, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)cur, (const uint8_t*)refs, nref, h, w, sr, bs, (int32_t*)mv, (int32_t*)sad, (uint8_t*)ok,
-        (int16_t*)pred, (int32_t*)smv, (int32_t*)ssad, (uint8_t*)sok);
+        (const uint8_t*)cur, (const uint8_t*)refs, nref, h, w, sr, bs, bandh, band_row0, g_row0, H, (int32_t*)mv,
+        (int32_t*)sad, (uint8_t*)ok, (int16_t*)pred, (int32_t*)smv, (int32_t*)ssad, (uint8_t*)sok);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int so_full_search(const void* cur, const void* refs, int nref, int h, int w, int sr, int bs,
-                              void* mv, void* sad, void* ok, void* pred, void* stream) {
-    return launch<false>(cur, refs, nref, h, w, sr, bs, mv, sad, ok, pred, nullptr, nullptr, nullptr, stream);
+extern "C" int so_full_search(const void* cur, const void* refs, int nref, int h, int w, int sr, int bs, int bandh,
+                              int band_row0, int g_row0, int H, void* mv, void* sad, void* ok, void* pred,
+                              void* stream) {
+    return launch<false>(cur, refs, nref, h, w, sr, bs, bandh, band_row0, g_row0, H, mv, sad, ok, pred, nullptr,
+                         nullptr, nullptr, stream);
 }
 
 extern "C" int so_full_search_vbs(const void* cur, const void* refs, int nref, int h, int w, int sr, int bs,
-                                  void* mv, void* sad, void* ok, void* smv, void* ssad, void* sok, void* stream) {
-    return launch<true>(cur, refs, nref, h, w, sr, bs, mv, sad, ok, nullptr, smv, ssad, sok, stream);
+                                  int bandh, int band_row0, int g_row0, int H, void* mv, void* sad, void* ok,
+                                  void* smv, void* ssad, void* sok, void* stream) {
+    return launch<true>(cur, refs, nref, h, w, sr, bs, bandh, band_row0, g_row0, H, mv, sad, ok, nullptr, smv,
+                        ssad, sok, stream);
 }

@@ -43,6 +43,15 @@
 // block key is kept: candidates valid for the block alone, one SAD each.
 // Making it fast (packed byte SADs, several candidates per thread sharing
 // loads) is later work.
+//
+// Band inputs (_plane_search's read_row0, g_px0 and grid_dims, as in
+// full_search.cu): the planes may be those of a band of bandh frame rows
+// holding cur row 0 at band row band_row0; cur is frame rows [g_row0,
+// g_row0 + h) of an H-row frame.  Windows are staged from band rows, zero
+// outside the band, and the bounds use frame rows on the (2H-1, 2w-1) grid.
+// The wrapper checks that the band holds the rows a valid candidate's
+// half-pel interpolation reads (sr above, sr + 1 below).  The defaults are
+// the whole-frame search.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,8 +73,8 @@ __device__ __forceinline__ bool valid_fme(int gx, int gy, int n, int H2, int W2)
 // VBS: the block key and the four quad keys; otherwise the block key alone
 template <bool VBS>
 __global__ void full_search_fme_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ planes,
-                                       int nref, int h, int w, int sr, int bs,
-                                       int32_t* __restrict__ mv_out, int32_t* __restrict__ sad_out,
+                                       int nref, int h, int w, int sr, int bs, int bandh, int band_row0,
+                                       int g_row0, int H, int32_t* __restrict__ mv_out, int32_t* __restrict__ sad_out,
                                        uint8_t* __restrict__ ok_out, int32_t* __restrict__ smv_out,
                                        int32_t* __restrict__ ssad_out, uint8_t* __restrict__ sok_out) {
     extern __shared__ uint8_t smem[];
@@ -76,11 +85,13 @@ __global__ void full_search_fme_kernel(const uint8_t* __restrict__ cur, const ui
     const int ww = bs + 2 * sr;           // plane window side
     const int pstride = ww * ww + 4;      // one bank apart per plane
     const int s = bs / 2;
-    const int H2 = 2 * h - 1, W2 = 2 * w - 1;
+    const int H2 = 2 * H - 1, W2 = 2 * w - 1;
     uint8_t* s_cur = smem;                // bs * bs
     uint8_t* s_win = smem + bs * bs;      // 4 planes * pstride
     const int bj = blockIdx.x, bi = blockIdx.y;
-    const int bx = bj * bs, by = bi * bs;
+    const int bx = bj * bs, by = bi * bs;  // in cur
+    const int gy0 = 2 * (g_row0 + by);     // the block's row on the frame's half-pel grid
+    const int wy = band_row0 + by - sr;    // the band row of the windows' top row
     const int tid = threadIdx.x;
 
     for (int t = tid; t < bs * bs; t += blockDim.x) {
@@ -91,15 +102,15 @@ __global__ void full_search_fme_kernel(const uint8_t* __restrict__ cur, const ui
         __syncthreads();  // the previous reference's windows are no longer read
         for (int t = tid; t < 4 * ww * ww; t += blockDim.x) {
             const int p = t / (ww * ww), q = t % (ww * ww);
-            const int y = by - sr + q / ww, x = bx - sr + q % ww;
-            s_win[p * pstride + q] = (y >= 0 && y < h && x >= 0 && x < w)
-                                         ? planes[(((size_t)r * 4 + p) * h + y) * w + x] : 0;
+            const int y = wy + q / ww, x = bx - sr + q % ww;
+            s_win[p * pstride + q] = (y >= 0 && y < bandh && x >= 0 && x < w)
+                                         ? planes[(((size_t)r * 4 + p) * bandh + y) * w + x] : 0;
         }
         __syncthreads();
         for (int c = tid; c < ncand; c += blockDim.x) {
             const int dyi = c / nd, dxi = c % nd;
             const int dx = dxi - gsr, dy = dyi - gsr;
-            const int gx = 2 * bx + dx, gy = 2 * by + dy;
+            const int gx = 2 * bx + dx, gy = gy0 + dy;
             bool vq[4] = {false, false, false, false};
             bool any = false;
             if constexpr (VBS) {
@@ -143,8 +154,8 @@ __global__ void full_search_fme_kernel(const uint8_t* __restrict__ cur, const ui
 }
 
 template <bool VBS>
-int launch(const void* cur, const void* planes, int nref, int h, int w, int sr, int bs, void* mv, void* sad,
-           void* ok, void* smv, void* ssad, void* sok, void* stream) {
+int launch(const void* cur, const void* planes, int nref, int h, int w, int sr, int bs, int bandh, int band_row0,
+           int g_row0, int H, void* mv, void* sad, void* ok, void* smv, void* ssad, void* sok, void* stream) {
     const int ww = bs + 2 * sr;
     const size_t smem = (size_t)bs * bs + 4 * ((size_t)ww * ww + 4);
     if (smem > 48 * 1024) {
@@ -154,7 +165,8 @@ int launch(const void* cur, const void* planes, int nref, int h, int w, int sr, 
     }
     dim3 grid(w / bs, h / bs);
     full_search_fme_kernel<VBS><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)cur, (const uint8_t*)planes, nref, h, w, sr, bs, (int32_t*)mv, (int32_t*)sad,
+        (const uint8_t*)cur, (const uint8_t*)planes, nref, h, w, sr, bs, bandh, band_row0, g_row0, H, (int32_t*)mv,
+        (int32_t*)sad,
         (uint8_t*)ok, (int32_t*)smv, (int32_t*)ssad, (uint8_t*)sok);
     return (int)cudaGetLastError();
 }
@@ -162,12 +174,15 @@ int launch(const void* cur, const void* planes, int nref, int h, int w, int sr, 
 }  // namespace
 
 extern "C" int so_full_search_fme_vbs(const void* cur, const void* planes, int nref, int h, int w, int sr, int bs,
-                                      void* mv, void* sad, void* ok, void* smv, void* ssad, void* sok,
-                                      void* stream) {
-    return launch<true>(cur, planes, nref, h, w, sr, bs, mv, sad, ok, smv, ssad, sok, stream);
+                                      int bandh, int band_row0, int g_row0, int H, void* mv, void* sad, void* ok,
+                                      void* smv, void* ssad, void* sok, void* stream) {
+    return launch<true>(cur, planes, nref, h, w, sr, bs, bandh, band_row0, g_row0, H, mv, sad, ok, smv, ssad, sok,
+                        stream);
 }
 
 extern "C" int so_full_search_fme(const void* cur, const void* planes, int nref, int h, int w, int sr, int bs,
-                                  void* mv, void* sad, void* ok, void* stream) {
-    return launch<false>(cur, planes, nref, h, w, sr, bs, mv, sad, ok, nullptr, nullptr, nullptr, stream);
+                                  int bandh, int band_row0, int g_row0, int H, void* mv, void* sad, void* ok,
+                                  void* stream) {
+    return launch<false>(cur, planes, nref, h, w, sr, bs, bandh, band_row0, g_row0, H, mv, sad, ok, nullptr, nullptr,
+                         nullptr, stream);
 }

@@ -28,6 +28,15 @@
 // whole-pel and ~5.5 MB with FME + quads, a few microseconds at HBM rates;
 // launch overhead dominates at this size.
 //
+// Band inputs (pred_fetch_compact's read_row0, with the frame-coordinate
+// case-B margin of fme_caseB_valid2): the output may be a mesh tile, frame
+// rows [g_row0, g_row0 + h), and refs a band of bandh frame rows whose row
+// band_row0 holds the tile's row 0; H is the frame's height.  Every case and
+// bound is decided at frame rows; a read that lies in the frame but outside
+// the band takes the band's nearest row (core/pred.gather_predictions' band
+// form), so any MV is served memory-safely.  The defaults (bandh = H = h,
+// band_row0 = g_row0 = 0) are the whole frame.
+//
 // Design: one thread per output pixel in a 2D grid of 32x8 tiles, so a warp
 // writes 32 consecutive pixels of a row.  A thread produces the full-block
 // pixel and, when quads are asked for, the quad pixel at the same place.  A
@@ -39,18 +48,27 @@
 
 namespace {
 
-// one predicted pixel of the n x n (sub)block at (x0, y0) with MV (dx, dy,
-// r), at offset (i, j) inside it
-__device__ __forceinline__ int16_t fetch(const uint8_t* __restrict__ refs, int nref, int h, int w, bool fme,
-                                         const int32_t* __restrict__ mv, int x0, int y0, int n, int i, int j) {
+// the band row that frame row y (in the frame, so 32-bit) reads: the
+// nearest of the band's nrows rows, which start at frame row org (half-pel
+// grid rows under FME)
+__device__ __forceinline__ int band_row(int y, int org, int nrows) {
+    return min(max(y - org, 0), nrows - 1);
+}
+
+// one predicted pixel of the n x n (sub)block at frame position (x0, y0)
+// with MV (dx, dy, r), at offset (i, j) inside it; the band's row 0 is
+// frame row org
+__device__ __forceinline__ int16_t fetch(const uint8_t* __restrict__ refs, int nref, int bandh, int org, int H,
+                                         int w, bool fme, const int32_t* __restrict__ mv, int x0, int y0, int n,
+                                         int i, int j) {
     const int r = mv[2];
     if (r < 0 || r >= nref) return 0;
     if (!fme) {
         const long long sx = (long long)x0 + mv[0] + j, sy = (long long)y0 + mv[1] + i;
-        if (sx < 0 || sx >= w || sy < 0 || sy >= h) return 0;
-        return refs[((size_t)r * h + (size_t)sy) * w + (size_t)sx];
+        if (sx < 0 || sx >= w || sy < 0 || sy >= H) return 0;
+        return refs[((size_t)r * bandh + (size_t)band_row((int)sy, org, bandh)) * w + (size_t)sx];
     }
-    const long long H2 = 2LL * h - 1, W2 = 2LL * w - 1;
+    const long long H2 = 2LL * H - 1, W2 = 2LL * w - 1;
     const long long px = 2LL * x0 + mv[0], py = 2LL * y0 + mv[1];
     long long Y, X;
     if (px >= 0 && px < W2 - n && py >= 0 && py < H2 - n) {
@@ -62,35 +80,44 @@ __device__ __forceinline__ int16_t fetch(const uint8_t* __restrict__ refs, int n
         X = px + j;
         if (Y < 0 || Y >= H2 || X < 0 || X >= W2) return 0;
     }
-    const size_t p = (size_t)r * 4 + (size_t)((Y & 1) * 2 + (X & 1));
-    return refs[(p * h + (size_t)(Y >> 1)) * w + (size_t)(X >> 1)];
+    const int Yb = band_row((int)Y, 2 * org, 2 * bandh - 1);  // the band's half-pel grid row
+    const size_t p = (size_t)r * 4 + (size_t)((Yb & 1) * 2 + (X & 1));
+    return refs[(p * bandh + (size_t)(Yb >> 1)) * w + (size_t)(X >> 1)];
 }
 
+// nbc = w / bs, the blocks per row, comes from the host: a pixel's block
+// index then takes two integer divisions (x / bs, y / bs), not three, and a
+// quad's none
 __global__ void pred_fetch_kernel(const int32_t* __restrict__ mv, const int32_t* __restrict__ smv,
-                                  const uint8_t* __restrict__ refs, int nref, int h, int w, int bs, int fme,
-                                  int16_t* __restrict__ pred, int16_t* __restrict__ pred_q) {
+                                  const uint8_t* __restrict__ refs, int nref, int h, int w, int bs, int nbc, int fme,
+                                  int bandh, int band_row0, int g_row0, int H, int16_t* __restrict__ pred,
+                                  int16_t* __restrict__ pred_q) {
     const int x = blockIdx.x * blockDim.x + threadIdx.x;
     const int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (x >= w || y >= h) return;
-    const int b = (y / bs) * (w / bs) + x / bs;
-    const int x0 = x - x % bs, y0 = y - y % bs;
-    pred[(size_t)y * w + x] = fetch(refs, nref, h, w, fme, mv + 3 * b, x0, y0, bs, y - y0, x - x0);
+    const int bj = x / bs, bi = y / bs;
+    const int b = bi * nbc + bj;
+    const int x0 = bj * bs, y0 = bi * bs;
+    const int gy0 = g_row0 + y0, org = g_row0 - band_row0;  // frame rows of the block and of the band's row 0
+    pred[(size_t)y * w + x] = fetch(refs, nref, bandh, org, H, w, fme, mv + 3 * b, x0, gy0, bs, y - y0, x - x0);
     if (pred_q == nullptr) return;
-    const int s = bs / 2;
-    const int dr = (y - y0) / s, dc = (x - x0) / s;
+    const int s = bs / 2;  // bs is even under VBS, so a quad's row and column are comparisons
+    const int dr = y - y0 >= s, dc = x - x0 >= s;
     const int q = 4 * b + 2 * dr + dc;  // Z order: TL, TR, BL, BR
-    pred_q[(size_t)y * w + x] =
-        fetch(refs, nref, h, w, fme, smv + 3 * q, x0 + dc * s, y0 + dr * s, s, y - y0 - dr * s, x - x0 - dc * s);
+    pred_q[(size_t)y * w + x] = fetch(refs, nref, bandh, org, H, w, fme, smv + 3 * q, x0 + dc * s, gy0 + dr * s, s,
+                                      y - y0 - dr * s, x - x0 - dc * s);
 }
 
 }  // namespace
 
 extern "C" int so_pred_fetch(const void* mv, const void* smv, const void* refs, int nref, int h, int w, int bs,
-                             int fme, void* pred, void* pred_q, void* stream) {
+                             int fme, int bandh, int band_row0, int g_row0, int H, void* pred, void* pred_q,
+                             void* stream) {
     dim3 block(32, 8);
     dim3 grid((w + 31) / 32, (h + 7) / 8);
     pred_fetch_kernel<<<grid, block, 0, (cudaStream_t)stream>>>((const int32_t*)mv, (const int32_t*)smv,
-                                                                (const uint8_t*)refs, nref, h, w, bs, fme,
-                                                                (int16_t*)pred, (int16_t*)pred_q);
+                                                                (const uint8_t*)refs, nref, h, w, bs, w / bs, fme,
+                                                                bandh, band_row0, g_row0, H, (int16_t*)pred,
+                                                                (int16_t*)pred_q);
     return (int)cudaGetLastError();
 }

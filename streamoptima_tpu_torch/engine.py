@@ -39,6 +39,10 @@ produces is bit-identical to the JAX engine's on the same input and config
 Configurations outside the port raise ``NotImplementedError`` naming the
 feature; ``engine='compat'`` (the host reference engine) raises
 ``ValueError``.  Neither is a fallback.
+
+A ``TorchCodec`` built with ``rows`` codes one mesh tile: a band of whole
+block rows of the frame (``parallel/mesh.py``).  Its steps take the
+reference band around the tile, and every bound is evaluated at frame rows.
 """
 from __future__ import annotations
 
@@ -79,7 +83,7 @@ def check_slice(cfg: CodecConfig) -> None:
 class TorchCodec:
     """PyTorch encoder/decoder for the ported configurations, on an explicit ``device``."""
 
-    def __init__(self, cfg: CodecConfig, y_frames=None, *, device):
+    def __init__(self, cfg: CodecConfig, y_frames=None, *, device, rows: tuple[int, int] | None = None):
         check_slice(cfg)
         self.cfg = cfg
         self.vbs = cfg.vbs_enable
@@ -88,16 +92,22 @@ class TorchCodec:
         self.y = None if y_frames is None else np.asarray(y_frames, dtype=np.uint8)
         # the clip is uploaded once; frames are device slices
         self._y_dev = None if self.y is None else torch.from_numpy(self.y).to(self.device)
-        self.h, self.w = cfg.height, cfg.width
+        self.H, self.w = cfg.height, cfg.width
+        # the frame rows [g_row0, g_row0 + h) this instance codes: the frame, or a mesh tile's band
+        self.g_row0, r1 = (0, self.H) if rows is None else rows
+        self.h = r1 - self.g_row0
+        if rows is not None and (cfg.fast_me or cfg.parallel_mode):
+            raise ValueError("a tile (rows=...) codes the full search without parallel modes")
         self.bs = cfg.block_size
         self.sbs = cfg.sub_block_size
-        self.nbr, self.nbc = cfg.block_rows, cfg.blocks_per_row
+        self.nbr, self.nbc = self.h // self.bs, cfg.blocks_per_row
         self.nb = self.nbr * self.nbc
         self.qps = torch.full((self.nb,), cfg.qp, dtype=torch.int32, device=self.device)
-        # non-border blocks may split (jax_engine.py:68-71); intra mode 1
-        # numbers the blocks in the transposed frame's raster order
+        # non-border blocks (frame row and column 0) may split
+        # (jax_engine.py:68-71); intra mode 1 numbers the blocks in the
+        # transposed frame's raster order
         border = torch.zeros((self.nbr, self.nbc), dtype=torch.bool, device=self.device)
-        border[0, :] = True
+        border[0, :] = self.g_row0 == 0
         border[:, 0] = True
         self.vbs_eligible = ~border.reshape(-1)
         self.vbs_eligible_t = ~border.T.reshape(-1)
@@ -138,16 +148,22 @@ class TorchCodec:
                                        vbs_eligible=self.vbs_eligible_t if transposed else self.vbs_eligible,
                                        bs=self.bs, sbs=self.sbs, ok_full=ok, ok_quads=sub_ok)
 
-    def _fetch(self, mv, sub_mv, planes):
+    def _band(self, band_row0: int) -> dict:
+        """The kernels' band arguments: this instance's rows at ``band_row0``
+        of the references (0 for whole frames)."""
+        return {"band_row0": band_row0, "g_row0": self.g_row0, "grid": (self.H, self.w)}
+
+    def _fetch(self, mv, sub_mv, planes, band_row0: int = 0):
         """Each block's, and under VBS each quad's, prediction at the given
         MVs: (nb, bs, bs) and (nb, 4, s, s) int32 (None without VBS), from
         the ``pred_fetch`` kernel in the tool set's mode."""
         bs = self.bs
+        band = self._band(band_row0)
         if self.vbs:
             fetch = K.pred_fetch_fme_vbs if self.fme else K.pred_fetch_vbs
-            pf, pq = fetch(mv, sub_mv, planes, bs)
+            pf, pq = fetch(mv, sub_mv, planes, bs, **band)
             return blockify(pf, bs).to(torch.int32), quads_px(pq, bs).to(torch.int32)
-        pf = (K.pred_fetch_fme if self.fme else K.pred_fetch)(mv, planes, bs)
+        pf = (K.pred_fetch_fme if self.fme else K.pred_fetch)(mv, planes, bs, **band)
         return blockify(pf, bs).to(torch.int32), None
 
     def _recon_inter(self, pred_full, pred_q, split, qtc_full, qtc_quads) -> torch.Tensor:
@@ -171,7 +187,7 @@ class TorchCodec:
                                               sub_mv=sub_mv)
         return wrap_uint8(frame)
 
-    def _outputs(self, cur, mv, sub_mv, sel, recon, row_bits=None) -> dict:
+    def _outputs(self, mv, sub_mv, sel, recon, row_bits=None) -> dict:
         split, qtc_full, qtc_quads, lens, mae = sel
         return {
             "mv": mv, "split": split, "sub_mv": sub_mv,
@@ -181,8 +197,7 @@ class TorchCodec:
             "size": lens.sum(),
             "row_bits": lens.reshape(self.nbr, self.nbc).sum(dim=1) if row_bits is None else row_bits,
             "recon": recon,
-            "mae": mae.mean(),
-            "psnr": metrics.psnr(cur, recon),
+            "mae": mae,  # per block: a mesh frame's mean is over its tiles' blocks together
         }
 
     # ------------------------------------------------------------- steps
@@ -207,7 +222,7 @@ class TorchCodec:
         recon = self._recon_intra(mv, sel[0], sub_mv, sel[1], sel[2])
         # row bits sum pixel rows of blocks either way
         row_bits = sel[3].reshape(self.nbc, self.nbr).sum(dim=0) if mode1 else None
-        return self._outputs(cur, mv, sub_mv, sel, recon, row_bits)
+        return self._outputs(mv, sub_mv, sel, recon, row_bits)
 
     def _confirm(self, cur_blocks: torch.Tensor, planes: torch.Tensor, g: torch.Tensor) -> dict:
         """The fast-ME 3x3 searches around MVPs ``g`` (nb, 3), block and
@@ -246,24 +261,27 @@ class TorchCodec:
         out["g_next"] = g
         return out
 
-    def _full_search(self, cur: torch.Tensor, planes: torch.Tensor):
+    def _full_search(self, cur: torch.Tensor, planes: torch.Tensor, band_row0: int = 0):
         """One full-search launch and the winners' predictions; blocks and
         quads without a valid candidate take mv = (0, 0, 0) against 128s."""
         sr, bs = self.cfg.search_range, self.bs
         if not (self.vbs or self.fme):
-            s = K.full_search(cur, planes, sr, bs)  # returns the winners' pixels itself
+            s = K.full_search(cur, planes, sr, bs, **self._band(band_row0))  # returns the winners' pixels itself
             pred_full, pred_q = blockify(s["pred"], bs).to(torch.int32), None
         else:
             search = {(False, True): K.full_search_vbs, (True, False): K.full_search_fme,
                       (True, True): K.full_search_fme_vbs}[self.fme, self.vbs]
-            s = search(cur, planes, sr, bs)
-            pred_full, pred_q = self._fetch(s["mv"], s.get("sub_mv"), planes)
+            s = search(cur, planes, sr, bs, **self._band(band_row0))
+            pred_full, pred_q = self._fetch(s["mv"], s.get("sub_mv"), planes, band_row0)
         pred_full = torch.where(s["ok"][:, None, None], pred_full, 128)
         if pred_q is not None:
             pred_q = torch.where(s["sub_ok"][:, :, None, None], pred_q, 128)
         return s, pred_full, pred_q
 
-    def _inter_step(self, cur: torch.Tensor, refs: list, initial: bool, g0: torch.Tensor | None = None) -> dict:
+    def _inter_step(self, cur: torch.Tensor, refs: list, initial: bool, g0: torch.Tensor | None = None,
+                    band_row0: int = 0) -> dict:
+        """One inter frame; ``refs`` are the reference frames, or bands of
+        them holding this instance's rows at ``band_row0``."""
         cur_blocks = blockify(cur, self.bs).to(torch.int32)
         planes = self._planes(refs, initial)
         if self.fast:
@@ -276,13 +294,13 @@ class TorchCodec:
             # predicted at that MV like any other: no 128 mask here
             pred_full, pred_q = self._fetch(s["mv"], s.get("sub_mv"), planes)
         else:
-            s, pred_full, pred_q = self._full_search(cur, planes)
+            s, pred_full, pred_q = self._full_search(cur, planes, band_row0)
         res_q = split_quads(cur_blocks) - pred_q if self.vbs else None
         sel = self._select(cur_blocks - pred_full, res_q, s["sad"], s.get("sub_sad"), 1, ok=s["ok"],
                            sub_ok=s.get("sub_ok"))
         recon = self._recon_inter(pred_full, pred_q, sel[0], sel[1], sel[2])
         sub_mv = s["sub_mv"] if self.vbs else torch.zeros((self.nb, 4, 3), dtype=torch.int32, device=self.device)
-        out = self._outputs(cur, s["mv"], sub_mv, sel, recon)
+        out = self._outputs(s["mv"], sub_mv, sel, recon)
         if "g_next" in s:
             out["g_next"] = s["g_next"]
         return out
@@ -303,14 +321,13 @@ class TorchCodec:
             else:
                 out, ftype = self._inter_step(cur, *self._inter_refs(refs, initial), g_carry), 1
                 g_carry = out.pop("g_next", g_carry)
+            out["psnr"] = metrics.psnr(cur, out["recon"])
             ftypes.append(ftype)
             per_frame.append(out)
             if i < cfg.frames - 1:
                 if ftype == 0:
                     refs = []
-                if len(refs) >= cfg.n_ref_frames:
-                    refs.pop(0)
-                refs.append(out["recon"])
+                fifo_push(refs, out["recon"], cfg.n_ref_frames)
                 initial = False
         return per_frame, ftypes
 
@@ -320,30 +337,9 @@ class TorchCodec:
         "MVS per Frame" / "approx residual" interchange."""
         if self._y_dev is None:
             raise ValueError("construct with y_frames to encode")
-        cfg = self.cfg
-        per_frame, ftypes = self._encode_pass()
-        stats = torch.stack([torch.stack([o["psnr"], o["mae"]]) for o in per_frame]).cpu().numpy()
-        sizes = torch.stack([o["size"] for o in per_frame]).cpu().numpy()
-        pkg = {
-            "block size": self.bs,
-            "num frames": cfg.frames,
-            "height in pixels": self.h,
-            "width in pixels": self.w,
-            "search range": cfg.search_range,
-            "PSNR per frame": [float(v) for v in stats[:, 0]],
-            "MAE per Frame": [float(v) for v in stats[:, 1]],
-            "frame_type_seq": ftypes,
-            "Qp_per_row_per_frame": [[] for _ in ftypes],
-            "residual size per frame": [int(v) for v in sizes],
-            "reconstructed frames": torch.stack([o["recon"] for o in per_frame]).cpu().numpy(),
-        }
+        pkg = build_package(self.cfg, *self._encode_pass(), "full" if package else "arrays")
         if self.fast:
             pkg["fast_me_passes"] = list(self.fast_me_passes)
-        if package:
-            pkg["MVS per Frame"] = [mvs_to_list(o, ft, self.nb) for o, ft in zip(per_frame, ftypes)]
-            pkg["approx residual"] = [res_to_list(o, self.nb) for o in per_frame]
-        else:
-            pkg["per_frame"] = per_frame
         return pkg
 
     # ------------------------------------------------------------ decode
@@ -351,39 +347,11 @@ class TorchCodec:
         """Decode list- or array-form interchange (the bitstream readers'
         output) into a list of (h, w) uint8 device tensors."""
         cfg = self.cfg
-        n, nb, bs, s = len(frame_types), self.nb, self.bs, self.sbs
+        n = len(frame_types)
         # parallel mode 1 decodes every frame as an inter frame against the
         # all-128 plane (jax_engine.py:1180-1196)
         all_inter = cfg.parallel_mode == 1
-        # host pass: pack the clip's MVs, split flags and coefficients for
-        # one upload each.  A block is split or not, so its full-block and
-        # quad coefficients share one (bs, bs) payload slot.
-        mv_all = np.zeros((n, nb, 3), np.int32)
-        smv_all = np.zeros((n, nb, 4, 3), np.int32)
-        split_all = np.zeros((n, nb), bool)
-        pay_all = np.zeros((n, nb, bs, bs), np.int16)
-        nref = 1  # length of the decoder's reference FIFO at frame i
-        for i in range(n):
-            ft = int(frame_types[i])
-            mv_np, split_np, smv_np = list_to_mvs_np(mvs_per_frame[i], ft, nb)
-            if ft == 0:
-                mv_all[i, :, 0] = mv_np
-                smv_all[i, :, :, 0] = smv_np
-            else:
-                refs_used = np.concatenate([mv_np[:, 2], smv_np[:, :, 2].reshape(-1)])
-                held = 1 if cfg.parallel_mode in (1, 3) else nref
-                if refs_used.min(initial=0) < 0 or refs_used.max(initial=0) >= held:
-                    raise ValueError(f"corrupt stream: frame {i} references a frame outside "
-                                     f"its {held}-frame reference list")
-                mv_all[i] = mv_np
-                smv_all[i] = smv_np
-            split_all[i] = split_np
-            qf, qq = list_to_res_np(residuals_per_frame[i], nb, bs, s)
-            pay_all[i] = qf
-            if split_np.any():
-                merged = qq.reshape(nb, 2, 2, s, s).swapaxes(2, 3).reshape(nb, bs, bs)
-                pay_all[i][split_np] = merged[split_np]
-            nref = 1 if ft == 0 else min(nref + 1, cfg.n_ref_frames)
+        mv_all, smv_all, split_all, pay_all = pack_stream(cfg, frame_types, residuals_per_frame, mvs_per_frame)
         d_mv, d_split, d_pay = (torch.from_numpy(a).to(self.device) for a in (mv_all, split_all, pay_all))
         d_smv = torch.from_numpy(smv_all).to(self.device) if self.vbs else None  # read only under VBS
 
@@ -401,11 +369,91 @@ class TorchCodec:
                 f = self._recon_inter(pf, pq, d_split[i], qf, qq)
             out.append(f)
             if i < n - 1:
-                if len(refs) >= cfg.n_ref_frames:
-                    refs.pop(0)
-                refs.append(f)
+                fifo_push(refs, f, cfg.n_ref_frames)
                 initial = False
         return out
+
+
+# ------------------------------------------- shared with the mesh (module level)
+def fifo_push(refs: list, frame: torch.Tensor, nref: int) -> None:
+    """Reference FIFO update (Encoder.py:1864-1867): append the newest
+    reconstruction, evicting the oldest once ``nref`` are held.  The one
+    implementation for every encode and decode loop, single-device and mesh:
+    encode and decode stay in step only if they update alike."""
+    if len(refs) >= nref:
+        refs.pop(0)
+    refs.append(frame)
+
+
+def build_package(cfg: CodecConfig, per_frame: list, ftypes: list, fetch: str = "full") -> dict:
+    """The encode package from per-frame outputs (each with "psnr" and the
+    per-block "mae").  ``fetch``: "full" adds the list-form "MVS per Frame"
+    / "approx residual" interchange, "arrays" the per-frame device tensors
+    under "per_frame", "light" neither, and "metrics" leaves out the
+    reconstructions too."""
+    nb = cfg.block_rows * cfg.blocks_per_row
+    stats = torch.stack([torch.stack([o["psnr"], o["mae"].mean()]) for o in per_frame]).cpu().numpy()
+    sizes = torch.stack([o["size"] for o in per_frame]).cpu().numpy()
+    pkg = {
+        "block size": cfg.block_size,
+        "num frames": cfg.frames,
+        "height in pixels": cfg.height,
+        "width in pixels": cfg.width,
+        "search range": cfg.search_range,
+        "PSNR per frame": [float(v) for v in stats[:, 0]],
+        "MAE per Frame": [float(v) for v in stats[:, 1]],
+        "frame_type_seq": ftypes,
+        "Qp_per_row_per_frame": [[] for _ in ftypes],
+        "residual size per frame": [int(v) for v in sizes],
+        "reconstructed frames": (None if fetch == "metrics"
+                                 else torch.stack([o["recon"] for o in per_frame]).cpu().numpy()),
+    }
+    if fetch == "full":
+        pkg["MVS per Frame"] = [mvs_to_list(o, ft, nb) for o, ft in zip(per_frame, ftypes)]
+        pkg["approx residual"] = [res_to_list(o, nb) for o in per_frame]
+    elif fetch == "arrays":
+        pkg["per_frame"] = per_frame
+    elif fetch not in ("light", "metrics"):
+        raise ValueError(f"fetch must be full, arrays, light or metrics, not {fetch!r}")
+    return pkg
+
+
+def pack_stream(cfg: CodecConfig, frame_types, residuals_per_frame, mvs_per_frame):
+    """The decoders' host pass: the clip's MVs, sub-MVs, split flags and
+    coefficients packed for one upload each, (n, nb, 3), (n, nb, 4, 3),
+    (n, nb) and (n, nb, bs, bs); intra frames' scalar MVs in component 0.  A
+    block is split or not, so its full-block and quad coefficients share one
+    (bs, bs) payload slot.  A frame that references a frame outside the
+    decoder's FIFO raises ``ValueError`` before anything is launched."""
+    n, bs, s = len(frame_types), cfg.block_size, cfg.sub_block_size
+    nb = cfg.block_rows * cfg.blocks_per_row
+    mv_all = np.zeros((n, nb, 3), np.int32)
+    smv_all = np.zeros((n, nb, 4, 3), np.int32)
+    split_all = np.zeros((n, nb), bool)
+    pay_all = np.zeros((n, nb, bs, bs), np.int16)
+    nref = 1  # length of the decoder's reference FIFO at frame i
+    for i in range(n):
+        ft = int(frame_types[i])
+        mv_np, split_np, smv_np = list_to_mvs_np(mvs_per_frame[i], ft, nb)
+        if ft == 0:
+            mv_all[i, :, 0] = mv_np
+            smv_all[i, :, :, 0] = smv_np
+        else:
+            refs_used = np.concatenate([mv_np[:, 2], smv_np[:, :, 2].reshape(-1)])
+            held = 1 if cfg.parallel_mode in (1, 3) else nref
+            if refs_used.min(initial=0) < 0 or refs_used.max(initial=0) >= held:
+                raise ValueError(f"corrupt stream: frame {i} references a frame outside "
+                                 f"its {held}-frame reference list")
+            mv_all[i] = mv_np
+            smv_all[i] = smv_np
+        split_all[i] = split_np
+        qf, qq = list_to_res_np(residuals_per_frame[i], nb, bs, s)
+        pay_all[i] = qf
+        if split_np.any():
+            merged = qq.reshape(nb, 2, 2, s, s).swapaxes(2, 3).reshape(nb, bs, bs)
+            pay_all[i][split_np] = merged[split_np]
+        nref = 1 if ft == 0 else min(nref + 1, cfg.n_ref_frames)
+    return mv_all, smv_all, split_all, pay_all
 
 
 # ------------------------------------------------ interchange (module level)

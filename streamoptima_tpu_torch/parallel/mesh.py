@@ -1,0 +1,304 @@
+"""GOP- and row-tile-sharded encode and decode over a mesh of devices.
+
+Counterpart of ``streamoptima_tpu.parallel.mesh`` for its full-search
+configurations.  A ``Mesh`` lays devices out on two axes:
+
+- "data": each row of the mesh codes whole GOPs.  Every GOP opens with an
+  intra frame (``i % intra_dur == 0``), so GOPs are independent and sharding
+  them is exact.
+- "tile": each device of a row codes a horizontal band of block rows.  Intra
+  mode 0 never reads outside its band, so intra frames need nothing from the
+  neighbours.  Inter frames read ``search_range + 1`` halo rows of each
+  neighbour's references (``_halo_band``), or with
+  ``tile_comm="all_gather"`` the whole reference frames.  The search and
+  fetch kernels take the band and evaluate every bound at frame rows
+  (``core/kernels.py``), so the result is bit-identical to ``TorchCodec`` on
+  one device.
+
+A device may appear more than once: ``make_mesh(cfg, devices=[cuda0] * 6)``
+runs a (2, 3) mesh on one card, as the JAX package's 8 virtual CPU devices
+run its mesh on one host.  One host thread queues each shard's work on its
+device in turn.
+
+This slice runs the full search (whole-pel or half-pel, VBS on or off, up to
+eight references) with intra mode 0, and intra mode 1 on the "data" axis
+alone.  Fast ME, rate control (per-row, scene-change promotion, two-pass)
+and ROI maps raise ``NotImplementedError`` naming the feature.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from streamoptima_tpu_torch import metrics
+from streamoptima_tpu_torch.config import CodecConfig
+from streamoptima_tpu_torch.engine import TorchCodec, build_package, fifo_push, pack_stream, unpack_payload
+
+#: per-frame outputs that concatenate over tiles, in block raster or row order
+_TILED_KEYS = ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "row_bits", "recon", "mae")
+
+
+def _halo_band(tiles: list, t: int, halo: int, device) -> torch.Tensor:
+    """Tile ``t``'s (h_t + 2 * halo, w) band of one reference frame: its own
+    rows with ``halo`` rows of each vertical neighbour's, copied to
+    ``device``.  Edge tiles get zero rows, outside the frame (the JAX mesh's
+    ppermute fill); every read of them is masked at frame rows.  ``tiles``:
+    the frame's (h_t, w) tile on each tile's device."""
+    own = tiles[t]
+    zeros = own.new_zeros((halo, own.shape[1]))
+    top = tiles[t - 1][-halo:].to(device) if t > 0 else zeros
+    bottom = tiles[t + 1][:halo].to(device) if t + 1 < len(tiles) else zeros
+    return torch.cat([top, own, bottom])
+
+
+def _all_gather(tiles: list, device) -> torch.Tensor:
+    """The whole frame from its tiles, on ``device``."""
+    return torch.cat([x.to(device) for x in tiles])
+
+
+class Mesh:
+    """A (data, tile) grid of torch devices: ``devices`` is a 2-D numpy
+    object array, the role of ``jax.sharding.Mesh``."""
+
+    axis_names = ("data", "tile")
+
+    def __init__(self, devices):
+        rows = [[torch.device(d) for d in row] for row in devices]
+        if not rows or not rows[0] or any(len(r) != len(rows[0]) for r in rows):
+            raise ValueError("a mesh is a non-empty (data, tile) grid of devices")
+        self.devices = np.array(rows, dtype=object)
+
+
+def make_mesh(cfg: CodecConfig, devices=None, tile: int | None = None) -> Mesh:
+    """A ("data", "tile") mesh over ``devices`` (default: every visible CUDA
+    device), factored as ``streamoptima_tpu.parallel.make_mesh`` does.
+
+    ``tile`` must divide both the device count and the frame's block-row
+    count, and the inter halo (search_range + 1 rows) must fit the per-tile
+    band; by default the largest such divisor is chosen and the remaining
+    devices go to GOP ("data") parallelism.  Intra mode 1 takes tile 1.
+    """
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: no CUDA device is visible; list the devices (devices=['cpu'] * 8 runs "
+                               "an 8-device mesh on the CPU)")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    n = len(devices)
+    nbr = cfg.block_rows
+    halo = cfg.search_range + 1
+
+    def halo_fits(t: int) -> bool:
+        return t == 1 or halo <= (nbr // t) * cfg.block_size
+
+    if cfg.intra_mode == 1:
+        # mode 1's column chain spans all row tiles; only GOP ("data") parallelism applies
+        if tile not in (None, 1):
+            raise ValueError("intra_mode=1 requires tile=1 (the vertical intra chain crosses row-tile boundaries)")
+        tile = 1
+    if tile is None:
+        tile = next(d for d in range(n, 0, -1) if n % d == 0 and nbr % d == 0 and halo_fits(d))
+    if n % tile or nbr % tile:
+        raise ValueError(f"tile={tile} must divide device count {n} and block rows {nbr}")
+    if not halo_fits(tile):
+        raise ValueError(f"tile={tile} leaves {(nbr // tile) * cfg.block_size} pixel rows per band, smaller than "
+                         f"the search halo {halo}; lower the tile count")
+    return Mesh([devices[i * tile:(i + 1) * tile] for i in range(n // tile)])
+
+
+def check_mesh_slice(cfg: CodecConfig) -> None:
+    """Refuse, by name, what the mesh does not run: what the JAX mesh
+    refuses (``ValueError``) and what later slices of the port bring
+    (``NotImplementedError``)."""
+    if cfg.compat:
+        raise ValueError("sharded encoding requires the native engine (engine='jax')")
+    if cfg.parallel_mode != 0:
+        raise ValueError("mesh sharding replaces the reference's parallel modes: parallel_mode must be 0")
+    later = {  # two-pass and promotion first: both imply rc_flag
+        "two_pass": (cfg.two_pass, "the rate-control slice"),
+        "rc_flag > 1 (scene-change promotion)": (cfg.rc_flag is not None and cfg.rc_flag > 1,
+                                                 "the rate-control slice"),
+        "rc_flag": (cfg.rc_active, "the rate-control slice"),
+        "roi_qp_map": (cfg.roi_qp_map is not None, "the rate-control slice"),
+        "fast_me": (cfg.fast_me, "the mesh's fast-ME slice (the MVP chain across tiles)"),
+    }
+    for name, (on, when) in later.items():
+        if on:
+            raise NotImplementedError(f"{name} is not ported to the mesh yet: it comes with {when}")
+
+
+class ShardedCodec:
+    """GOP- and row-sharded encoder and decoder over a ``Mesh``.
+
+    ``encode`` returns ``TorchCodec.encode``'s package, bit for bit (PSNR
+    too: it is computed on each whole frame, on the mesh's first device,
+    where the merged per-frame outputs live).  ``decode`` shards the same
+    way and returns the frames on that device.
+    """
+
+    def __init__(self, cfg: CodecConfig, mesh: Mesh, y_frames=None, tile_comm: str = "halo"):
+        check_mesh_slice(cfg)
+        self.ndata, self.ntile = mesh.devices.shape
+        if cfg.intra_mode == 1 and self.ntile != 1:
+            raise ValueError("intra_mode=1 shards the 'data' (GOP) axis only: the vertical intra chain crosses "
+                             "row-tile boundaries (make_mesh forces tile=1)")
+        if tile_comm not in ("halo", "all_gather"):
+            raise ValueError(f"tile_comm must be 'halo' or 'all_gather', not {tile_comm!r}")
+        if cfg.block_rows % self.ntile:
+            raise ValueError(f"{self.ntile} tiles do not divide {cfg.block_rows} block rows")
+        self.cfg, self.mesh, self.tile_comm = cfg, mesh, tile_comm
+        self.y = None if y_frames is None else np.asarray(y_frames, dtype=np.uint8)
+        self.gl = cfg.intra_dur  # GOP length
+        self.nb_t = cfg.block_rows // self.ntile * cfg.blocks_per_row
+        self.h_t = cfg.block_rows // self.ntile * cfg.block_size
+        self.halo = cfg.search_range + 1
+        if self.ntile > 1 and tile_comm == "halo" and self.halo > self.h_t:
+            raise ValueError(f"the search halo {self.halo} exceeds the {self.h_t}-row tile; lower the tile count")
+        self.home = mesh.devices[0, 0]
+        # one engine per shard: its device and its tile's rows
+        self._tiles = [[TorchCodec(cfg, device=mesh.devices[d, t], rows=(t * self.h_t, (t + 1) * self.h_t))
+                        for t in range(self.ntile)] for d in range(self.ndata)]
+        self._frames_dev = None  # per shard: its GOPs' frames, its tile's rows (staged at the first encode)
+
+    # ----------------------------------------------------------- shared
+    def _bands(self, fifos: list, d: int, t: int, comm: str) -> tuple[list, int]:
+        """Tile ``t``'s reference bands on data row ``d`` and the band row of
+        its row 0.  ``fifos``: each tile's reference FIFO."""
+        dev = self.mesh.devices[d, t]
+        if self.ntile == 1 or comm == "all_gather":
+            return [_all_gather([f[r] for f in fifos], dev) for r in range(len(fifos[t]))], t * self.h_t
+        return [_halo_band([f[r] for f in fifos], t, self.halo, dev) for r in range(len(fifos[t]))], self.halo
+
+    def _merge(self, outs: list, curs: list) -> dict:
+        """One frame's tile outputs as one frame's output on the first device:
+        block rasters and rows concatenated in tile order, sizes summed, PSNR
+        on the whole frame."""
+        m = {k: torch.cat([o[k].to(self.home) for o in outs]) for k in _TILED_KEYS}
+        m["size"] = torch.stack([o["size"].to(self.home) for o in outs]).sum()
+        m["psnr"] = metrics.psnr(_all_gather(curs, self.home), m["recon"])
+        return m
+
+    # ------------------------------------------------------------ encode
+    def _stage_frames(self) -> None:
+        """Upload each shard's part of the clip once: the frames of the GOPs
+        its data row codes, the rows of its tile."""
+        n, gl = self.cfg.frames, self.gl
+        self._frames_dev = [[None] * self.ntile for _ in range(self.ndata)]
+        for d in range(self.ndata):
+            idx = [i for i in range(n) if (i // gl) % self.ndata == d]
+            for t in range(self.ntile):
+                part = np.ascontiguousarray(self.y[idx, t * self.h_t:(t + 1) * self.h_t])
+                self._frames_dev[d][t] = torch.from_numpy(part).to(self.mesh.devices[d, t])
+
+    def _encode_gop_local(self, d: int, frames: range) -> list:
+        """Encode one GOP on data row ``d``: the intra frame, then each inter
+        frame against the tiles' reference FIFOs; the merged per-frame
+        outputs."""
+        engines, gl = self._tiles[d], self.gl
+        fifos = [[] for _ in engines]
+        outs = []
+        for k, i in enumerate(frames):
+            pos = i // gl // self.ndata * gl + k  # frame i among its data row's staged frames
+            curs = [self._frames_dev[d][t][pos] for t in range(self.ntile)]
+            if k == 0:
+                tile_outs = [e._intra_step(c) for e, c in zip(engines, curs)]
+            else:
+                tile_outs = []
+                for t, (e, c) in enumerate(zip(engines, curs)):
+                    bands, band_row0 = self._bands(fifos, d, t, self.tile_comm)
+                    tile_outs.append(e._inter_step(c, bands, False, band_row0=band_row0))
+            outs.append(self._merge(tile_outs, curs))
+            for fifo, o in zip(fifos, tile_outs):  # after every tile's step: the halos are the last frame's
+                fifo_push(fifo, o["recon"], self.cfg.n_ref_frames)
+        return outs
+
+    def _run_scan_batches(self) -> list:
+        """Every GOP's merged per-frame outputs: GOPs in batches of ``ndata``,
+        GOP g on data row g % ndata.  The last batch and the last GOP run
+        only their real frames: the JAX mesh pads them with the last frame
+        to keep its compiled shapes and drops the padding's outputs."""
+        n, gl = self.cfg.frames, self.gl
+        per_frame = []
+        for g in range(math.ceil(n / gl)):
+            per_frame += self._encode_gop_local(g % self.ndata, range(g * gl, min(n, (g + 1) * gl)))
+        return per_frame
+
+    def encode(self, package: bool = True, fetch: str = "full") -> dict:
+        """Full-clip encode: ``TorchCodec.encode``'s package.  ``fetch``:
+        "full" (the list interchange, or with ``package=False`` the device
+        tensors under "per_frame"), "light" (neither) or "metrics" (no
+        reconstructions either)."""
+        if self.y is None:
+            raise ValueError("construct with y_frames to encode")
+        if self._frames_dev is None:
+            self._stage_frames()
+        ftypes = [0 if i % self.gl == 0 else 1 for i in range(self.cfg.frames)]
+        return build_package(self.cfg, self._run_scan_batches(), ftypes,
+                             "arrays" if fetch == "full" and not package else fetch)
+
+    # ------------------------------------------------------------ decode
+    def _decode_comm(self, mv_all: np.ndarray, smv_all: np.ndarray) -> str:
+        """The tile communication a stream needs.  The halo serves vertical
+        MVs up to the search range (twice it on the half-pel grid); a stream
+        with longer ones (another encoder's fast-ME chain) decodes from whole
+        frames."""
+        if self.ntile == 1 or self.tile_comm == "all_gather":
+            return self.tile_comm
+        bound = self.cfg.search_range * (2 if self.cfg.fme_enable else 1)
+        max_dy = max(int(np.abs(mv_all[..., 1]).max(initial=0)), int(np.abs(smv_all[..., 1]).max(initial=0)))
+        return "all_gather" if max_dy > bound else "halo"
+
+    def _decode_gop_local(self, d: int, frames: range, frame_types, packed: tuple, comm: str) -> list:
+        """Decode one GOP on data row ``d``; frame-type driven, so an intra
+        frame inside the GOP resets the FIFOs as ``TorchCodec.decode`` does."""
+        engines = self._tiles[d]
+        vbs = self.cfg.vbs_enable
+        sl = slice(frames[0], frames[-1] + 1)
+        shards = []  # per tile: its blocks of the GOP's mv, sub_mv (under VBS), split and payload, one upload each
+        for t, e in enumerate(engines):
+            blocks = slice(t * self.nb_t, (t + 1) * self.nb_t)
+            shards.append([None if a is None else torch.from_numpy(np.ascontiguousarray(a[sl, blocks])).to(e.device)
+                           for a in packed])
+        fifos = [[] for _ in engines]
+        out = []
+        for k, i in enumerate(frames):
+            intra = int(frame_types[i]) == 0
+            tiles = []
+            for t, e in enumerate(engines):
+                mv, smv, split, pay = (None if a is None else a[k] for a in shards[t])
+                qf, qq = unpack_payload(split, pay, vbs)
+                if intra:
+                    f = e._recon_intra(mv[:, 0], split, smv[:, :, 0] if vbs else None, qf, qq)
+                else:
+                    bands, band_row0 = self._bands(fifos, d, t, comm)
+                    pf, pq = e._fetch(mv, smv, e._planes(bands, False), band_row0)
+                    f = e._recon_inter(pf, pq, split, qf, qq)
+                tiles.append(f)
+            for fifo, f in zip(fifos, tiles):
+                if intra:
+                    fifo.clear()
+                fifo_push(fifo, f, self.cfg.n_ref_frames)
+            out.append(_all_gather(tiles, self.home))
+        return out
+
+    def decode(self, frame_types, residuals_per_frame, qp_rows_per_frame, mvs_per_frame) -> list:
+        """Sharded decode of list- or array-form interchange (the bitstream
+        readers' output) into a list of (h, w) uint8 tensors on the mesh's
+        first device.  Every GOP must open intra (frame i % intra_dur == 0):
+        the "data" axis relies on GOP independence."""
+        gl = self.gl
+        for i, ft in enumerate(frame_types):
+            if i % gl == 0 and int(ft) != 0:
+                raise ValueError(f"frame {i} has type {ft} but every GOP must open intra (i % intra_dur == 0): "
+                                 "the sharded decoder relies on GOP independence")
+        mv_all, smv_all, split_all, pay_all = pack_stream(self.cfg, frame_types, residuals_per_frame, mvs_per_frame)
+        comm = self._decode_comm(mv_all, smv_all)
+        packed = (mv_all, smv_all if self.cfg.vbs_enable else None, split_all, pay_all)
+        n = len(frame_types)
+        out = []
+        for g in range(math.ceil(n / gl)):
+            out += self._decode_gop_local(g % self.ndata, range(g * gl, min(n, (g + 1) * gl)), frame_types,
+                                          packed, comm)
+        return out

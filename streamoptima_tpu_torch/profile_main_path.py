@@ -1,7 +1,7 @@
 """Where the 720p main path's time goes on one CUDA card.
 
     python3 -m streamoptima_tpu_torch.profile_main_path [--frames 16] [--reps 20] [--vbs] [--fme] [--nref N]
-                                                         [--fast]
+                                                         [--fast] [--mesh SHARDS]
 
 Runs the ``chip_smoke.py`` configuration (720p IPPP, bs=16, sr=8, qp=4,
 intra_dur=8, one reference, whole-pel full search) with the tools the flags
@@ -23,6 +23,11 @@ MVPs, as every inter frame after a clip's first runs, and the passes per
 inter frame of the encode are printed.  The inter step codes frame N
 (N = ``--nref``, below ``intra_dur``) from the reconstructions of frames 0
 to N - 1: the reference FIFO the encode holds there, full.
+
+``--mesh SHARDS`` times and profiles the encode and the decode on a mesh of
+that many shards of the card (``make_mesh(cfg, devices=[cuda] * SHARDS)``;
+6 is ``chip_smoke.py``'s data 2 x tile 3) in place of the four single-device
+runs: ``--mesh 6`` is ``[mesh]``, ``--mesh 6 --vbs --fme`` ``[mesh-vbs-fme]``.
 
 Writes nothing but standard output.  Needs a CUDA card.
 """
@@ -81,6 +86,7 @@ def main() -> None:
     ap.add_argument("--fme", action="store_true", help="half-pel FME")
     ap.add_argument("--nref", type=int, default=1, help="reference frames (1 to 8)")
     ap.add_argument("--fast", action="store_true", help="fast ME at sr=16 instead of the full search at sr=8")
+    ap.add_argument("--mesh", type=int, default=0, help="encode and decode on a mesh of this many shards of the card")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path: no CUDA card (torch.cuda.is_available() is False)")
@@ -95,7 +101,8 @@ def main() -> None:
     tools = " + ".join(t for t, on in (("VBS", args.vbs), ("half-pel FME", args.fme)) if on) or "whole-pel"
     print(f"[config] 720p, {n} frames, sr={cfg.search_range}, {tools}, {'fast ME' if args.fast else 'full search'}, "
           f"{args.nref} reference frame(s)")
-    codec = TorchCodec(cfg, synthetic_clip(720, 1280, n), device=torch.device("cuda"))
+    clip = synthetic_clip(720, 1280, n)
+    codec = TorchCodec(cfg, clip, device=torch.device("cuda"))
     pkg = codec.encode(package=False)
     fts = pkg["frame_type_seq"]
     pairs = [frame_arrays_of(o, ft) for o, ft in zip(pkg["per_frame"], fts)]
@@ -112,6 +119,15 @@ def main() -> None:
               args.reps),
              (f"encode, {n} frames", lambda: codec.encode(package=False), max(args.reps // 2, 1)),
              (f"device decode, {n} frames", lambda: codec.decode(fts, res, [[]] * n, mvs), max(args.reps // 2, 1)))
+    if args.mesh:
+        from streamoptima_tpu_torch.parallel import ShardedCodec, make_mesh
+
+        mesh = make_mesh(cfg, devices=[torch.device("cuda")] * args.mesh)
+        sc = ShardedCodec(cfg, mesh, clip)
+        print(f"[mesh] {args.mesh} shards of the card: data {mesh.devices.shape[0]} x tile {mesh.devices.shape[1]}")
+        steps = ((f"mesh encode, {n} frames", lambda: sc.encode(package=False), max(args.reps // 2, 1)),
+                 (f"mesh device decode, {n} frames", lambda: sc.decode(fts, res, [[]] * n, mvs),
+                  max(args.reps // 2, 1)))
     medians = {}
     for name, fn, reps in steps:
         med, q1, q3 = _wall_ms(fn, reps)

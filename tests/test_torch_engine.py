@@ -176,8 +176,9 @@ def test_corrupt_reference_index_rejected_before_launch(encoded):
 def test_port_runs_without_importing_jax(tmp_path):
     """A fresh interpreter (not a fork of this JAX process) drives the port's
     encode -> text bitstream -> decode, whole-pel and VBS + FME, full search
-    and fast ME, VBS alone with two references and intra mode 1, and fast ME
-    with FME alone under parallel mode 2, and never imports jax or the JAX
+    and fast ME, VBS alone with two references and intra mode 1, fast ME
+    with FME alone under parallel mode 2, and VBS + FME on a (2, 2) CPU mesh
+    (``streamoptima_tpu_torch.parallel``), and never imports jax or the JAX
     package."""
     code = textwrap.dedent(f"""
         import sys
@@ -196,6 +197,15 @@ def test_port_runs_without_importing_jax(tmp_path):
             dec = VideoCodec(cfg, device="cpu").decode_bitstream(r"{tmp_path / 'mv.txt'}",
                                                                  r"{tmp_path / 'res.txt'}")
             assert np.array_equal(dec, pkg["reconstructed frames"])
+        from streamoptima_tpu_torch.parallel import make_mesh
+        cfg = CodecConfig(height=32, width=48, frames=3, search_range=4, qp=4, intra_dur=2, **vf)
+        mesh = make_mesh(cfg, devices=["cpu"] * 4)
+        assert mesh.devices.shape == (2, 2)
+        v = VideoCodec(cfg, synthetic_clip(32, 48, 3), mesh=mesh)
+        pkg = v.encode(package=False)
+        v.transmit_bitstream(r"{tmp_path / 'mv.txt'}", r"{tmp_path / 'res.txt'}")
+        dec = VideoCodec(cfg, mesh=mesh).decode_bitstream(r"{tmp_path / 'mv.txt'}", r"{tmp_path / 'res.txt'}")
+        assert np.array_equal(dec, pkg["reconstructed frames"])
         bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "streamoptima_tpu"))
         assert not bad, bad
         print("OK")

@@ -379,3 +379,103 @@ def test_tool_matrix_on_card_never_calls_a_plain_version(cuda, name, monkeypatch
     pairs = [frame_arrays_of(o, ft) for o, ft in zip(a["per_frame"], fts)]
     dec = codec.decode(fts, [r for _, r in pairs], [[]] * len(fts), [m for m, _ in pairs])
     np.testing.assert_array_equal(torch.stack(dec).cpu().numpy(), b["reconstructed frames"])
+
+
+# ------------------------------------------- band inputs: a mesh tile's halo band
+def _band_case(cuda, rng, t, comm, nref=2, sr=4, h=64, w=96, ntile=4):
+    """Tile ``t`` of a tile-4 split of random references: cur, its band (a
+    halo of sr + 1 rows of each neighbour, zeros past the frame's edges, or
+    the whole frames under "all_gather") and the kernels' band kwargs."""
+    from streamoptima_tpu_torch.parallel.mesh import _halo_band
+
+    h_t, halo = h // ntile, sr + 1
+    frames = torch.from_numpy(rng.integers(0, 256, (nref, h, w), dtype=np.uint8)).to(cuda)
+    cur = torch.from_numpy(rng.integers(0, 256, (h_t, w), dtype=np.uint8)).to(cuda)
+    if comm == "halo":
+        band = torch.stack([_halo_band(list(f.split(h_t)), t, halo, cuda) for f in frames])
+        return cur, band, {"band_row0": halo, "g_row0": t * h_t, "grid": (h, w)}
+    return cur, frames, {"band_row0": t * h_t, "g_row0": t * h_t, "grid": (h, w)}
+
+
+@pytest.mark.parametrize("comm", ["halo", "all_gather"])
+@pytest.mark.parametrize("t", [0, 1, 3], ids=["top", "middle", "bottom"])
+def test_band_search_kernel_modes_match_plain(cuda, t, comm):
+    """The four search modes on a tile's band: the halos clip at the frame's
+    top and bottom edges, the bounds are the frame's."""
+    rng = np.random.default_rng(10 + t)
+    cur, band, kw = _band_case(cuda, rng, t, comm)
+    planes = M.fme_parity_planes(band, True)
+    for fn, plain, inp in ((K.full_search, K.full_search_plain, band),
+                           (K.full_search_vbs, K.full_search_vbs_plain, band),
+                           (K.full_search_fme, K.full_search_fme_plain, planes),
+                           (K.full_search_fme_vbs, K.full_search_fme_vbs_plain, planes)):
+        n0 = fn.launches
+        got = fn(cur, inp, 4, 16, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1
+        want = plain(cur, inp, 4, 16, **kw)
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (fn.__name__, k)
+
+
+@pytest.mark.parametrize("comm", ["halo", "all_gather"])
+@pytest.mark.parametrize("t", [0, 1, 3], ids=["top", "middle", "bottom"])
+def test_band_fetch_kernel_modes_match_plain(cuda, t, comm):
+    """The four fetch modes on a tile's band, MVs reaching into and past the
+    halo and far outside the frame: cases and bounds at frame rows, reads
+    past the band at its nearest row."""
+    rng = np.random.default_rng(20 + t)
+    cur, band, kw = _band_case(cuda, rng, t, comm)
+    planes = M.fme_parity_planes(band, True)
+    nb = 6
+    mv = np.stack([rng.integers(-40, 41, nb), rng.integers(-30, 31, nb), rng.integers(0, 2, nb)], 1)
+    smv = np.stack([rng.integers(-40, 41, (nb, 4)), rng.integers(-30, 31, (nb, 4)), rng.integers(0, 2, (nb, 4))], 2)
+    mv[0, :2], smv[1, 2, :2] = (5000, -5000), (-3, 4999)
+    mv, smv = torch.from_numpy(mv.astype(np.int32)).to(cuda), torch.from_numpy(smv.astype(np.int32)).to(cuda)
+    for fn, plain, args in ((K.pred_fetch, K.pred_fetch_plain, (mv, band)),
+                            (K.pred_fetch_vbs, K.pred_fetch_vbs_plain, (mv, smv, band)),
+                            (K.pred_fetch_fme, K.pred_fetch_fme_plain, (mv, planes)),
+                            (K.pred_fetch_fme_vbs, K.pred_fetch_fme_vbs_plain, (mv, smv, planes))):
+        n0 = fn.launches
+        got = fn(*args, 16, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1
+        want = plain(*args, 16, **kw)
+        for x, y in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+            assert x.shape == (16, 96) and torch.equal(x, y), fn.__name__
+
+
+@pytest.mark.parametrize("extra", [{}, {"vbs_enable": True, "fme_enable": True, "n_ref_frames": 2}],
+                         ids=["whole_pel", "vbs_fme_nref2"])
+def test_mesh_on_card_matches_cpu_and_never_calls_a_plain_version(cuda, extra, monkeypatch):
+    """A (2, 4) mesh of the card against the CPU port's single-device encode,
+    with every ``*_plain`` patched to raise; the sharded decode equals the
+    reconstructions."""
+    from streamoptima_tpu_torch.parallel import ShardedCodec, make_mesh
+
+    cfg = CodecConfig(height=64, width=96, frames=7, search_range=4, qp=4, intra_dur=3, lam=0.015, **extra)
+    clip = synthetic_clip(64, 96, 7, seed=3)
+    b = TorchCodec(cfg, clip, device="cpu").encode(package=False)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for attr in dir(K):
+        if attr.endswith("_plain"):
+            monkeypatch.setattr(K, attr, refuse)
+    mesh = make_mesh(cfg, devices=[cuda] * 8)
+    assert mesh.devices.shape == (2, 4)
+    sc = ShardedCodec(cfg, mesh, clip)
+    a = sc.encode(package=False)
+    np.testing.assert_array_equal(a["reconstructed frames"], b["reconstructed frames"])
+    assert a["residual size per frame"] == b["residual size per frame"]
+    for fa, fb in zip(a["per_frame"], b["per_frame"]):
+        for k in ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "row_bits"):
+            assert torch.equal(fa[k].cpu(), fb[k]), k
+    from streamoptima_tpu_torch.engine import frame_arrays_of
+
+    fts = a["frame_type_seq"]
+    pairs = [frame_arrays_of(o, ft) for o, ft in zip(a["per_frame"], fts)]
+    dec = sc.decode(fts, [r for _, r in pairs], [[]] * len(fts), [m for m, _ in pairs])
+    np.testing.assert_array_equal(torch.stack(dec).cpu().numpy(), b["reconstructed frames"])
