@@ -42,9 +42,36 @@ on one card measure correctness and the host's cost, not scaling.
   encode; every launch of its search and fetch is a band launch, three per
   inter frame.
 
+- ``[mesh-fast-vbs-fme]``: ``[main-fast-vbs-fme]``'s config, 16 frames, and
+  ``[mesh-fast]``: whole-pel fast ME, 8 frames.  Fast ME reads whole
+  reference frames; each pass of a frame's chain launches ``rowscan_pass``
+  once per tile, so its launches are three times the mesh's recorded
+  passes, and ``window_fetch`` three per inter frame.
+
+Rate control on the device, 8 frames each, at ``benchmarks/sweep.py``'s
+settings (``rc_tables``, 8 mbps, 30 fps: the tables' QPs 7 and 8):
+
+- ``[main-rc]``: ``720p_rc_row_qp`` (per-row QPs, one search per inter frame);
+- ``[main-two-pass]``: ``720p_two_pass``, two encode passes, so two searches
+  per inter frame;
+- ``[main-roi]``: ``[main]`` with an ROI map of -2 on the centre third of
+  the blocks (rows and columns) and +2 elsewhere;
+- ``[main-rc-promote]``: ``rc_flag=2`` on the clip with a scene cut at frame
+  4 (``synthetic_clip`` of seed 7, unsmoothed, from there), ``intra_thresh``
+  twice the largest inter frame of ``[main-rc]`` in the same run: frame 4
+  must be promoted to intra, and so are frames 5-7, which predict the noise
+  from frame 4's coarse reconstruction (a promoted frame's search runs, its
+  fetch does not).
+
 Before the paths, the band phase holds each search and fetch mode on the
 three tiles' halo bands (sr = 8, zero rows past the frame's edges) against
-its plain version, and times the three launches of one frame.
+its plain version, and times the three launches of one frame; the tile
+phase holds ``rowscan_pass`` on each tile's rows with the whole frame's
+planes (both modes; clip, black-vs-white and flat inputs; zero, random and
+converged seeds) and ``window_fetch`` at each tile's confirm origins against
+their plain versions, and times each tile's launch.  ``[reference]`` also
+holds rate control, promotion, two-pass and an ROI map, and fast ME on a
+(2, 2) mesh of the card, against the CPU port.
 
 Should the run outgrow its time, the 16-frame full-search paths are the ones
 to cut to 8 frames first.
@@ -71,7 +98,13 @@ under ``nref4_*`` keys, and ``full_search_vbs`` its numbers at sr=16
 under ``sr16_*`` keys.  The eight band modes are rows of their own
 (``"<kernel> band"``): time, plain time and bound per launch (the mean over
 the three tiles; ``frame_ms`` is one frame's three launches), launches on
-the mesh paths.
+the mesh paths.  The tile rows (``"rowscan_pass tile"`` and
+``"window_fetch tile"``, the FME mode's numbers with the whole-pel mode's
+under ``whole_pel_*`` keys) are per launch on a tile (the mean of three;
+``frame_ms``: a mesh pass's three launches), with the launches of
+``[mesh-fast-vbs-fme]`` and ``[mesh-fast]``; their bound counts the tile's
+rows of cur, the plane bytes its windows read at the converged chain, and
+the candidates its K7 bounds make valid there.
 """
 from __future__ import annotations
 
@@ -93,7 +126,7 @@ from streamoptima_tpu_torch.core import me as M
 from streamoptima_tpu_torch.core import transform as T
 from streamoptima_tpu_torch.core.blocks import blockify
 from streamoptima_tpu_torch.core.pred import gather_predictions
-from streamoptima_tpu_torch.engine import TorchCodec, frame_arrays_of
+from streamoptima_tpu_torch.engine import TorchCodec, fast_chain, frame_arrays_of
 from streamoptima_tpu_torch.parallel import ShardedCodec, make_mesh
 from streamoptima_tpu_torch.parallel.mesh import _halo_band
 
@@ -101,6 +134,9 @@ H, W, FRAMES = 720, 1280, 16
 BS_, SR, QP, INTRA_DUR = 16, 8, 4, 8
 N_INTER = FRAMES - FRAMES // INTRA_DUR
 MIN_PSNR = 30.0  # qp=4 on the smooth synthetic clip sits near 35 dB
+# the rate-controlled paths code at the table's QPs 7 and 8 (near 25-26 dB), the ROI path most blocks at QP 6;
+# [main-rc-promote]'s last four frames are noise at QPs 7 and 8 (near 10-11 dB)
+RC_MIN_PSNR, ROI_MIN_PSNR, PROMOTE_MIN_PSNR = 20.0, 24.0, 15.0
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
 INT32_LANES_PER_SM = 64
 VBS_FME = {"vbs_enable": True, "fme_enable": True}
@@ -122,6 +158,9 @@ TOOLS = {
 KERNELS = {name: getattr(K, name) for name in (
     "full_search", "full_search_vbs", "full_search_fme", "full_search_fme_vbs", "pred_fetch", "pred_fetch_vbs",
     "pred_fetch_fme", "pred_fetch_fme_vbs", "rowscan_pass", "window_fetch")}
+#: rate control as ``benchmarks/sweep.py:136-159`` runs it: ~5.9k bits a row at 8 mbps, 30 fps, 45 rows
+RC_TABLES = [[2e5, 1.2e5, 8e4, 5e4, 3e4, 2e4, 1.2e4, 8e3, 5e3, 3e3, 2e3, 1.2e3]] * 2
+RC = {"rc_flag": 1, "target_br": "8 mbps", "frame_rate": 30, "qp_rate_tables": RC_TABLES}
 N_SHARDS, N_TILES = 6, 3  # make_mesh at 720p (45 block rows): data 2 x tile 3
 #: the band modes: kernel -> (source, the TPU function's line, VBS, FME)
 BAND_MODES = {
@@ -249,10 +288,12 @@ def _kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
-def _chain_ops(g, nref: int, fme: bool, dev) -> int:
+def _chain_ops(g, nref: int, fme: bool, dev, h: int = H, g_row0: int = 0) -> int:
     """Abs-diff-accumulates one pass needs at MVPs ``g``: every pixel of
-    every candidate the K7 bounds make valid."""
-    bx, by = M.block_origins(H, W, BS_, dev)
+    every candidate the K7 bounds make valid; for a tile, frame rows
+    [g_row0, g_row0 + h)."""
+    bx, by = M.block_origins(h, W, BS_, dev)
+    by = by + g_row0
     scale, dims = (2, (2 * H - 1, 2 * W - 1)) if fme else (1, (H, W))
     return int(FM.cand_valid(g, scale * bx, scale * by, BS_, dims).sum()) * BS_ * BS_ * nref
 
@@ -274,14 +315,17 @@ def _adversarial_mvs(rng, nb: int, bound: int) -> np.ndarray:
 
 
 def _drive(label: str, extra: dict, clip: np.ndarray, dev, frames: int = FRAMES, mesh: bool = False,
-           **expected) -> dict:
+           types: list | None = None, min_psnr: float = MIN_PSNR, **expected) -> dict:
     """One path through the facade: encode -> text bitstream -> decode from
     the files -> in-memory decode, each bit-exact with the encoder's
     reconstructions.  Every kernel's launch count is zeroed just before the
     encode and read just after the file decode; ``expected`` names the
     kernels the path must launch and how often ("passes": the encode's
-    ``rowscan_pass`` passes), every other kernel never.  ``mesh``: on the
-    six-shard mesh of the card, not on the device."""
+    ``rowscan_pass`` passes, on the mesh one launch per tile a pass), every
+    other kernel never.  ``mesh``: on the six-shard mesh of the card, not on
+    the device.  ``types``: the frame types the encode must give (default:
+    an intra frame every ``INTRA_DUR``); ``min_psnr``: the mean PSNR's floor
+    in dB."""
     clip = clip[:frames]
 
     def where(cfg):
@@ -318,9 +362,10 @@ def _drive(label: str, extra: dict, clip: np.ndarray, dev, frames: int = FRAMES,
     _require(decoded.shape == recon.shape == (frames, H, W) and decoded.dtype == np.uint8, f"{label}: decoded shape")
     _require(np.array_equal(decoded, recon), f"{label}: decoded frames differ from the encoder's reconstructions")
     psnr = np.asarray(pkg["PSNR per frame"])
-    _require(np.isfinite(psnr).all() and psnr.mean() > MIN_PSNR, f"{label}: PSNR {psnr}")
-    types = [1] * frames if extra.get("parallel_mode") == 1 else [0 if i % INTRA_DUR == 0 else 1
-                                                                 for i in range(frames)]
+    _require(np.isfinite(psnr).all() and psnr.mean() > min_psnr, f"{label}: PSNR {psnr}")
+    if types is None:
+        types = [1] * frames if extra.get("parallel_mode") == 1 else [0 if i % INTRA_DUR == 0 else 1
+                                                                     for i in range(frames)]
     _require(pkg["frame_type_seq"] == types, f"{label}: frame types {pkg['frame_type_seq']}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -341,10 +386,12 @@ def _drive(label: str, extra: dict, clip: np.ndarray, dev, frames: int = FRAMES,
         _require(passes == [] if not chain else len(passes) == n_inter and min(passes) >= 1,
                  f"{label}: passes per inter frame {passes}")
         print(f"[{label}] rowscan_pass passes per inter frame {passes}", flush=True)
-        expected = {k: (sum(passes) if v == "passes" else v) for k, v in expected.items()}
+        expected = {k: ((N_TILES if mesh else 1) * sum(passes) if v == "passes" else v) for k, v in expected.items()}
     _require(launches == {k: v for k, v in expected.items() if v},
              f"kernel launches in the {label} path {launches}, expected {expected}")
-    return {"launches": launches, "pkg": pkg, "n_inter": n_inter}
+    if extra.get("rc_flag"):
+        print(f"[{label}] row QPs of frames 0 and 1: {pkg['Qp_per_row_per_frame'][:2]}", flush=True)
+    return {"launches": launches, "pkg": pkg, "n_inter": n_inter, "enc_s": enc_s}
 
 
 def _stream_bytes(pkg: dict, cfg: CodecConfig) -> bytes:
@@ -639,6 +686,67 @@ def main() -> None:
         hold_band(name, {"search_winners": win_sets, "adversarial": adv_sets}, 200, 20, nbytes, 0,
                   ("half-pel, cases A, B, C" if fme else "whole-pel") + (" with the quad plane" if vbs else ""))
 
+
+    # fast ME on a mesh tile: rowscan_pass with the tile's rows of cur and the whole frame's planes at the
+    # tile's frame row, as the fast-ME mesh paths call it, and window_fetch at the tile's confirm origins
+    S_t, L = h_t // BS_, W // BS_
+    tiles = {}  # mode -> this run's errors, times per launch and bound inputs, summed over the three tiles
+    for fme, sets in ((True, fme_pairs), (False, pairs)):
+        mode = "FME" if fme else "whole-pel"
+        tcfg = _cfg(**(FAST_VBS_FME if fme else FAST))
+        engines = [TorchCodec(tcfg, device=dev, rows=(t * h_t, (t + 1) * h_t)) for t in range(N_TILES)]
+        err = 0
+        for name, (c, p) in sets.items():
+            curs = [c[t * h_t:(t + 1) * h_t] for t in range(N_TILES)]
+            gs, npass = fast_chain(engines, curs, [p] * N_TILES, [None] * N_TILES)  # a cold solve of the frame
+            conv = [g.reshape(S_t, L, 3)[:, 0].contiguous() for g in gs]
+            if name == "clip":
+                tiles[fme] = {"curs": curs, "p": p, "gs": gs, "seeds": conv, "passes": npass}
+            for t in range(N_TILES):
+                wild_t = rng.integers(-9, 10, (S_t, 3)).astype(np.int32)
+                wild_t[:, 2] = 0
+                wild_t[0], wild_t[1] = (0, -h_t - 7, 0), (-3, -5, 0)  # into the tile above; negative and odd
+                wild_t[2], wild_t[3] = (5001, -4001, 0), (-2 * W - 1, 2 * H + 1, 0)  # far outside
+                kw = {"g_row0": t * h_t, "grid": (H, W)}
+                for sname, seeds in (("zero", torch.zeros_like(conv[t])), ("random", torch.from_numpy(wild_t).to(dev)),
+                                     ("converged", conv[t])):
+                    err = max(err, _check_equal(f"rowscan_pass tile {t} {mode} {name} {sname} seeds",
+                                                K.rowscan_pass(curs[t], p, seeds, BS_, fme, **kw),
+                                                K.rowscan_pass_plain(curs[t], p, seeds, BS_, fme, **kw)))
+        tl = tiles[fme]
+        curs, p, flat = tl["curs"], tl["p"], tl["p"].reshape(-1, H, W)
+        kws = [{"g_row0": t * h_t, "grid": (H, W)} for t in range(N_TILES)]
+        ms = [_time_ms(lambda: K.rowscan_pass(curs[t], p, tl["seeds"][t], BS_, fme, **kws[t]), 50, cyc)[0]
+              for t in range(N_TILES)]
+        plain_ms = [_time_ms(lambda: K.rowscan_pass_plain(curs[t], p, tl["seeds"][t], BS_, fme, **kws[t]), 2, cyc)[0]
+                    for t in range(N_TILES)]
+        pass_ms, _ = _time_ms(lambda: [K.rowscan_pass(curs[t], p, tl["seeds"][t], BS_, fme, **kws[t])
+                                       for t in range(N_TILES)], 20, cyc)
+        origins = [FM.region_base(g, e.by + e.g_row0, e.bx, fme) for g, e in zip(tl["gs"], engines)]
+        werr = 0
+        for t, (by0, bx0) in enumerate(origins):
+            werr = max(werr, _check_equal(f"window_fetch tile {t} {mode} confirm origins",
+                                          K.window_fetch(flat, by0, bx0, BS_ + 2),
+                                          K.window_fetch_plain(flat, by0, bx0, BS_ + 2)))
+        wms = [_time_ms(lambda: K.window_fetch(flat, *origins[t], BS_ + 2), 200, cyc)[0] for t in range(N_TILES)]
+        wplain = [_time_ms(lambda: K.window_fetch_plain(flat, *origins[t], BS_ + 2), 20, cyc)[0]
+                  for t in range(N_TILES)]
+        wbytes = [_window_bytes_read(flat, *origins[t], BS_ + 2) for t in range(N_TILES)]
+        tl.update(err=err, ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)), pass_ms=pass_ms,
+                  werr=werr, wms=float(np.mean(wms)), wplain_ms=float(np.mean(wplain)),
+                  # per launch, the mean over the tiles: the tile's rows of cur, the plane bytes its windows read at
+                  # the converged chain, seeds and MVs; the candidates its K7 bounds make valid there
+                  bytes=h_t * W + float(np.mean(wbytes)) + S_t * 12 + nb_t * 12,
+                  ops=float(np.mean([_chain_ops(g, 1, fme, dev, h_t, t * h_t) for t, g in enumerate(tl["gs"])])),
+                  wbytes=float(np.mean(wbytes)) + nb_t * 8 + nb_t * flat.shape[0] * (BS_ + 2) ** 2)
+        print(f"[tile] rowscan_pass 720p {mode}, {N_TILES} tiles of {h_t} rows (S={S_t}, L={L}), whole-frame planes: "
+              f"bit-equal (tolerance 0) on {list(sets)} from zero, random and converged seeds; per launch "
+              f"{', '.join(f'{x:.4f}' for x in ms)} ms (tiles 0-2) vs plain {tl['plain_ms']:.4f} ms; a mesh pass's "
+              f"three launches {pass_ms:.4f} ms; a cold start on the clip converges in {tl['passes']} passes", flush=True)
+        print(f"[tile] window_fetch 720p {mode} at the tiles' confirm origins ({nb_t}, {flat.shape[0]}, {BS_ + 2}, "
+              f"{BS_ + 2}): bit-equal (tolerance 0); per launch {', '.join(f'{x:.4f}' for x in wms)} ms vs plain "
+              f"{tl['wplain_ms']:.4f} ms", flush=True)
+
     x = rng.integers(-255, 256, (nb, 16, 16)).astype(np.int32)
     x[0], x[1] = 255, -255
     t = rng.integers(-12288, 12289, (nb, 16, 16)).astype(np.int32)
@@ -663,8 +771,33 @@ def main() -> None:
         for fa, fb in zip(a["per_frame"], b_["per_frame"]):
             for k in ("mv", "split", "sub_mv", "qtc_full", "qtc_quads"):
                 _require(torch.equal(fa[k].cpu(), fb[k]), f"small encode {name}: {k} differs from the CPU port")
+    # rate control on one device, and fast ME on a (2, 2) mesh of the card, against the CPU port
+    small_rc = {"rc": {"rc_flag": 1}, "promotion": {"rc_flag": 2, "intra_thresh": 1400},
+                "two-pass VBS + FME": {"rc_flag": 1, "two_pass": True, **VBS_FME},
+                "ROI fast ME + VBS": {"roi_qp_map": np.arange(24) % 5 - 2, **FAST, "vbs_enable": True}}
+    small_tables = [[9000, 4000, 2000, 1100, 800, 600, 450, 350, 280, 230, 200, 180],
+                    [8000, 3500, 1800, 1000, 700, 500, 400, 300, 250, 210, 190, 170]]
+    for name, extra in small_rc.items():
+        cfg_s = _cfg(64, 96, 6, target_br="60 kbps", qp_rate_tables=small_tables, **extra)
+        a = TorchCodec(cfg_s, small, device=dev).encode(package=False)
+        b_ = TorchCodec(cfg_s, small, device="cpu").encode(package=False)
+        for k in ("frame_type_seq", "Qp_per_row_per_frame", "residual size per frame"):
+            _require(a[k] == b_[k], f"small encode {name}: {k} differs from the CPU port")
+        _require(np.array_equal(a["reconstructed frames"], b_["reconstructed frames"]),
+                 f"small encode {name} on the card differs from the CPU port")
+    for name, extra in (("mesh fast ME", FAST), ("mesh fast ME + VBS + FME", FAST_VBS_FME)):
+        cfg_s = _cfg(64, 96, 6, **dict(extra, search_range=4))
+        mesh_s = make_mesh(cfg_s, devices=[dev] * 4, tile=2)
+        a = ShardedCodec(cfg_s, mesh_s, small).encode(package=False)
+        b_ = TorchCodec(cfg_s, small, device="cpu").encode(package=False)
+        _require(np.array_equal(a["reconstructed frames"], b_["reconstructed frames"]),
+                 f"small {name} on the card differs from the CPU port")
+        for fa, fb in zip(a["per_frame"], b_["per_frame"]):
+            for k in ("mv", "split", "sub_mv", "qtc_full", "qtc_quads"):
+                _require(torch.equal(fa[k].cpu(), fb[k]), f"small {name}: {k} differs from the CPU port")
     print(f"[reference] 64x96 6-frame encodes on the card equal the CPU port (held to the JAX engine by the CPU "
-          f"tests): {list(small_cfgs)}", flush=True)
+          f"tests): {list(small_cfgs) + list(small_rc)}, and on a (2, 2) mesh of the card fast ME and fast ME + "
+          f"VBS + FME", flush=True)
 
     # ---- phase 4: the main paths, each with its own launch counts (every kernel's)
     n8 = 8 - 8 // INTRA_DUR  # inter frames of an 8-frame path
@@ -712,6 +845,45 @@ def main() -> None:
     for label, (extra, frames, expected) in meshes.items():
         mesh_runs[label] = _drive(label, extra, clip, dev, frames, mesh=True, **expected)
         _check_mesh(label, extra, clip, dev, mesh_runs[label], frames)
+    # fast ME on the mesh: every pass one rowscan_pass launch per tile; one confirm read and one winner
+    # fetch per tile and inter frame; decode: one fetch per tile and inter frame
+    mesh_fast = {
+        "mesh-fast-vbs-fme": (FAST_VBS_FME, FRAMES, {"rowscan_pass": "passes", "window_fetch": tiled["n"],
+                                                     "pred_fetch_fme_vbs": 2 * tiled["n"]}),
+        "mesh-fast": (FAST, 8, {"rowscan_pass": "passes", "window_fetch": tiled["n8"], "pred_fetch": 2 * tiled["n8"]}),
+    }
+    for label, (extra, frames, expected) in mesh_fast.items():
+        mesh_runs[label] = _drive(label, extra, clip, dev, frames, mesh=True, **expected)
+        _check_mesh(label, extra, clip, dev, mesh_runs[label], frames)
+
+    # rate control on one device, 8 frames: sweep.py's 720p_rc_row_qp and 720p_two_pass, an ROI map, and
+    # scene-change promotion at a cut spliced in at frame 4
+    clip8 = clip[:8]
+    roi = np.full((H // BS_, W // BS_), 2, np.int32)
+    roi[H // BS_ // 3:2 * H // BS_ // 3, W // BS_ // 3:2 * W // BS_ // 3] = -2
+    rcs = {"main-rc": _drive("main-rc", RC, clip8, dev, 8, min_psnr=RC_MIN_PSNR, full_search=n8, pred_fetch=n8),
+           # two passes of the clip: two searches per inter frame, one decode
+           "main-two-pass": _drive("main-two-pass", {**RC, "two_pass": True}, clip8, dev, 8, min_psnr=RC_MIN_PSNR,
+                                   full_search=2 * n8, pred_fetch=n8),
+           "main-roi": _drive("main-roi", {"roi_qp_map": roi}, clip8, dev, 8, min_psnr=ROI_MIN_PSNR, full_search=n8,
+                              pred_fetch=n8)}
+    sizes = rcs["main-rc"]["pkg"]["residual size per frame"]
+    thresh = 2 * max(sz for sz, ft in zip(sizes, rcs["main-rc"]["pkg"]["frame_type_seq"]) if ft == 1)
+    # the cut is to unsmoothed texture: at the tables' QPs 7 and 8 the residual of one smooth texture against
+    # another quantizes to almost nothing, so only a cut to noise costs more than twice an inter frame.  Frames
+    # 5-7 predict the noise from frame 4's coarse reconstruction and are promoted too.
+    cut = np.concatenate([clip[:4], synthetic_clip(H, W, 4, seed=7, smooth=False)])
+    promote_types = [0, 1, 1, 1, 0, 0, 0, 0]
+    # the search runs on every inter candidate (a promoted frame's before its promotion); decode fetches the rest
+    rcs["main-rc-promote"] = _drive("main-rc-promote", {**RC, "rc_flag": 2, "intra_thresh": thresh}, cut, dev, 8,
+                                    types=promote_types, min_psnr=PROMOTE_MIN_PSNR, full_search=n8,
+                                    pred_fetch=promote_types.count(1))
+    print(f"[main-rc-promote] intra_thresh {thresh} (twice [main-rc]'s largest inter frame): frame 4 promoted, "
+          f"frame types {rcs['main-rc-promote']['pkg']['frame_type_seq']}, sizes "
+          f"{rcs['main-rc-promote']['pkg']['residual size per frame']} against [main-rc]'s {sizes}", flush=True)
+    _require(rcs["main-two-pass"]["pkg"]["Qp_per_row_per_frame"] != rcs["main-rc"]["pkg"]["Qp_per_row_per_frame"],
+             "main-two-pass: the second pass kept the table QPs")
+
     refs_used = {int(r) for o in tools["main-nref4"]["pkg"]["per_frame"][1:8] for r in o["mv"][:, 2].unique()}
     _require(len(refs_used) > 1, f"main-nref4: inter frames chose only reference {sorted(refs_used)}")
 
@@ -773,9 +945,25 @@ def main() -> None:
         row.update({f"whole_pel_{k}": wp[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                                       "bound_by", "library_ms")})
         kernels.append(row)
+    # fast ME on a tile, per launch (the mean over the three tiles); frame_ms: a mesh pass's three launches
+    tile_rows = {}
+    for fme, label in ((True, "mesh-fast-vbs-fme"), (False, "mesh-fast")):
+        tl, launches = tiles[fme], mesh_runs[label]["launches"]
+        r = _kernel_row("rowscan_pass tile", "rowscan_pass.cu", 1443, launches["rowscan_pass"], tl["err"], tl["ms"],
+                        tl["plain_ms"], tl["bytes"], tl["ops"], int_ops_per_ms)
+        r["frame_ms"] = tl["pass_ms"]
+        w_ = _kernel_row("window_fetch tile", "window_fetch.cu", 1267, launches["window_fetch"], tl["werr"], tl["wms"],
+                         tl["wplain_ms"], tl["wbytes"], 0, int_ops_per_ms, library_ms=tl["wplain_ms"])
+        tile_rows[fme] = (r, w_)
+    for row, wp in zip(tile_rows[True], tile_rows[False]):
+        row.update({f"whole_pel_{k}": wp[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                      "bound_by", "library_ms")})
+        if "frame_ms" in wp:
+            row["whole_pel_frame_ms"] = wp["frame_ms"]
+        kernels.append(row)
     for name, (source, replaces, _, _) in BAND_MODES.items():  # the band modes, per launch on a tile
         b = band[name]
-        launches = sum(r["launches"].get(name, 0) for r in mesh_runs.values())
+        launches = sum(r["launches"].get(name, 0) for label, r in mesh_runs.items() if label not in mesh_fast)
         row = _kernel_row(f"{name} band", source, replaces, launches, b["err"], b["ms"], b["plain_ms"], b["bytes"],
                           b["ops"], int_ops_per_ms)
         row["frame_ms"] = b["frame_ms"]

@@ -109,6 +109,6 @@ def library() -> ctypes.CDLL:
     lib.so_pred_fetch.restype = i
     lib.so_window_fetch.argtypes = [p, p, p, i, i, i, i, i, i, p, p]
     lib.so_window_fetch.restype = i
-    lib.so_rowscan_pass.argtypes = [p, p, p, i, i, i, i, i, p, p]
+    lib.so_rowscan_pass.argtypes = [p, p, p, i, i, i, i, i, i, i, p, p]
     lib.so_rowscan_pass.restype = i
     return lib

@@ -19,6 +19,17 @@ the mesh's devices, with the same package and streams::
 
     mesh = make_mesh(cfg, devices=["cuda:0"] * 6)   # or ["cpu"] * 8
     codec = VideoCodec(cfg, y_frames, mesh=mesh)
+
+A mesh decodes a stream whose GOPs are not the mesh's (intra frames off
+``intra_dur``: another encoder's, or scene-change promotion's) on one
+device, a ``TorchCodec`` on the mesh's first device, as the JAX facade
+takes its single-chip decoder for them.  The choice is made from the
+stream's frame types before anything is decoded.
+
+ROI streams are self-describing: ``parse_bitstream`` adopts a stream's
+per-block QP-offset header into ``cfg`` (``bitstream.read_bitstream``), and
+the decoders, which hold the map from their construction, are rebuilt
+whenever the effective map changed.
 """
 from __future__ import annotations
 
@@ -31,7 +42,7 @@ from streamoptima_tpu_torch import bitstream as BS
 from streamoptima_tpu_torch import metrics
 from streamoptima_tpu_torch.config import CodecConfig
 from streamoptima_tpu_torch.io.video import VideoManager
-from streamoptima_tpu_torch.engine import TorchCodec, check_slice, frame_arrays_of
+from streamoptima_tpu_torch.engine import TorchCodec, frame_arrays_of
 from streamoptima_tpu_torch.parallel import ShardedCodec
 
 
@@ -44,12 +55,14 @@ class VideoCodec:
             raise TypeError("VideoCodec runs on one device or on a mesh: give exactly one of device= and mesh=")
         self.cfg = cfg
         self.mesh = mesh
-        if mesh is not None:  # both refuse configs outside the slice
+        self.device = torch.device(device) if mesh is None else mesh.devices[0, 0]
+        if mesh is not None:  # the mesh refuses what it does not run
             self._enc = ShardedCodec(cfg, mesh, y_frames) if y_frames is not None else None
-            self._dec = self._enc or ShardedCodec(cfg, mesh)
+            self._dec_mesh = self._enc or ShardedCodec(cfg, mesh)
         else:
-            self._dec = TorchCodec(cfg, device=device)
             self._enc = TorchCodec(cfg, y_frames, device=device) if y_frames is not None else None
+            self._dec_mesh = None
+        self._dec = TorchCodec(cfg, device=self.device)
         self._pkg = None
         self._decoded = None
 
@@ -63,7 +76,7 @@ class VideoCodec:
         t0 = time.perf_counter()
         pkg = self._enc.encode(**kw)
         pkg.setdefault("timing", {})["total_s"] = time.perf_counter() - t0
-        if compute_ssim:
+        if compute_ssim and pkg["reconstructed frames"] is not None:  # fetch="metrics" returns none
             recon = pkg["reconstructed frames"]
             pkg["SSIM per frame"] = [metrics.ssim(self._enc.y[i], recon[i]) for i in range(len(recon))]
         self._pkg = pkg
@@ -92,13 +105,22 @@ class VideoCodec:
                 raise ValueError("encode() with packaging first")
             frame_types, residuals, qp_rows, mvs = (
                 p["frame_type_seq"], p["approx residual"], p["Qp_per_row_per_frame"], p["MVS per Frame"])
-        return self._finish(self._dec.decode(frame_types, residuals, qp_rows, mvs))
+        # a mesh shards GOP-regular streams; any other decodes on one device
+        dec = self._dec_mesh if self._dec_mesh is not None and self._dec_mesh.gop_regular(frame_types) else self._dec
+        return self._finish(dec.decode(frame_types, residuals, qp_rows, mvs))
 
     def parse_bitstream(self, mv_file, residual_file) -> tuple:
         """Parse the two text bitstream files into ``decode``'s arguments
-        (frame_types, residuals, qp_rows, mvs), on the host."""
+        (frame_types, residuals, qp_rows, mvs), on the host.  A stream that
+        changes the effective ROI map (adopted from its header, or cleared)
+        rebuilds the decoders (``streamoptima_tpu.codec`` does the same)."""
+        before = None if self.cfg.roi_qp_map is None else np.asarray(self.cfg.roi_qp_map)
         fts, mvs, qps, res = BS.read_bitstream(mv_file, residual_file, self.cfg)
-        check_slice(self.cfg)  # a stream may carry an ROI header into cfg
+        after = None if self.cfg.roi_qp_map is None else np.asarray(self.cfg.roi_qp_map)
+        if (before is None) != (after is None) or (before is not None and not np.array_equal(before, after)):
+            self._dec = TorchCodec(self.cfg, device=self.device)
+            if self._dec_mesh is not None:
+                self._dec_mesh = ShardedCodec(self.cfg, self.mesh)  # refuses an ROI map by name
         return fts, res, qps, mvs
 
     def decode_bitstream(self, mv_file, residual_file) -> np.ndarray:

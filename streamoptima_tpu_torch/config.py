@@ -129,6 +129,14 @@ class CodecConfig:
         return parse_bitrate(self.target_br)
 
     @property
+    def bitrate_per_row(self) -> float | None:
+        """(bitrate // frame_rate) / (h / bs)  (Encoder.py:88)."""
+        tb = self.target_bitrate
+        if tb is None:
+            return None
+        return (tb // self.frame_rate) / (self.height / self.block_size)
+
+    @property
     def rc_active(self) -> bool:
         return self.rc_flag is not None and self.rc_flag > 0
 

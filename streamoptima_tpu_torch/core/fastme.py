@@ -172,24 +172,26 @@ def window_fetch_plain(planes: torch.Tensor, by0: torch.Tensor, bx0: torch.Tenso
     return padded[:, rows[:, :, None], cols[:, None, :]].transpose(0, 1).contiguous()
 
 
-def rowscan_pass_plain(cur: torch.Tensor, planes: torch.Tensor, seeds: torch.Tensor, bs: int,
-                       fme: bool) -> torch.Tensor:
+def rowscan_pass_plain(cur: torch.Tensor, planes: torch.Tensor, seeds: torch.Tensor, bs: int, fme: bool, *,
+                       g_row0: int = 0, grid=None) -> torch.Tensor:
     """Plain PyTorch version of the ``rowscan_pass`` kernel (any device): one
     sweep pass of the MVP chain, a Python loop over the L block columns,
     batched over the S block rows.
 
-    cur: (h, w) uint8; planes: (nref, 4, h, w) uint8 parity planes under
-    ``fme``, else the (nref, h, w) uint8 references; seeds: (S, 3) int32, the
-    guessed MVP of each row's first block.  Returns (S, L, 3) int32 with
-    ``mv[s, j] = f(mv[s, j - 1])`` from ``mv[s, -1] = seeds[s]``, each step
-    the 3x3 search of ``pick9``."""
+    cur: (h, w) uint8, frame rows [g_row0, g_row0 + h); planes: (nref, 4, H,
+    w) uint8 parity planes of the whole frame under ``fme``, else the (nref,
+    H, w) uint8 references (``grid``, if given, their (H, w)); seeds: (S, 3)
+    int32, the guessed MVP of each row's first block.  Returns (S, L, 3) int32 with ``mv[s, j] =
+    f(mv[s, j - 1])`` from ``mv[s, -1] = seeds[s]``, each step the 3x3 search
+    of ``pick9`` at frame rows."""
     h, w = cur.shape
+    H = planes.shape[-2] if grid is None else grid[0]
     S, L = h // bs, w // bs
     scale = 2 if fme else 1
-    dims = (2 * h - 1, 2 * w - 1) if fme else (h, w)
-    flat = planes.reshape(-1, h, w)
+    dims = (2 * H - 1, 2 * w - 1) if fme else (H, w)
+    flat = planes.reshape(-1, H, w)
     cur_b = blockify(cur, bs).to(torch.int32).reshape(S, L, bs, bs)
-    ys = torch.arange(S, device=cur.device, dtype=torch.int32) * bs  # each segment's pixel row
+    ys = g_row0 + torch.arange(S, device=cur.device, dtype=torch.int32) * bs  # each segment's frame row
     g = seeds
     out = []
     for j in range(L):

@@ -19,7 +19,8 @@
                             (csrc/window_fetch.cu; replaces
                             me_pallas.window_fetch with window_prep).
 ``rowscan_pass``         -- one sweep pass of the fast-ME MVP chain, whole-pel
-                            or FME (csrc/rowscan_pass.cu; replaces
+                            or FME, of the frame or a mesh tile's rows
+                            (csrc/rowscan_pass.cu; replaces
                             me_pallas.rowscan_pass with pass_prep).
 
 The searches and fetches also take a band of the frame in place of the
@@ -561,27 +562,35 @@ window_fetch.launches = 0
 
 
 # ------------------------------------------------------------ rowscan pass
-def rowscan_pass(cur: torch.Tensor, planes: torch.Tensor, seeds: torch.Tensor, bs: int, fme: bool) -> torch.Tensor:
+def rowscan_pass(cur: torch.Tensor, planes: torch.Tensor, seeds: torch.Tensor, bs: int, fme: bool, *,
+                 g_row0: int = 0, grid=None) -> torch.Tensor:
     """One sweep pass of the fast-ME MVP chain over every block row.
 
-    cur: (h, w) uint8; planes: (nref, 4, h, w) uint8 parity planes
-    (``me.fme_parity_planes``) under ``fme``, else the (nref, h, w) uint8
-    references; seeds: (S, 3) int32 [gx, gy, gref], the guessed MVP of each
+    cur: (h, w) uint8, frame rows [g_row0, g_row0 + h) (a mesh tile's, or
+    the whole frame); planes: (nref, 4, H, w) uint8 parity planes
+    (``me.fme_parity_planes``) of the whole frame under ``fme``, else the
+    (nref, H, w) uint8 references; ``grid``, if given, must be the frame's
+    (H, w).  seeds: (S, 3) int32 [gx, gy, gref], the guessed MVP of each
     block row's first block (S = h / bs).  Returns (S, L, 3) int32, L = w / bs:
     ``mv[s, j]`` is the 3x3 fast-ME winner of block (s, j) around
     ``mv[s, j - 1]`` (``seeds[s]`` for j = 0), on the half-pel grid under
-    ``fme``.  Rows are independent within a pass; the caller iterates the
-    seeds.  The TPU kernel it replaces also returns its fetched windows for
-    the confirm pass; here that pass reads through ``window_fetch``.  The
-    plain version is ``rowscan_pass_plain``.
+    ``fme``, every window and K7 bound at frame rows.  Rows are independent
+    within a pass; the caller iterates the seeds.  The TPU kernel it replaces
+    also returns its fetched windows for the confirm pass; here that pass
+    reads through ``window_fetch``.  The plain version is
+    ``rowscan_pass_plain``.
     """
     _check_plane(cur, "cur", 2)
     _check_plane(planes, "planes", 4 if fme else 3)
     h, w = cur.shape
-    nref = planes.shape[0]
-    want = (nref, 4, h, w) if fme else (nref, h, w)
+    nref, H = planes.shape[0], planes.shape[-2]
+    want = (nref, 4, H, w) if fme else (nref, H, w)
     if tuple(planes.shape) != want:
         raise ValueError(f"planes {tuple(planes.shape)} are not {want}")
+    if grid is not None and tuple(grid) != (H, w):
+        raise ValueError(f"grid {tuple(grid)} disagrees with the planes' {H}x{w} frame")
+    if g_row0 < 0 or g_row0 + h > H:
+        raise ValueError(f"cur's {h} rows at frame row {g_row0} do not fit the planes' {H} rows")
     if h % bs or w % bs:
         raise ValueError(f"frame {h}x{w} is not a multiple of block size {bs}")
     if nref < 1:
@@ -592,7 +601,7 @@ def rowscan_pass(cur: torch.Tensor, planes: torch.Tensor, seeds: torch.Tensor, b
     if cur.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rowscan_pass runs on cpu or cuda tensors, not {cur.device}")
     if cur.device.type == "cpu":
-        return rowscan_pass_plain(cur, planes, seeds, bs, fme)
+        return rowscan_pass_plain(cur, planes, seeds, bs, fme, g_row0=g_row0, grid=(H, w))
     # shared memory without opt-in: the sums, the block, the plane regions
     if (9 * nref + 4) * 4 + bs * bs + nref * (4 if fme else 1) * (bs + 2) ** 2 > 48 * 1024:
         raise ValueError(f"bs={bs}, nref={nref}: the candidate regions exceed 48 KB of shared memory")
@@ -602,7 +611,7 @@ def rowscan_pass(cur: torch.Tensor, planes: torch.Tensor, seeds: torch.Tensor, b
     mvs = torch.empty((h // bs, w // bs, 3), dtype=torch.int32, device=cur.device)
     with torch.cuda.device(cur.device):
         rc = lib.so_rowscan_pass(cur.data_ptr(), planes.data_ptr(), seeds.data_ptr(), nref, h, w, bs, int(fme),
-                                 mvs.data_ptr(), _stream(cur.device))
+                                 g_row0, H, mvs.data_ptr(), _stream(cur.device))
     _launch_check(rc, "rowscan_pass")
     rowscan_pass.launches += 1
     return mvs

@@ -16,6 +16,12 @@
 // is plane (Y & 1, X & 1) at (Y >> 1, X >> 1), so a candidate's stride-2
 // window is a contiguous window of one plane).
 //
+// A mesh tile passes its own rows as cur and the frame's full-height planes:
+// g_row0 is the frame row of cur's row 0 and H the planes' (the frame's)
+// height, the TPU kernel's tile ys and dims.  Segment s reads cur at local
+// row s * n and the planes, its window and the K7 bound at frame row
+// g_row0 + s * n.  g_row0 = 0 and H = h are the whole-frame call.
+//
 // Contract difference from the TPU kernel: it returns the MVs (S, L, 3)
 // only.  The TPU kernel also returns the stack of wide windows it fetched,
 // so that its confirm pass need not gather again; here the confirm pass
@@ -59,8 +65,8 @@ __device__ __forceinline__ bool k7_valid(long long p, long long D, int n) {
 }
 
 __global__ void rowscan_pass_kernel(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ planes,
-                                    const int32_t* __restrict__ seeds, int nref, int h, int w, int n, int fme,
-                                    int32_t* __restrict__ mvs) {
+                                    const int32_t* __restrict__ seeds, int nref, int w, int n, int fme,
+                                    int g_row0, int H, int32_t* __restrict__ mvs) {
     extern __shared__ unsigned char smem[];
     const int R = n + 2;               // region extent
     const int P = fme ? 4 : 1;         // planes per reference
@@ -72,9 +78,10 @@ __global__ void rowscan_pass_kernel(const uint8_t* __restrict__ cur, const uint8
 
     const int s = blockIdx.x;
     const int L = w / n;
-    const int y = s * n;
+    const int yl = s * n;         // the segment's row in cur
+    const int y = g_row0 + yl;    // and in the frame
     const int scale = fme ? 2 : 1;
-    const long long DH = fme ? 2LL * h - 1 : h, DW = fme ? 2LL * w - 1 : w;
+    const long long DH = fme ? 2LL * H - 1 : H, DW = fme ? 2LL * w - 1 : w;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int dxi = warp / 3, dyi = warp - 3 * dxi;
 
@@ -88,7 +95,7 @@ __global__ void rowscan_pass_kernel(const uint8_t* __restrict__ cur, const uint8
         const long long bx0 = fme ? x + floor_half(gx - 1) : x + gx - 1;
         for (int e = tid; e < n * n; e += kThreads) {
             const int i = e / n;
-            cur_s[e] = cur[(size_t)(y + i) * w + (size_t)(x + e - i * n)];
+            cur_s[e] = cur[(size_t)(yl + i) * w + (size_t)(x + e - i * n)];
         }
         for (int e = tid; e < nplanes * R * R; e += kThreads) {
             const int p = e / (R * R);
@@ -96,7 +103,7 @@ __global__ void rowscan_pass_kernel(const uint8_t* __restrict__ cur, const uint8
             const int i = rem / R;
             const long long yy = by0 + i, xx = bx0 + (rem - i * R);
             uint8_t v = 0;
-            if (yy >= 0 && yy < h && xx >= 0 && xx < w) v = planes[((size_t)p * h + (size_t)yy) * w + (size_t)xx];
+            if (yy >= 0 && yy < H && xx >= 0 && xx < w) v = planes[((size_t)p * H + (size_t)yy) * w + (size_t)xx];
             reg_s[e] = v;
         }
         __syncthreads();
@@ -150,12 +157,13 @@ __global__ void rowscan_pass_kernel(const uint8_t* __restrict__ cur, const uint8
 }  // namespace
 
 extern "C" int so_rowscan_pass(const void* cur, const void* planes, const void* seeds, int nref, int h, int w,
-                               int n, int fme, void* mvs, void* stream) {
+                               int n, int fme, int g_row0, int H, void* mvs, void* stream) {
     const int S = h / n;
     if (S == 0 || w / n == 0) return 0;
     // the sums and the MVP, the current block, the regions (the wrapper holds this below 48 KB)
     const int smem = (9 * nref + 4) * (int)sizeof(int) + n * n + nref * (fme ? 4 : 1) * (n + 2) * (n + 2);
     rowscan_pass_kernel<<<S, kThreads, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)cur, (const uint8_t*)planes, (const int32_t*)seeds, nref, h, w, n, fme, (int32_t*)mvs);
+        (const uint8_t*)cur, (const uint8_t*)planes, (const int32_t*)seeds, nref, w, n, fme, g_row0, H,
+        (int32_t*)mvs);
     return (int)cudaGetLastError();
 }

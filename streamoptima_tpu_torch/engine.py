@@ -1,11 +1,11 @@
 """PyTorch engine: per-frame encode/decode steps on one device.
 
 ``TorchCodec`` is the counterpart of ``streamoptima_tpu.jax_engine.JaxCodec``
-on one device, for every configuration but rate control, ROI and two-pass:
-I/P frames (an intra frame every ``intra_dur``), up to eight reference
-frames in a FIFO, intra mode 0 or 1 (mode 1 is mode 0 on the transposed
-frame), VBS and half-pel FME each on or off, full search or fast ME, and
-the three parallel modes' semantics.
+on one device, for every configuration of the native engine: I/P frames (an
+intra frame every ``intra_dur``), up to eight reference frames in a FIFO,
+intra mode 0 or 1 (mode 1 is mode 0 on the transposed frame), VBS and
+half-pel FME each on or off, full search or fast ME, the three parallel
+modes' semantics, and rate control.
 
 The full search is one kernel launch per inter frame, by tool set:
 ``full_search`` (whole-pel, which also returns the winners' pixels),
@@ -17,11 +17,11 @@ transmitted MVs) come from the ``pred_fetch`` kernel in the matching mode:
 ``pred_fetch_fme_vbs``, block and quad planes in one launch.
 
 Fast ME (``fast_me``: a 3x3 search around the previous block's MV, chained
-in raster order) solves the chain per block row: the ``rowscan_pass``
-kernel walks every row exactly from a guessed seed MV, and the seeds (each
-row's is the last MV of the row above) are iterated until they stop
-changing, starting from the previous frame's.  One confirm pass at the
-converged MVPs then reads every block's candidate region through the
+in raster order) solves the chain per block row (``fast_chain``): the
+``rowscan_pass`` kernel walks every row exactly from a guessed seed MV, and
+the seeds (each row's is the last MV of the row above) are iterated until
+they stop changing, starting from the previous frame's.  One confirm pass at
+the converged MVPs then reads every block's candidate region through the
 ``window_fetch`` kernel and derives the block and quad winners
 (``core/fastme.py``).  Decode is the same as for the full search: a fast-ME
 stream is an ordinary MV stream.
@@ -32,17 +32,25 @@ plane, by full search; mode 2 runs fast ME from a zero MVP for every block
 (no chain: one confirm pass at g = 0); mode 3 keeps the intra frames and
 predicts every inter frame from the all-128 plane.
 
+Rate control (``rc``): per-row QPs from the rate table of the frame's type
+(``rc_flag`` >= 1), an ROI map of per-block QP offsets (``roi_qp_map``,
+clipped to [0, 12]), scene-change promotion (``rc_flag`` > 1: an inter
+frame whose size exceeds ``intra_thresh`` is coded intra, one size read per
+inter frame) and clip-level two-pass (pass 1 at the table QPs, its row bits
+in one device-to-host copy, ``rc.second_pass_row_qps``, pass 2 with pass 1's
+frame types).  The decoder reads the row QPs from the stream.
+
 On the CPU every kernel takes its plain PyTorch version.  Every value it
 produces is bit-identical to the JAX engine's on the same input and config
 (MVs, split flags, coefficients, sizes, reconstructions).
 
-Configurations outside the port raise ``NotImplementedError`` naming the
-feature; ``engine='compat'`` (the host reference engine) raises
-``ValueError``.  Neither is a fallback.
+``engine='compat'`` (the host reference engine) raises ``ValueError``: it
+is not ported, and there is no fallback.
 
 A ``TorchCodec`` built with ``rows`` codes one mesh tile: a band of whole
 block rows of the frame (``parallel/mesh.py``).  Its steps take the
-reference band around the tile, and every bound is evaluated at frame rows.
+reference band around the tile, or under fast ME the whole reference frames,
+and every bound is evaluated at frame rows.
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ import numpy as np
 import torch
 
 from streamoptima_tpu_torch import metrics
+from streamoptima_tpu_torch import rc
 from streamoptima_tpu_torch.bitstream import FrameMVArrays, FrameResArrays, widen_mvs
 from streamoptima_tpu_torch.config import CodecConfig
 from streamoptima_tpu_torch.core import fastme as FM
@@ -67,21 +76,22 @@ STATE_KEYS = ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "recon")
 
 
 def check_slice(cfg: CodecConfig) -> None:
-    """Refuse, by name, every configuration the port does not run yet."""
+    """Refuse what the port does not run: ``engine='compat'``."""
     if cfg.compat:
         raise ValueError("engine='compat' is the host reference engine; TorchCodec ports engine='jax'")
-    unported = {  # two_pass first: it implies rc_flag
-        "two_pass": cfg.two_pass,
-        "rc_flag": cfg.rc_active,
-        "roi_qp_map": cfg.roi_qp_map is not None,
-    }
-    for name, on in unported.items():
-        if on:
-            raise NotImplementedError(f"{name} is not ported to the PyTorch engine yet")
+
+
+def row_qps_of(cfg: CodecConfig) -> tuple[np.ndarray, np.ndarray]:
+    """The frame's per-row QPs of each frame type (intra, inter): the rate
+    tables' sequences under rate control (jax_engine.py:72-81), else qp."""
+    if cfg.rc_active:
+        return tuple(np.asarray(rc.row_qp_sequence(cfg, t), dtype=np.int32) for t in (0, 1))
+    const = np.full(cfg.block_rows, cfg.qp, dtype=np.int32)
+    return const, const
 
 
 class TorchCodec:
-    """PyTorch encoder/decoder for the ported configurations, on an explicit ``device``."""
+    """PyTorch encoder/decoder of the native engine, on an explicit ``device``."""
 
     def __init__(self, cfg: CodecConfig, y_frames=None, *, device, rows: tuple[int, int] | None = None):
         check_slice(cfg)
@@ -96,13 +106,24 @@ class TorchCodec:
         # the frame rows [g_row0, g_row0 + h) this instance codes: the frame, or a mesh tile's band
         self.g_row0, r1 = (0, self.H) if rows is None else rows
         self.h = r1 - self.g_row0
-        if rows is not None and (cfg.fast_me or cfg.parallel_mode):
-            raise ValueError("a tile (rows=...) codes the full search without parallel modes")
+        if rows is not None and cfg.parallel_mode:
+            raise ValueError("a tile (rows=...) codes without parallel modes")
         self.bs = cfg.block_size
         self.sbs = cfg.sub_block_size
         self.nbr, self.nbc = self.h // self.bs, cfg.blocks_per_row
         self.nb = self.nbr * self.nbc
-        self.qps = torch.full((self.nb,), cfg.qp, dtype=torch.int32, device=self.device)
+        rows_blk = slice(self.g_row0 // self.bs, self.g_row0 // self.bs + self.nbr)
+        #: the frame's per-row QPs of each frame type, on the host (two-pass falls back to them)
+        self.row_qps_np = row_qps_of(cfg)
+        self.roi = None
+        if cfg.roi_qp_map is not None:
+            roi = np.asarray(cfg.roi_qp_map, dtype=np.int32).reshape(-1)
+            if roi.shape[0] != cfg.n_blocks:
+                raise ValueError(f"roi_qp_map has {roi.shape[0]} offsets for {cfg.n_blocks} blocks")
+            self.roi = torch.from_numpy(roi.reshape(cfg.block_rows, self.nbc)[rows_blk].copy()).to(self.device)
+        #: block QPs of this instance's rows for each frame type, at the table rows
+        self.qps_by_type = tuple(self._frame_qps(torch.from_numpy(q[rows_blk].copy()).to(self.device), t)
+                                 for t, q in enumerate(self.row_qps_np))
         # non-border blocks (frame row and column 0) may split
         # (jax_engine.py:68-71); intra mode 1 numbers the blocks in the
         # transposed frame's raster order
@@ -122,6 +143,22 @@ class TorchCodec:
     def _plane128(self) -> torch.Tensor:
         return torch.full((self.h, self.w), 128, dtype=torch.uint8, device=self.device)
 
+    def _block_qps(self, row_qps: torch.Tensor, transposed: bool = False) -> torch.Tensor:
+        """Per-block QPs in block raster order (``JaxCodec._block_qps``): the
+        row QPs plus the ROI offsets, clipped to [0, 12]; ``transposed``, the
+        intra mode 1 order, keeps them on pixel rows."""
+        q = row_qps.to(torch.int32)[:, None].expand(self.nbr, self.nbc)
+        if self.roi is not None:
+            q = (q + self.roi).clamp(0, 12)
+        if transposed:
+            q = q.T
+        return q.reshape(-1).contiguous()
+
+    def _frame_qps(self, row_qps: torch.Tensor, ftype: int) -> torch.Tensor:
+        """Block QPs of a frame coded as ``ftype``: intra frames of intra mode
+        1 number their blocks in transposed order."""
+        return self._block_qps(row_qps, ftype == 0 and self.cfg.intra_mode == 1)
+
     def _inter_refs(self, refs: list, initial: bool) -> tuple[list, bool]:
         """The references an inter frame predicts from: the FIFO, or under
         parallel modes 1 and 3 the all-128 plane alone."""
@@ -136,14 +173,14 @@ class TorchCodec:
         stack = torch.stack(refs)
         return fme_parity_planes(stack, wrap_row_pass=not initial) if self.fme else stack
 
-    def _dequant(self, qtc_full: torch.Tensor, qtc_quads: torch.Tensor):
-        rf = idct2_int(rescale(qtc_full.to(torch.int32), self.qps))
+    def _dequant(self, qtc_full: torch.Tensor, qtc_quads: torch.Tensor, qps: torch.Tensor):
+        rf = idct2_int(rescale(qtc_full.to(torch.int32), qps))
         if not self.vbs:
             return rf, None
-        return rf, idct2_int(rescale(qtc_quads.to(torch.int32), qp_minus_1(self.qps)[:, None]))
+        return rf, idct2_int(rescale(qtc_quads.to(torch.int32), qp_minus_1(qps)[:, None]))
 
-    def _select(self, res_full, res_quads, sad, sub_sad, ftype: int, ok=None, sub_ok=None, transposed=False):
-        return rd.transform_and_select(res_full, res_quads, sad, sub_sad, ftype, self.qps,
+    def _select(self, res_full, res_quads, sad, sub_sad, ftype: int, qps, ok=None, sub_ok=None, transposed=False):
+        return rd.transform_and_select(res_full, res_quads, sad, sub_sad, ftype, qps,
                                        qp_nominal=int(self.cfg.qp), lam=self.cfg.lam, vbs_enable=self.vbs,
                                        vbs_eligible=self.vbs_eligible_t if transposed else self.vbs_eligible,
                                        bs=self.bs, sbs=self.sbs, ok_full=ok, ok_quads=sub_ok)
@@ -166,16 +203,16 @@ class TorchCodec:
         pf = (K.pred_fetch_fme if self.fme else K.pred_fetch)(mv, planes, bs, **band)
         return blockify(pf, bs).to(torch.int32), None
 
-    def _recon_inter(self, pred_full, pred_q, split, qtc_full, qtc_quads) -> torch.Tensor:
-        rf, rq = self._dequant(qtc_full, qtc_quads)
+    def _recon_inter(self, pred_full, pred_q, split, qtc_full, qtc_quads, qps=None) -> torch.Tensor:
+        rf, rq = self._dequant(qtc_full, qtc_quads, self.qps_by_type[1] if qps is None else qps)
         blocks = wrap_uint8(pred_full + rf)
         if self.vbs:
             quad_blocks = merge_quads(wrap_uint8(pred_q + rq))
             blocks = torch.where(split[:, None, None], quad_blocks, blocks)
         return unblockify(blocks, self.h, self.w)
 
-    def _recon_intra(self, mv, split, sub_mv, qtc_full, qtc_quads) -> torch.Tensor:
-        rf, rq = self._dequant(qtc_full, qtc_quads)
+    def _recon_intra(self, mv, split, sub_mv, qtc_full, qtc_quads, qps=None) -> torch.Tensor:
+        rf, rq = self._dequant(qtc_full, qtc_quads, self.qps_by_type[0] if qps is None else qps)
         # without VBS rq is None, and the split flags and sub-MVs go unread
         sr = self.cfg.search_range
         if self.cfg.intra_mode == 1:  # mode 0 on the transposed frame (jax_engine.py:699-704)
@@ -201,8 +238,10 @@ class TorchCodec:
         }
 
     # ------------------------------------------------------------- steps
-    def _intra_step(self, cur: torch.Tensor) -> dict:
+    def _intra_step(self, cur: torch.Tensor, qps: torch.Tensor | None = None) -> dict:
+        """One intra frame at block QPs ``qps`` (default: the table rows')."""
         cfg = self.cfg
+        qps = self.qps_by_type[0] if qps is None else qps
         mode1 = cfg.intra_mode == 1
         work = cur.to(torch.int32)
         if mode1:  # the search runs on the transposed frame (jax_engine.py:776-815)
@@ -215,48 +254,35 @@ class TorchCodec:
             res_full = res_full.transpose(-1, -2)
             res_quads = None if res_quads is None else res_quads.transpose(-1, -2)
         sub_sad = s["sub_sad"].reshape(self.nb, 4) if self.vbs else None
-        sel = self._select(res_full, res_quads, s["sad"].reshape(-1), sub_sad, 0, transposed=mode1)
+        sel = self._select(res_full, res_quads, s["sad"].reshape(-1), sub_sad, 0, qps, transposed=mode1)
         mv = s["mv"].reshape(-1)
         sub_mv = sub_mv.reshape(self.nb, 4) if self.vbs else torch.zeros((self.nb, 4), dtype=torch.int32,
                                                                           device=self.device)
-        recon = self._recon_intra(mv, sel[0], sub_mv, sel[1], sel[2])
+        recon = self._recon_intra(mv, sel[0], sub_mv, sel[1], sel[2], qps)
         # row bits sum pixel rows of blocks either way
         row_bits = sel[3].reshape(self.nbc, self.nbr).sum(dim=0) if mode1 else None
         return self._outputs(mv, sub_mv, sel, recon, row_bits)
 
     def _confirm(self, cur_blocks: torch.Tensor, planes: torch.Tensor, g: torch.Tensor) -> dict:
         """The fast-ME 3x3 searches around MVPs ``g`` (nb, 3), block and
-        quads, from one ``window_fetch`` read of every block's region."""
+        quads, from one ``window_fetch`` read of every block's region of the
+        whole-frame ``planes``, at frame rows (mesh.py:553-584)."""
         n, fme = self.bs, self.fme
-        by0, bx0 = FM.region_base(g, self.by, self.bx, fme)
-        win = K.window_fetch(planes.reshape(-1, self.h, self.w), by0, bx0, n + 2)
+        y = self.by + self.g_row0
+        by0, bx0 = FM.region_base(g, y, self.bx, fme)
+        win = K.window_fetch(planes.reshape(-1, self.H, self.w), by0, bx0, n + 2)
         scale = 2 if fme else 1
-        dims = (2 * self.h - 1, 2 * self.w - 1) if fme else (self.h, self.w)
-        return FM.confirm(win, cur_blocks, g, scale * self.bx, scale * self.by, n, dims, fme, self.vbs)
+        dims = (2 * self.H - 1, 2 * self.w - 1) if fme else (self.H, self.w)
+        return FM.confirm(win, cur_blocks, g, scale * self.bx, scale * y, n, dims, fme, self.vbs)
 
     def _fast_search_rowscan(self, cur: torch.Tensor, cur_blocks: torch.Tensor, planes: torch.Tensor,
                              g0: torch.Tensor | None) -> dict:
-        """The fast-ME chain of one frame (``JaxCodec._fast_search_rowscan``).
-
-        Each pass solves every block row exactly from its seed; the next
-        seeds are the rows' last MVs shifted down one row (row 0: zero).  The
-        chain's solution is the one fixpoint of that map, so any start gives
-        it; ``g0`` (the previous frame's converged MVPs) only saves passes.
-        Testing convergence reads one flag back per pass.  planes: the
-        parity planes (nref, 4, h, w) under FME, else the references."""
-        S = self.nbr
-        zero = torch.zeros((1, 3), dtype=torch.int32, device=self.device)
-        seeds = zero.expand(S, 3).contiguous() if g0 is None else g0.reshape(S, self.nbc, 3)[:, 0].contiguous()
-        passes, changed = 0, True
-        while changed and passes <= S + 1:
-            mvs = K.rowscan_pass(cur, planes, seeds, self.bs, self.fme)
-            passes += 1
-            nxt = torch.cat([zero, mvs[:-1, -1]])
-            changed = not torch.equal(nxt, seeds)
-            seeds = nxt
+        """The fast-ME chain of one frame (``JaxCodec._fast_search_rowscan``):
+        ``fast_chain`` on this one tile, then the confirm pass at the
+        converged MVPs, which re-derives the same MVs.  planes: the parity
+        planes (nref, 4, H, w) under FME, else the references."""
+        (g,), passes = fast_chain([self], [cur], [planes], [g0])
         self.fast_me_passes.append(passes)
-        # at the fixpoint the confirm pass at the MVPs re-derives the same MVs
-        g = torch.cat([zero, mvs.reshape(self.nb, 3)[:-1]])
         out = self._confirm(cur_blocks, planes, g)
         out["g_next"] = g
         return out
@@ -278,27 +304,33 @@ class TorchCodec:
             pred_q = torch.where(s["sub_ok"][:, :, None, None], pred_q, 128)
         return s, pred_full, pred_q
 
-    def _inter_step(self, cur: torch.Tensor, refs: list, initial: bool, g0: torch.Tensor | None = None,
-                    band_row0: int = 0) -> dict:
-        """One inter frame; ``refs`` are the reference frames, or bands of
-        them holding this instance's rows at ``band_row0``."""
+    def _inter_step(self, cur: torch.Tensor, planes: torch.Tensor, g0: torch.Tensor | None = None,
+                    band_row0: int = 0, qps: torch.Tensor | None = None, mvp: torch.Tensor | None = None) -> dict:
+        """One inter frame against ``planes`` (``_planes`` of the references,
+        or of bands of them holding this instance's rows at ``band_row0``),
+        at block QPs ``qps`` (default: the table rows').  Fast ME solves the
+        chain from ``g0``, or confirms at MVPs ``mvp`` a caller has already
+        solved (a mesh tile: ``fast_chain`` over its data row's tiles)."""
+        qps = self.qps_by_type[1] if qps is None else qps
         cur_blocks = blockify(cur, self.bs).to(torch.int32)
-        planes = self._planes(refs, initial)
         if self.fast:
             if self.cfg.parallel_mode == 2:  # every block's MVP is zero (jax_engine.py:237-295)
                 s = self._confirm(cur_blocks, planes, torch.zeros((self.nb, 3), dtype=torch.int32,
                                                                   device=self.device))
+            elif mvp is not None:
+                s = self._confirm(cur_blocks, planes, mvp)
+                s["g_next"] = mvp
             else:
                 s = self._fast_search_rowscan(cur, cur_blocks, planes, g0)
             # a block without a valid candidate keeps its MVP as MV (K8) and is
             # predicted at that MV like any other: no 128 mask here
-            pred_full, pred_q = self._fetch(s["mv"], s.get("sub_mv"), planes)
+            pred_full, pred_q = self._fetch(s["mv"], s.get("sub_mv"), planes, band_row0)
         else:
             s, pred_full, pred_q = self._full_search(cur, planes, band_row0)
         res_q = split_quads(cur_blocks) - pred_q if self.vbs else None
-        sel = self._select(cur_blocks - pred_full, res_q, s["sad"], s.get("sub_sad"), 1, ok=s["ok"],
+        sel = self._select(cur_blocks - pred_full, res_q, s["sad"], s.get("sub_sad"), 1, qps, ok=s["ok"],
                            sub_ok=s.get("sub_ok"))
-        recon = self._recon_inter(pred_full, pred_q, sel[0], sel[1], sel[2])
+        recon = self._recon_inter(pred_full, pred_q, sel[0], sel[1], sel[2], qps)
         sub_mv = s["sub_mv"] if self.vbs else torch.zeros((self.nb, 4, 3), dtype=torch.int32, device=self.device)
         out = self._outputs(s["mv"], sub_mv, sel, recon)
         if "g_next" in s:
@@ -306,24 +338,44 @@ class TorchCodec:
         return out
 
     # ------------------------------------------------------------ encode
-    def _encode_pass(self):
+    def _encode_pass(self, ftypes_fixed: list | None = None, rqps: list | None = None, light: bool = False):
+        """One encode pass over the clip (``JaxCodec._encode_pass``).
+
+        ``ftypes_fixed`` / ``rqps``: two-pass's second pass, with pass 1's
+        frame types (promotion is not decided again) and each frame's row QPs
+        (device tensors).  ``light`` keeps only each frame's row bits (pass
+        1).  Returns (per_frame, ftypes)."""
         cfg = self.cfg
         ftypes: list[int] = []
         per_frame: list[dict] = []
         refs = [self._plane128()]
         initial = True
         self.fast_me_passes = []
+        promote = ftypes_fixed is None and cfg.rc_flag is not None and cfg.rc_flag > 1
         g_carry = None  # fast ME: the last inter frame's converged MVPs warm-start the next
         for i in range(cfg.frames):
             cur = self._y_dev[i]
-            if i % cfg.intra_dur == 0 and cfg.parallel_mode != 1:
-                out, ftype = self._intra_step(cur), 0
+
+            def qps(ftype: int) -> torch.Tensor:
+                return self.qps_by_type[ftype] if rqps is None else self._frame_qps(rqps[i], ftype)
+
+            intra = (i % cfg.intra_dur == 0 and cfg.parallel_mode != 1) if ftypes_fixed is None \
+                else ftypes_fixed[i] == 0
+            if intra:
+                out, ftype = self._intra_step(cur, qps(0)), 0
             else:
-                out, ftype = self._inter_step(cur, *self._inter_refs(refs, initial), g_carry), 1
-                g_carry = out.pop("g_next", g_carry)
-            out["psnr"] = metrics.psnr(cur, out["recon"])
+                out, ftype = self._inter_step(cur, self._planes(*self._inter_refs(refs, initial)), g_carry,
+                                              qps=qps(1)), 1
+                # scene-change promotion (jax_engine.py:959-963): one size read per inter frame
+                if promote and int(out["size"]) > cfg.intra_thresh:
+                    out, ftype = self._intra_step(cur, qps(0)), 0
+            g_carry = out.pop("g_next", g_carry)
             ftypes.append(ftype)
-            per_frame.append(out)
+            if light:
+                per_frame.append({"row_bits": out["row_bits"]})
+            else:
+                out["psnr"] = metrics.psnr(cur, out["recon"])
+                per_frame.append(out)
             if i < cfg.frames - 1:
                 if ftype == 0:
                     refs = []
@@ -334,10 +386,23 @@ class TorchCodec:
     def encode(self, package: bool = True) -> dict:
         """Encode the clip.  ``package=False`` leaves the per-frame outputs as
         device tensors under "per_frame" instead of building the list-form
-        "MVS per Frame" / "approx residual" interchange."""
+        "MVS per Frame" / "approx residual" interchange.  Two-pass is
+        clip-level (``JaxCodec.encode``): pass 1 at the table QPs, its row
+        bits in one device-to-host copy, the second pass's row QPs on the
+        host, pass 2 with pass 1's frame types."""
         if self._y_dev is None:
             raise ValueError("construct with y_frames to encode")
-        pkg = build_package(self.cfg, *self._encode_pass(), "full" if package else "arrays")
+        cfg = self.cfg
+        if cfg.two_pass and cfg.rc_active:
+            pf1, ftypes1 = self._encode_pass(light=True)
+            row_bits = torch.stack([o["row_bits"] for o in pf1]).cpu().numpy()  # the one copy
+            rqps = [rc.second_pass_row_qps(cfg, row_bits[i], t, self.row_qps_np[t]) for i, t in enumerate(ftypes1)]
+            per_frame, ftypes = self._encode_pass(ftypes1, [torch.from_numpy(q).to(self.device) for q in rqps])
+            qp_rows = [[int(q) for q in r] for r in rqps]
+        else:
+            per_frame, ftypes = self._encode_pass()
+            qp_rows = [[int(q) for q in self.row_qps_np[t]] if cfg.rc_active else [] for t in ftypes]
+        pkg = build_package(cfg, per_frame, ftypes, "full" if package else "arrays", qp_rows)
         if self.fast:
             pkg["fast_me_passes"] = list(self.fast_me_passes)
         return pkg
@@ -345,28 +410,35 @@ class TorchCodec:
     # ------------------------------------------------------------ decode
     def decode(self, frame_types, residuals_per_frame, qp_rows_per_frame, mvs_per_frame) -> list:
         """Decode list- or array-form interchange (the bitstream readers'
-        output) into a list of (h, w) uint8 device tensors."""
+        output) into a list of (h, w) uint8 device tensors; the row QPs come
+        from the stream under rate control (jax_engine.py:1108-1109)."""
         cfg = self.cfg
         n = len(frame_types)
         # parallel mode 1 decodes every frame as an inter frame against the
         # all-128 plane (jax_engine.py:1180-1196)
         all_inter = cfg.parallel_mode == 1
-        mv_all, smv_all, split_all, pay_all = pack_stream(cfg, frame_types, residuals_per_frame, mvs_per_frame)
+        mv_all, smv_all, split_all, pay_all, rqp_all = pack_stream(cfg, frame_types, residuals_per_frame,
+                                                                   mvs_per_frame, qp_rows_per_frame)
         d_mv, d_split, d_pay = (torch.from_numpy(a).to(self.device) for a in (mv_all, split_all, pay_all))
         d_smv = torch.from_numpy(smv_all).to(self.device) if self.vbs else None  # read only under VBS
+        d_rqp = torch.from_numpy(rqp_all).to(self.device) if cfg.rc_active else None
 
         out = []
         refs = [self._plane128()]
         initial = True
         for i in range(n):
             qf, qq = unpack_payload(d_split[i], d_pay[i], self.vbs)
-            if int(frame_types[i]) == 0 and not all_inter:
-                f = self._recon_intra(d_mv[i, :, 0], d_split[i], d_smv[i, :, :, 0] if self.vbs else None, qf, qq)
+            intra = int(frame_types[i]) == 0 and not all_inter
+            ft = 0 if intra else 1
+            qps = self.qps_by_type[ft] if d_rqp is None else self._frame_qps(d_rqp[i], ft)
+            if intra:
+                f = self._recon_intra(d_mv[i, :, 0], d_split[i], d_smv[i, :, :, 0] if self.vbs else None, qf, qq,
+                                      qps)
                 refs = []
             else:
                 pf, pq = self._fetch(d_mv[i], d_smv[i] if self.vbs else None,
                                      self._planes(*self._inter_refs(refs, initial)))
-                f = self._recon_inter(pf, pq, d_split[i], qf, qq)
+                f = self._recon_inter(pf, pq, d_split[i], qf, qq, qps)
             out.append(f)
             if i < n - 1:
                 fifo_push(refs, f, cfg.n_ref_frames)
@@ -385,12 +457,52 @@ def fifo_push(refs: list, frame: torch.Tensor, nref: int) -> None:
     refs.append(frame)
 
 
-def build_package(cfg: CodecConfig, per_frame: list, ftypes: list, fetch: str = "full") -> dict:
+def fast_chain(engines: list, curs: list, planes: list, g0s: list) -> tuple[list, int]:
+    """Solve one frame's fast-ME MVP chain over its tiles, top to bottom
+    (``JaxCodec._fast_search_rowscan``; on a mesh ``_fast_tile_rowscan``).
+
+    ``engines``: the frame's tiles (one ``TorchCodec`` for the whole frame),
+    each with its rows of the frame in ``curs``, the whole frame's
+    ``planes`` on its device and the previous frame's converged MVPs or None
+    in ``g0s``.  Each pass launches ``rowscan_pass`` once per tile: every
+    block row is solved exactly from its seed.  The next seeds are the
+    frame's rows' last MVs shifted down one row: within a tile the row
+    above's, for a tile's first row the last MV of the tile above, copied
+    across devices (tile 0's first row: zero).  The chain's solution is the
+    one fixpoint of that map, so any start gives it; ``g0s`` only save
+    passes.  Convergence is tested on the frame's whole seed vector, one flag
+    read per pass.  (The JAX mesh tests it over the whole mesh, since its
+    seed exchange is one SPMD collective for every data row; here data rows
+    run in turn, so the frame's own test is the one that applies, and with
+    a unique fixpoint the MVs are the same.)  At most the frame's block rows
+    + 2 passes, the JAX bound.  Returns (each tile's (nb_t, 3) converged
+    MVPs, the passes)."""
+    e0 = engines[0]
+    bs, fme, nbc = e0.bs, e0.fme, e0.nbc
+    zeros = [torch.zeros((1, 3), dtype=torch.int32, device=e.device) for e in engines]
+    seeds = [z.expand(e.nbr, 3).contiguous() if g is None else g.reshape(e.nbr, nbc, 3)[:, 0].contiguous()
+             for e, z, g in zip(engines, zeros, g0s)]
+    passes, changed = 0, True
+    while changed and passes <= e0.cfg.block_rows + 1:
+        mvs = [K.rowscan_pass(c, p, s, bs, fme, g_row0=e.g_row0, grid=(e.H, e.w))
+               for e, c, p, s in zip(engines, curs, planes, seeds)]
+        passes += 1
+        nxt = [torch.cat([z if t == 0 else mvs[t - 1][-1, -1:].to(e.device), m[:-1, -1]])
+               for t, (e, z, m) in enumerate(zip(engines, zeros, mvs))]
+        changed = bool(torch.stack([(a != b).any().to(e0.device) for a, b in zip(nxt, seeds)]).any())
+        seeds = nxt
+    # each block's MVP: the MV before it in raster order, a tile's first the converged seed
+    gs = [torch.cat([s[:1], m.reshape(-1, 3)[:-1]]) for s, m in zip(seeds, mvs)]
+    return gs, passes
+
+
+def build_package(cfg: CodecConfig, per_frame: list, ftypes: list, fetch: str = "full", qp_rows=None) -> dict:
     """The encode package from per-frame outputs (each with "psnr" and the
     per-block "mae").  ``fetch``: "full" adds the list-form "MVS per Frame"
     / "approx residual" interchange, "arrays" the per-frame device tensors
     under "per_frame", "light" neither, and "metrics" leaves out the
-    reconstructions too."""
+    reconstructions too.  ``qp_rows``: each frame's row QPs under rate
+    control ([] per frame without)."""
     nb = cfg.block_rows * cfg.blocks_per_row
     stats = torch.stack([torch.stack([o["psnr"], o["mae"].mean()]) for o in per_frame]).cpu().numpy()
     sizes = torch.stack([o["size"] for o in per_frame]).cpu().numpy()
@@ -403,7 +515,7 @@ def build_package(cfg: CodecConfig, per_frame: list, ftypes: list, fetch: str = 
         "PSNR per frame": [float(v) for v in stats[:, 0]],
         "MAE per Frame": [float(v) for v in stats[:, 1]],
         "frame_type_seq": ftypes,
-        "Qp_per_row_per_frame": [[] for _ in ftypes],
+        "Qp_per_row_per_frame": [[] for _ in ftypes] if qp_rows is None else qp_rows,
         "residual size per frame": [int(v) for v in sizes],
         "reconstructed frames": (None if fetch == "metrics"
                                  else torch.stack([o["recon"] for o in per_frame]).cpu().numpy()),
@@ -418,10 +530,12 @@ def build_package(cfg: CodecConfig, per_frame: list, ftypes: list, fetch: str = 
     return pkg
 
 
-def pack_stream(cfg: CodecConfig, frame_types, residuals_per_frame, mvs_per_frame):
-    """The decoders' host pass: the clip's MVs, sub-MVs, split flags and
-    coefficients packed for one upload each, (n, nb, 3), (n, nb, 4, 3),
-    (n, nb) and (n, nb, bs, bs); intra frames' scalar MVs in component 0.  A
+def pack_stream(cfg: CodecConfig, frame_types, residuals_per_frame, mvs_per_frame, qp_rows_per_frame=None):
+    """The decoders' host pass: the clip's MVs, sub-MVs, split flags,
+    coefficients and row QPs packed for one upload each, (n, nb, 3), (n, nb,
+    4, 3), (n, nb), (n, nb, bs, bs) and (n, nbr); intra frames' scalar MVs in
+    component 0.  Row QPs are ``cfg.qp`` but where rate control is on and the
+    stream gives a frame's rows (jax_engine.py:1108-1109).  A
     block is split or not, so its full-block and quad coefficients share one
     (bs, bs) payload slot.  A frame that references a frame outside the
     decoder's FIFO raises ``ValueError`` before anything is launched."""
@@ -431,6 +545,7 @@ def pack_stream(cfg: CodecConfig, frame_types, residuals_per_frame, mvs_per_fram
     smv_all = np.zeros((n, nb, 4, 3), np.int32)
     split_all = np.zeros((n, nb), bool)
     pay_all = np.zeros((n, nb, bs, bs), np.int16)
+    rqp_all = np.full((n, cfg.block_rows), cfg.qp, np.int32)
     nref = 1  # length of the decoder's reference FIFO at frame i
     for i in range(n):
         ft = int(frame_types[i])
@@ -452,8 +567,10 @@ def pack_stream(cfg: CodecConfig, frame_types, residuals_per_frame, mvs_per_fram
         if split_np.any():
             merged = qq.reshape(nb, 2, 2, s, s).swapaxes(2, 3).reshape(nb, bs, bs)
             pay_all[i][split_np] = merged[split_np]
+        if cfg.rc_active and qp_rows_per_frame is not None and len(qp_rows_per_frame[i]):
+            rqp_all[i] = np.asarray(qp_rows_per_frame[i], dtype=np.int32)
         nref = 1 if ft == 0 else min(nref + 1, cfg.n_ref_frames)
-    return mv_all, smv_all, split_all, pay_all
+    return mv_all, smv_all, split_all, pay_all, rqp_all
 
 
 # ------------------------------------------------ interchange (module level)

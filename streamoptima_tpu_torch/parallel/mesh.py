@@ -15,15 +15,22 @@ configurations.  A ``Mesh`` lays devices out on two axes:
   (``core/kernels.py``), so the result is bit-identical to ``TorchCodec`` on
   one device.
 
+Fast ME always reads whole reference frames: its MVP walk is not bounded by
+the search range (mesh.py:613-617 of the JAX package).  The chain crosses
+tiles: each pass launches ``rowscan_pass`` on every tile of the data row,
+and a tile's first seed is the last MV of the tile above (``fast_chain``,
+shared with ``TorchCodec``).
+
 A device may appear more than once: ``make_mesh(cfg, devices=[cuda0] * 6)``
 runs a (2, 3) mesh on one card, as the JAX package's 8 virtual CPU devices
 run its mesh on one host.  One host thread queues each shard's work on its
 device in turn.
 
-This slice runs the full search (whole-pel or half-pel, VBS on or off, up to
-eight references) with intra mode 0, and intra mode 1 on the "data" axis
-alone.  Fast ME, rate control (per-row, scene-change promotion, two-pass)
-and ROI maps raise ``NotImplementedError`` naming the feature.
+The mesh runs the full search and fast ME (whole-pel or half-pel, VBS on or
+off, up to eight references) with intra mode 0, and intra mode 1 on the
+"data" axis alone.  Rate control (per-row, scene-change promotion,
+two-pass) and ROI maps raise ``NotImplementedError`` naming the feature:
+they come with the mesh's rate-control slice.
 """
 from __future__ import annotations
 
@@ -34,7 +41,8 @@ import torch
 
 from streamoptima_tpu_torch import metrics
 from streamoptima_tpu_torch.config import CodecConfig
-from streamoptima_tpu_torch.engine import TorchCodec, build_package, fifo_push, pack_stream, unpack_payload
+from streamoptima_tpu_torch.engine import (TorchCodec, build_package, fast_chain, fifo_push, pack_stream,
+                                           unpack_payload)
 
 #: per-frame outputs that concatenate over tiles, in block raster or row order
 _TILED_KEYS = ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "row_bits", "recon", "mae")
@@ -117,16 +125,15 @@ def check_mesh_slice(cfg: CodecConfig) -> None:
     if cfg.parallel_mode != 0:
         raise ValueError("mesh sharding replaces the reference's parallel modes: parallel_mode must be 0")
     later = {  # two-pass and promotion first: both imply rc_flag
-        "two_pass": (cfg.two_pass, "the rate-control slice"),
-        "rc_flag > 1 (scene-change promotion)": (cfg.rc_flag is not None and cfg.rc_flag > 1,
-                                                 "the rate-control slice"),
-        "rc_flag": (cfg.rc_active, "the rate-control slice"),
-        "roi_qp_map": (cfg.roi_qp_map is not None, "the rate-control slice"),
-        "fast_me": (cfg.fast_me, "the mesh's fast-ME slice (the MVP chain across tiles)"),
+        "two_pass": cfg.two_pass,
+        "rc_flag > 1 (scene-change promotion)": cfg.rc_flag is not None and cfg.rc_flag > 1,
+        "rc_flag": cfg.rc_active,
+        "roi_qp_map": cfg.roi_qp_map is not None,
     }
-    for name, (on, when) in later.items():
+    for name, on in later.items():
         if on:
-            raise NotImplementedError(f"{name} is not ported to the mesh yet: it comes with {when}")
+            raise NotImplementedError(f"{name} is not ported to the mesh yet: it comes with the mesh's rate-control "
+                                      "slice (one device runs it: TorchCodec)")
 
 
 class ShardedCodec:
@@ -134,8 +141,10 @@ class ShardedCodec:
 
     ``encode`` returns ``TorchCodec.encode``'s package, bit for bit (PSNR
     too: it is computed on each whole frame, on the mesh's first device,
-    where the merged per-frame outputs live).  ``decode`` shards the same
-    way and returns the frames on that device.
+    where the merged per-frame outputs live), but for "fast_me_passes":
+    the mesh's own passes per inter frame, each pass one ``rowscan_pass``
+    launch per tile.  ``decode`` shards the same way and returns the frames
+    on that device.
     """
 
     def __init__(self, cfg: CodecConfig, mesh: Mesh, y_frames=None, tile_comm: str = "halo"):
@@ -161,6 +170,10 @@ class ShardedCodec:
         self._tiles = [[TorchCodec(cfg, device=mesh.devices[d, t], rows=(t * self.h_t, (t + 1) * self.h_t))
                         for t in range(self.ntile)] for d in range(self.ndata)]
         self._frames_dev = None  # per shard: its GOPs' frames, its tile's rows (staged at the first encode)
+        self.fast = cfg.fast_me
+        #: fast ME: the passes of each inter frame of the last encode, in frame order
+        self.fast_me_passes: list[int] = []
+        self._g_carry: list = []  # fast ME, per data row: its last inter frame's MVPs per tile
 
     # ----------------------------------------------------------- shared
     def _bands(self, fifos: list, d: int, t: int, comm: str) -> tuple[list, int]:
@@ -192,6 +205,23 @@ class ShardedCodec:
                 part = np.ascontiguousarray(self.y[idx, t * self.h_t:(t + 1) * self.h_t])
                 self._frames_dev[d][t] = torch.from_numpy(part).to(self.mesh.devices[d, t])
 
+    def _inter_tiles(self, d: int, curs: list, fifos: list) -> list:
+        """One inter frame on data row ``d``: each tile's step against its
+        reference bands.  Fast ME reads whole frames and solves the frame's
+        chain over the row's tiles first (``fast_chain``), warm-started from
+        the row's last inter frame; each tile then confirms at its MVPs."""
+        engines = self._tiles[d]
+        comm = "all_gather" if self.fast else self.tile_comm
+        refs = [self._bands(fifos, d, t, comm) for t in range(self.ntile)]
+        planes = [e._planes(bands, False) for e, (bands, _) in zip(engines, refs)]
+        mvps = [None] * self.ntile
+        if self.fast:
+            mvps, passes = fast_chain(engines, curs, planes, self._g_carry[d])
+            self.fast_me_passes.append(passes)
+            self._g_carry[d] = mvps
+        return [e._inter_step(c, p, band_row0=b0, mvp=g)
+                for e, c, p, (_, b0), g in zip(engines, curs, planes, refs, mvps)]
+
     def _encode_gop_local(self, d: int, frames: range) -> list:
         """Encode one GOP on data row ``d``: the intra frame, then each inter
         frame against the tiles' reference FIFOs; the merged per-frame
@@ -205,10 +235,7 @@ class ShardedCodec:
             if k == 0:
                 tile_outs = [e._intra_step(c) for e, c in zip(engines, curs)]
             else:
-                tile_outs = []
-                for t, (e, c) in enumerate(zip(engines, curs)):
-                    bands, band_row0 = self._bands(fifos, d, t, self.tile_comm)
-                    tile_outs.append(e._inter_step(c, bands, False, band_row0=band_row0))
+                tile_outs = self._inter_tiles(d, curs, fifos)
             outs.append(self._merge(tile_outs, curs))
             for fifo, o in zip(fifos, tile_outs):  # after every tile's step: the halos are the last frame's
                 fifo_push(fifo, o["recon"], self.cfg.n_ref_frames)
@@ -221,6 +248,8 @@ class ShardedCodec:
         to keep its compiled shapes and drops the padding's outputs."""
         n, gl = self.cfg.frames, self.gl
         per_frame = []
+        self.fast_me_passes = []
+        self._g_carry = [[None] * self.ntile for _ in range(self.ndata)]
         for g in range(math.ceil(n / gl)):
             per_frame += self._encode_gop_local(g % self.ndata, range(g * gl, min(n, (g + 1) * gl)))
         return per_frame
@@ -235,8 +264,11 @@ class ShardedCodec:
         if self._frames_dev is None:
             self._stage_frames()
         ftypes = [0 if i % self.gl == 0 else 1 for i in range(self.cfg.frames)]
-        return build_package(self.cfg, self._run_scan_batches(), ftypes,
-                             "arrays" if fetch == "full" and not package else fetch)
+        pkg = build_package(self.cfg, self._run_scan_batches(), ftypes,
+                            "arrays" if fetch == "full" and not package else fetch)
+        if self.fast:
+            pkg["fast_me_passes"] = list(self.fast_me_passes)
+        return pkg
 
     # ------------------------------------------------------------ decode
     def _decode_comm(self, mv_all: np.ndarray, smv_all: np.ndarray) -> str:
@@ -274,7 +306,7 @@ class ShardedCodec:
                 else:
                     bands, band_row0 = self._bands(fifos, d, t, comm)
                     pf, pq = e._fetch(mv, smv, e._planes(bands, False), band_row0)
-                    f = e._recon_inter(pf, pq, split, qf, qq)
+                    f = e._recon_inter(pf, pq, split, qf, qq)  # the table QPs: the mesh refuses rate control
                 tiles.append(f)
             for fifo, f in zip(fifos, tiles):
                 if intra:
@@ -283,17 +315,25 @@ class ShardedCodec:
             out.append(_all_gather(tiles, self.home))
         return out
 
+    def gop_regular(self, frame_types) -> bool:
+        """Whether a stream's GOPs are the mesh's: every frame i with
+        i % intra_dur == 0 intra.  Only such a stream shards over the "data"
+        axis; one whose intra frames fall elsewhere (another intra_dur,
+        scene-change promotion) decodes on one device."""
+        return all(int(ft) == 0 for ft in frame_types[::self.gl])
+
     def decode(self, frame_types, residuals_per_frame, qp_rows_per_frame, mvs_per_frame) -> list:
         """Sharded decode of list- or array-form interchange (the bitstream
         readers' output) into a list of (h, w) uint8 tensors on the mesh's
-        first device.  Every GOP must open intra (frame i % intra_dur == 0):
-        the "data" axis relies on GOP independence."""
+        first device.  Every GOP must open intra (``gop_regular``): the
+        "data" axis relies on GOP independence."""
         gl = self.gl
-        for i, ft in enumerate(frame_types):
-            if i % gl == 0 and int(ft) != 0:
-                raise ValueError(f"frame {i} has type {ft} but every GOP must open intra (i % intra_dur == 0): "
-                                 "the sharded decoder relies on GOP independence")
-        mv_all, smv_all, split_all, pay_all = pack_stream(self.cfg, frame_types, residuals_per_frame, mvs_per_frame)
+        if not self.gop_regular(frame_types):
+            i = next(i for i in range(0, len(frame_types), gl) if int(frame_types[i]) != 0)
+            raise ValueError(f"frame {i} has type {frame_types[i]} but every GOP must open intra "
+                             "(i % intra_dur == 0): the sharded decoder relies on GOP independence")
+        mv_all, smv_all, split_all, pay_all, _ = pack_stream(self.cfg, frame_types, residuals_per_frame,
+                                                             mvs_per_frame)
         comm = self._decode_comm(mv_all, smv_all)
         packed = (mv_all, smv_all if self.cfg.vbs_enable else None, split_all, pay_all)
         n = len(frame_types)

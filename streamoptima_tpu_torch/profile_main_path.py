@@ -1,7 +1,7 @@
 """Where the 720p main path's time goes on one CUDA card.
 
     python3 -m streamoptima_tpu_torch.profile_main_path [--frames 16] [--reps 20] [--vbs] [--fme] [--nref N]
-                                                         [--fast] [--mesh SHARDS]
+                                                         [--fast] [--mesh SHARDS] [--rc] [--two-pass]
 
 Runs the ``chip_smoke.py`` configuration (720p IPPP, bs=16, sr=8, qp=4,
 intra_dur=8, one reference, whole-pel full search) with the tools the flags
@@ -27,7 +27,14 @@ to N - 1: the reference FIFO the encode holds there, full.
 ``--mesh SHARDS`` times and profiles the encode and the decode on a mesh of
 that many shards of the card (``make_mesh(cfg, devices=[cuda] * SHARDS)``;
 6 is ``chip_smoke.py``'s data 2 x tile 3) in place of the four single-device
-runs: ``--mesh 6`` is ``[mesh]``, ``--mesh 6 --vbs --fme`` ``[mesh-vbs-fme]``.
+runs: ``--mesh 6`` is ``[mesh]``, ``--mesh 6 --vbs --fme`` ``[mesh-vbs-fme]``,
+``--mesh 6 --fast --vbs --fme`` ``[mesh-fast-vbs-fme]`` (it also prints the
+mesh's passes per inter frame).
+
+``--rc`` adds per-row rate control at ``benchmarks/sweep.py``'s settings
+(``720p_rc_row_qp``: its tables, 8 mbps, 30 fps), ``--two-pass`` two-pass
+rate control on top (``720p_two_pass``); the decode reads the encode's row
+QPs.
 
 Writes nothing but standard output.  Needs a CUDA card.
 """
@@ -87,6 +94,8 @@ def main() -> None:
     ap.add_argument("--nref", type=int, default=1, help="reference frames (1 to 8)")
     ap.add_argument("--fast", action="store_true", help="fast ME at sr=16 instead of the full search at sr=8")
     ap.add_argument("--mesh", type=int, default=0, help="encode and decode on a mesh of this many shards of the card")
+    ap.add_argument("--rc", action="store_true", help="per-row rate control at benchmarks/sweep.py's settings")
+    ap.add_argument("--two-pass", action="store_true", help="two-pass rate control (implies --rc)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path: no CUDA card (torch.cuda.is_available() is False)")
@@ -95,16 +104,23 @@ def main() -> None:
     print(f"[device] {smi} | torch {torch.__version__} | cuda {torch.version.cuda}")
 
     n = args.frames
+    rc = {}
+    if args.rc or args.two_pass:
+        rc = {"rc_flag": 1, "target_br": "8 mbps", "frame_rate": 30, "two_pass": args.two_pass,
+              "qp_rate_tables": [[2e5, 1.2e5, 8e4, 5e4, 3e4, 2e4, 1.2e4, 8e3, 5e3, 3e3, 2e3, 1.2e3]] * 2}
     cfg = CodecConfig(height=720, width=1280, frames=n, block_size=16, search_range=16 if args.fast else 8, qp=4,
                       intra_dur=8, lam=0.015, vbs_enable=args.vbs, fme_enable=args.fme, fast_me=args.fast,
-                      n_ref_frames=args.nref)
-    tools = " + ".join(t for t, on in (("VBS", args.vbs), ("half-pel FME", args.fme)) if on) or "whole-pel"
+                      n_ref_frames=args.nref, **rc)
+    tools = " + ".join(t for t, on in (("VBS", args.vbs), ("half-pel FME", args.fme), ("rate control", bool(rc)),
+                                       ("two-pass", args.two_pass)) if on) or "whole-pel"
     print(f"[config] 720p, {n} frames, sr={cfg.search_range}, {tools}, {'fast ME' if args.fast else 'full search'}, "
           f"{args.nref} reference frame(s)")
     clip = synthetic_clip(720, 1280, n)
     codec = TorchCodec(cfg, clip, device=torch.device("cuda"))
     pkg = codec.encode(package=False)
-    fts = pkg["frame_type_seq"]
+    fts, qps = pkg["frame_type_seq"], pkg["Qp_per_row_per_frame"]
+    if rc:
+        print(f"[rc] row QPs of the encode's frames 0 and 1: {qps[:2]}")
     pairs = [frame_arrays_of(o, ft) for o, ft in zip(pkg["per_frame"], fts)]
     mvs, res = [m for m, _ in pairs], [r for _, r in pairs]
     y0, y1 = codec._y_dev[0], codec._y_dev[args.nref]
@@ -112,22 +128,24 @@ def main() -> None:
     g0 = None
     if args.fast:
         print(f"[fast ME] rowscan_pass passes per inter frame of the encode: {pkg['fast_me_passes']}")
-        g0 = codec._inter_step(y1, refs, False)["g_next"]
+        g0 = codec._inter_step(y1, codec._planes(refs, False))["g_next"]
 
     steps = (("intra step (1 frame)", lambda: codec._intra_step(y0), args.reps),
-             (f"inter step (1 frame, {args.nref} reference(s))", lambda: codec._inter_step(y1, refs, False, g0),
-              args.reps),
+             (f"inter step (1 frame, {args.nref} reference(s))",
+              lambda: codec._inter_step(y1, codec._planes(refs, False), g0), args.reps),
              (f"encode, {n} frames", lambda: codec.encode(package=False), max(args.reps // 2, 1)),
-             (f"device decode, {n} frames", lambda: codec.decode(fts, res, [[]] * n, mvs), max(args.reps // 2, 1)))
+             (f"device decode, {n} frames", lambda: codec.decode(fts, res, qps, mvs), max(args.reps // 2, 1)))
     if args.mesh:
         from streamoptima_tpu_torch.parallel import ShardedCodec, make_mesh
 
         mesh = make_mesh(cfg, devices=[torch.device("cuda")] * args.mesh)
         sc = ShardedCodec(cfg, mesh, clip)
         print(f"[mesh] {args.mesh} shards of the card: data {mesh.devices.shape[0]} x tile {mesh.devices.shape[1]}")
+        if args.fast:
+            print(f"[mesh] rowscan_pass passes per inter frame of the mesh encode (each one launch per tile): "
+                  f"{sc.encode(package=False)['fast_me_passes']}")
         steps = ((f"mesh encode, {n} frames", lambda: sc.encode(package=False), max(args.reps // 2, 1)),
-                 (f"mesh device decode, {n} frames", lambda: sc.decode(fts, res, [[]] * n, mvs),
-                  max(args.reps // 2, 1)))
+                 (f"mesh device decode, {n} frames", lambda: sc.decode(fts, res, qps, mvs), max(args.reps // 2, 1)))
     medians = {}
     for name, fn, reps in steps:
         med, q1, q3 = _wall_ms(fn, reps)

@@ -1,8 +1,8 @@
 """PyTorch port, its own copies of the JAX package's JAX-free pieces.
 
 The port keeps copies of the configuration, text bitstream, host serializer,
-video I/O, synthetic clips and host SSIM so that it never imports the JAX
-package.  Each copy is held here against its original on the same seeded
+video I/O, synthetic clips, host SSIM and the rate control's host functions
+so that it never imports the JAX package.  Each copy is held here against its original on the same seeded
 inputs: exact equality everywhere (the host SSIM runs the same float64
 numpy operations in the same order).
 """
@@ -12,12 +12,14 @@ import pytest
 from streamoptima_tpu import bitstream as JBS
 from streamoptima_tpu import config as JC
 from streamoptima_tpu import metrics as JM
+from streamoptima_tpu import rc as JRC
 from streamoptima_tpu.core import zigzag as JZ
 from streamoptima_tpu.io.video import VideoManager as JVM
 from streamoptima_tpu.utils import synthetic_clip as jax_synthetic_clip
 from streamoptima_tpu_torch import bitstream as TBS
 from streamoptima_tpu_torch import config as TC
 from streamoptima_tpu_torch import metrics as TM
+from streamoptima_tpu_torch import rc as TRC
 from streamoptima_tpu_torch import synthetic_clip
 from streamoptima_tpu_torch.core import zigzag as TZ
 from streamoptima_tpu_torch.io.video import VideoManager as TVM
@@ -58,7 +60,7 @@ def test_rle_blocks_match_jax_package(n, numpy_repr):
 def test_config_matches_jax_package(kw):
     t, j = TC.CodecConfig(**kw), JC.CodecConfig(**kw)
     for name in ("lam", "sub_block_size", "blocks_per_row", "block_rows", "n_blocks", "target_bitrate",
-                 "rc_active", "bitstream_numpy_repr", "compat"):
+                 "bitrate_per_row", "rc_active", "bitstream_numpy_repr", "compat"):
         assert getattr(t, name) == getattr(j, name), name
     if not t.compat:  # the compat engine's 288x352 intra canvas is not ported: the port refuses compat
         assert t.intra_canvas == j.intra_canvas
@@ -126,3 +128,55 @@ def test_roi_header_and_y_plane_io_match_jax_package(tmp_path):
     yuv.tofile(tmp_path / "c.yuv")
     np.testing.assert_array_equal(TVM.read_yuv420_y(tmp_path / "c.yuv", 32, 48, 3),
                                   JVM.read_yuv420_y(tmp_path / "c.yuv", 32, 48, 3))
+
+
+RC_TABLES = {
+    "sweep": [[2e5, 1.2e5, 8e4, 5e4, 3e4, 2e4, 1.2e4, 8e3, 5e3, 3e3, 2e3, 1.2e3]] * 2,
+    "two_pass": [[9000, 4000, 2000, 1100, 800, 600, 450, 350, 280, 230, 200, 180],
+                 [8000, 3500, 1800, 1000, 700, 500, 400, 300, 250, 210, 190, 170]],
+}
+
+
+@pytest.mark.parametrize("tables", list(RC_TABLES))
+@pytest.mark.parametrize("target_br", ["20 kbps", "150 kbps", "8 mbps", "200 mbps"])
+@pytest.mark.parametrize("engine", ["jax", "compat"])
+def test_rc_host_functions_match_jax_package(tables, target_br, engine):
+    """``rc``'s numpy functions on a grid of budgets and tables: the row QP
+    sequences of both frame types, the first-pass shares, the two-pass
+    budgets and QPs, and ``pick_qp``.  Budgets below every table entry take
+    the largest QP on the native engine (the clamp in place of the
+    reference's crash, bug B6) and raise under compat, in both packages."""
+    kw = dict(height=720, width=1280, frames=2, rc_flag=1, target_br=target_br, qp_rate_tables=RC_TABLES[tables],
+              engine=engine)
+    t, j = TC.CodecConfig(**kw), JC.CodecConfig(**kw)
+    low = t.bitrate_per_row < min(RC_TABLES[tables][0])
+    for ftype in (0, 1):
+        if low and engine == "compat":
+            with pytest.raises(ValueError, match="B6"):
+                TRC.row_qp_sequence(t, ftype)
+            with pytest.raises(ValueError, match="B6"):
+                JRC.row_qp_sequence(j, ftype)
+            continue
+        seq = TRC.row_qp_sequence(t, ftype)
+        assert seq == JRC.row_qp_sequence(j, ftype)
+        if low:
+            assert seq == [11] * t.block_rows
+    rng = np.random.default_rng(len(target_br))
+    for row_bits in (rng.integers(0, 5000, 45), np.zeros(45, np.int64), np.r_[np.zeros(44), 7]):
+        cum = np.cumsum(row_bits)
+        np.testing.assert_array_equal(TRC.row_wise_stats(cum), JRC.row_wise_stats(cum))
+        stats = TRC.row_wise_stats(cum)
+        np.testing.assert_array_equal(TRC.two_pass_row_budgets(t, stats), JRC.two_pass_row_budgets(j, stats))
+        for ftype in (0, 1):
+            fallback = np.full(45, 4, np.int32)
+            np.testing.assert_array_equal(TRC.second_pass_row_qps(t, row_bits, ftype, fallback),
+                                          JRC.second_pass_row_qps(j, row_bits, ftype, fallback))
+    budgets = np.r_[0.0, 1.0, RC_TABLES[tables][1], 1e9]
+    assert TRC.row_qp_from_budgets(t, budgets, 1) == JRC.row_qp_from_budgets(j, budgets, 1)
+    table = RC_TABLES[tables][0]
+    for b in budgets:
+        if b > min(table):
+            assert TRC.pick_qp(table, b) == JRC.pick_qp(table, b)
+        else:
+            with pytest.raises(ValueError, match="B6"):
+                TRC.pick_qp(table, b)

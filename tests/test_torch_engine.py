@@ -25,6 +25,7 @@ from streamoptima_tpu.utils import synthetic_clip
 from streamoptima_tpu_torch import engine as TE
 from streamoptima_tpu_torch.codec import VideoCodec
 from streamoptima_tpu_torch.engine import TorchCodec
+from streamoptima_tpu_torch.parallel import ShardedCodec, make_mesh
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
@@ -137,22 +138,32 @@ def test_list_package_roundtrip_and_files(encoded, tmp_path):
     ({"parallel_mode": 2, "vbs_enable": True, "fme_enable": True}, "parallel_mode"),
 ])
 def test_unported_features_raise_by_name(kw, feature):
-    """RC and ROI raise by name.  Every other feature of the list is ported
-    now: it constructs, and beside an ROI map the ROI map is named."""
-    if feature not in ("rc_flag", "roi_qp_map"):
-        TorchCodec(_cfg(8, **kw), device="cpu")
-        VideoCodec(_cfg(8, **kw), device="cpu")
-        kw, feature = dict(kw, roi_qp_map=np.zeros(24, np.int32)), "roi_qp_map"
-    with pytest.raises(NotImplementedError, match=feature):
-        TorchCodec(_cfg(8, **kw), device="cpu")
-    with pytest.raises(NotImplementedError, match=feature):
-        VideoCodec(_cfg(8, **kw), device="cpu")
+    """Every feature of the list is ported to one device now, rate control
+    and the ROI map included: each constructs there, alone and beside an ROI
+    map.  The mesh refuses rate control and the ROI map by name (they come
+    with its rate-control slice), and the parallel modes with ValueError, as
+    the JAX mesh does."""
+    roi = {} if "roi_qp_map" in kw else {"roi_qp_map": np.zeros(24, np.int32)}
+    for k in (kw, dict(kw, **roi)):
+        TorchCodec(_cfg(8, **k), device="cpu")
+        VideoCodec(_cfg(8, **k), device="cpu")
+    cfg = _cfg(8, **kw, **roi)
+    mesh = make_mesh(cfg, devices=["cpu"] * 2)
+    err, name = ((ValueError, "parallel_mode") if "parallel_mode" in kw
+                 else (NotImplementedError, "rc_flag" if feature == "rc_flag" else "roi_qp_map"))
+    with pytest.raises(err, match=name):
+        ShardedCodec(cfg, mesh)
+    with pytest.raises(err, match=name):
+        VideoCodec(cfg, mesh=mesh)
 
 
 def test_two_pass_and_compat_refused():
+    """Two-pass runs on one device now; the mesh refuses it by name, and
+    every engine refuses ``engine='compat'``."""
     cfg = _cfg(8, rc_flag=1, target_br="1 mbps", qp_rate_tables=[[1.0] * 12] * 2, two_pass=True)
-    with pytest.raises(NotImplementedError):
-        TorchCodec(cfg, device="cpu")
+    TorchCodec(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="two_pass"):
+        ShardedCodec(cfg, make_mesh(cfg, devices=["cpu"] * 2))
     with pytest.raises(ValueError, match="compat"):
         TorchCodec(_cfg(8, engine="compat"), device="cpu")
 
@@ -177,7 +188,8 @@ def test_port_runs_without_importing_jax(tmp_path):
     """A fresh interpreter (not a fork of this JAX process) drives the port's
     encode -> text bitstream -> decode, whole-pel and VBS + FME, full search
     and fast ME, VBS alone with two references and intra mode 1, fast ME
-    with FME alone under parallel mode 2, and VBS + FME on a (2, 2) CPU mesh
+    with FME alone under parallel mode 2, rate control with promotion,
+    two-pass and an ROI map, and VBS + FME and fast ME on a (2, 2) CPU mesh
     (``streamoptima_tpu_torch.parallel``), and never imports jax or the JAX
     package."""
     code = textwrap.dedent(f"""
@@ -189,7 +201,10 @@ def test_port_runs_without_importing_jax(tmp_path):
         vf = {{"vbs_enable": True, "fme_enable": True}}
         tools = {{"vbs_enable": True, "n_ref_frames": 2, "intra_mode": 1}}
         pm2 = {{"fast_me": True, "fme_enable": True, "parallel_mode": 2}}
-        for extra in ({{}}, vf, {{"fast_me": True}}, {{"fast_me": True, **vf}}, tools, pm2):
+        tables = [[9000, 4000, 2000, 1100, 800, 600, 450, 350, 280, 230, 200, 180]] * 2
+        rc = {{"rc_flag": 2, "intra_thresh": 300, "target_br": "100 kbps", "qp_rate_tables": tables,
+              "two_pass": True, "roi_qp_map": np.arange(6) % 3 - 1}}
+        for extra in ({{}}, vf, {{"fast_me": True}}, {{"fast_me": True, **vf}}, tools, pm2, rc):
             cfg = CodecConfig(height=32, width=48, frames=3, search_range=4, qp=4, intra_dur=2, **extra)
             v = VideoCodec(cfg, synthetic_clip(32, 48, 3), device="cpu")
             pkg = v.encode(package=False)
@@ -198,14 +213,15 @@ def test_port_runs_without_importing_jax(tmp_path):
                                                                  r"{tmp_path / 'res.txt'}")
             assert np.array_equal(dec, pkg["reconstructed frames"])
         from streamoptima_tpu_torch.parallel import make_mesh
-        cfg = CodecConfig(height=32, width=48, frames=3, search_range=4, qp=4, intra_dur=2, **vf)
-        mesh = make_mesh(cfg, devices=["cpu"] * 4)
-        assert mesh.devices.shape == (2, 2)
-        v = VideoCodec(cfg, synthetic_clip(32, 48, 3), mesh=mesh)
-        pkg = v.encode(package=False)
-        v.transmit_bitstream(r"{tmp_path / 'mv.txt'}", r"{tmp_path / 'res.txt'}")
-        dec = VideoCodec(cfg, mesh=mesh).decode_bitstream(r"{tmp_path / 'mv.txt'}", r"{tmp_path / 'res.txt'}")
-        assert np.array_equal(dec, pkg["reconstructed frames"])
+        for extra in (vf, {{"fast_me": True, **vf}}):
+            cfg = CodecConfig(height=32, width=48, frames=3, search_range=4, qp=4, intra_dur=2, **extra)
+            mesh = make_mesh(cfg, devices=["cpu"] * 4)
+            assert mesh.devices.shape == (2, 2)
+            v = VideoCodec(cfg, synthetic_clip(32, 48, 3), mesh=mesh)
+            pkg = v.encode(package=False)
+            v.transmit_bitstream(r"{tmp_path / 'mv.txt'}", r"{tmp_path / 'res.txt'}")
+            dec = VideoCodec(cfg, mesh=mesh).decode_bitstream(r"{tmp_path / 'mv.txt'}", r"{tmp_path / 'res.txt'}")
+            assert np.array_equal(dec, pkg["reconstructed frames"])
         bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "streamoptima_tpu"))
         assert not bad, bad
         print("OK")

@@ -23,6 +23,7 @@ from streamoptima_tpu_torch import engine as TE
 from streamoptima_tpu_torch.codec import VideoCodec
 from streamoptima_tpu_torch.core import kernels as K
 from streamoptima_tpu_torch.engine import TorchCodec, check_slice
+from streamoptima_tpu_torch.parallel import ShardedCodec, make_mesh
 
 torch.set_num_threads(1)
 BASE = dict(height=64, width=96, frames=6, search_range=16, qp=4, intra_dur=4, lam=0.015, fast_me=True)
@@ -139,26 +140,34 @@ def test_fast_me_list_package_roundtrip(encoded, tmp_path):
 
 @pytest.mark.parametrize("one", ["vbs_enable", "fme_enable"])
 def test_fast_me_with_one_of_vbs_fme_refused_by_name(one):
-    """Fast ME with exactly one of VBS and FME is ported now (its parity with
-    JaxCodec is ``tests/test_torch_tools.py``'s); beside rate control it is
-    refused, naming rate control."""
+    """Fast ME with exactly one of VBS and FME is ported (its parity with
+    JaxCodec is ``tests/test_torch_tools.py``'s), on one device and on the
+    mesh, and so is rate control on one device; the mesh refuses rate
+    control by name."""
     cfg = CodecConfig(**BASE, **{one: True})
     check_slice(cfg)
     VideoCodec(cfg, device="cpu")
+    VideoCodec(cfg, mesh=make_mesh(cfg, devices=["cpu"] * 2))
     rc = CodecConfig(**BASE, **{one: True}, rc_flag=1, target_br="1 mbps", qp_rate_tables=[[1.0] * 12] * 2)
+    check_slice(rc)
+    VideoCodec(rc, device="cpu")
     with pytest.raises(NotImplementedError, match="rc_flag"):
-        check_slice(rc)
+        ShardedCodec(rc, make_mesh(rc, devices=["cpu"] * 2))
     with pytest.raises(NotImplementedError, match="rc_flag"):
-        VideoCodec(rc, device="cpu")
+        VideoCodec(rc, mesh=make_mesh(rc, devices=["cpu"] * 2))
 
 
 @pytest.mark.parametrize("kw,feature", [({"parallel_mode": 2}, "parallel_mode"), ({"n_ref_frames": 2}, "n_ref_frames"),
                                         ({"intra_mode": 1}, "intra_mode=1")])
 def test_fast_me_outside_the_slice_still_refused_by_name(kw, feature):
-    """``feature`` is ported now with every fast-ME mode; an ROI map beside
-    it is refused by name."""
+    """``feature`` is ported with every fast-ME mode, and so is an ROI map
+    beside it, on one device.  The mesh refuses the ROI map by name, and
+    parallel modes with ValueError, as the JAX mesh does."""
     for mode in MODES.values():
-        TorchCodec(CodecConfig(**mode, **kw), device="cpu")
         roi = np.zeros(mode["height"] * mode["width"] // 256, np.int32)
-        with pytest.raises(NotImplementedError, match="roi_qp_map"):
-            TorchCodec(CodecConfig(**mode, **kw, roi_qp_map=roi), device="cpu")
+        TorchCodec(CodecConfig(**mode, **kw), device="cpu")
+        cfg = CodecConfig(**mode, **kw, roi_qp_map=roi)
+        TorchCodec(cfg, device="cpu")
+        err, name = (ValueError, "parallel_mode") if "parallel_mode" in kw else (NotImplementedError, "roi_qp_map")
+        with pytest.raises(err, match=name):
+            ShardedCodec(cfg, make_mesh(cfg, devices=["cpu"] * 2))

@@ -479,3 +479,106 @@ def test_mesh_on_card_matches_cpu_and_never_calls_a_plain_version(cuda, extra, m
     pairs = [frame_arrays_of(o, ft) for o, ft in zip(a["per_frame"], fts)]
     dec = sc.decode(fts, [r for _, r in pairs], [[]] * len(fts), [m for m, _ in pairs])
     np.testing.assert_array_equal(torch.stack(dec).cpu().numpy(), b["reconstructed frames"])
+
+
+# ------------------------------------------------ fast ME on a mesh tile
+@pytest.mark.parametrize("fme", [False, True])
+@pytest.mark.parametrize("t", [0, 1, 3], ids=["top", "middle", "bottom"])
+def test_tile_rowscan_pass_kernel_matches_plain(cuda, t, fme):
+    """``rowscan_pass`` on tile ``t`` of a tile-4 split: the tile's rows of
+    cur, the whole frame's planes, seeds from zero, random (reaching into
+    the tiles above and below, odd, far outside) and one pass on."""
+    rng = np.random.default_rng(30 + t)
+    h, w, nref, h_t = 128, 96, 2, 32
+    refs = torch.from_numpy(rng.integers(0, 256, (nref, h, w), dtype=np.uint8)).to(cuda)
+    planes = M.fme_parity_planes(refs, True) if fme else refs
+    cur = torch.from_numpy(rng.integers(0, 256, (h_t, w), dtype=np.uint8)).to(cuda)
+    seeds = rng.integers(-9, 10, (2, 3)).astype(np.int32)
+    seeds[:, 2] = rng.integers(0, nref, 2)
+    seeds[0, :2], seeds[1, :2] = (-3, -h_t - 5), (5001, 2 * h_t + 1)
+    kw = {"g_row0": t * h_t, "grid": (h, w)}
+    for s in (np.zeros((2, 3), np.int32), seeds):
+        s = torch.from_numpy(s).to(cuda)
+        n0 = K.rowscan_pass.launches
+        got = K.rowscan_pass(cur, planes, s, 16, fme, **kw)
+        torch.cuda.synchronize()
+        assert K.rowscan_pass.launches == n0 + 1
+        assert torch.equal(got, K.rowscan_pass_plain(cur, planes, s, 16, fme, **kw))
+        nxt = torch.cat([s[:1], got[:-1, -1]]).contiguous()
+        assert torch.equal(K.rowscan_pass(cur, planes, nxt, 16, fme, **kw),
+                           K.rowscan_pass_plain(cur, planes, nxt, 16, fme, **kw))
+
+
+def _refuse_plain(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for attr in dir(K):
+        if attr.endswith("_plain"):
+            monkeypatch.setattr(K, attr, refuse)
+
+
+@pytest.mark.parametrize("extra", [{}, {"vbs_enable": True, "fme_enable": True}], ids=["whole_pel", "vbs_fme"])
+def test_fast_mesh_on_card_matches_cpu_and_never_calls_a_plain_version(cuda, extra, monkeypatch):
+    """Fast ME on a (2, 2) mesh of the card against the CPU port's
+    single-device encode, every ``*_plain`` patched to raise; ``rowscan_pass``
+    launches two per pass (one per tile); the sharded decode equals the
+    reconstructions."""
+    from streamoptima_tpu_torch.engine import frame_arrays_of
+    from streamoptima_tpu_torch.parallel import ShardedCodec, make_mesh
+
+    cfg = CodecConfig(height=64, width=96, frames=7, search_range=4, qp=4, intra_dur=3, lam=0.015, fast_me=True,
+                      **extra)
+    clip = synthetic_clip(64, 96, 7, seed=3)
+    b = TorchCodec(cfg, clip, device="cpu").encode(package=False)
+    _refuse_plain(monkeypatch)
+    mesh = make_mesh(cfg, devices=[cuda] * 4, tile=2)
+    assert mesh.devices.shape == (2, 2)
+    sc = ShardedCodec(cfg, mesh, clip)
+    n0 = K.rowscan_pass.launches
+    a = sc.encode(package=False)
+    assert K.rowscan_pass.launches - n0 == 2 * sum(a["fast_me_passes"])
+    np.testing.assert_array_equal(a["reconstructed frames"], b["reconstructed frames"])
+    for fa, fb in zip(a["per_frame"], b["per_frame"]):
+        for k in ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "row_bits"):
+            assert torch.equal(fa[k].cpu(), fb[k]), k
+    fts = a["frame_type_seq"]
+    pairs = [frame_arrays_of(o, ft) for o, ft in zip(a["per_frame"], fts)]
+    dec = sc.decode(fts, [r for _, r in pairs], [[]] * len(fts), [m for m, _ in pairs])
+    np.testing.assert_array_equal(torch.stack(dec).cpu().numpy(), b["reconstructed frames"])
+
+
+RC_TABLES = [[9000, 4000, 2000, 1100, 800, 600, 450, 350, 280, 230, 200, 180],
+             [8000, 3500, 1800, 1000, 700, 500, 400, 300, 250, 210, 190, 170]]
+RC_CASES = {
+    "rc": {"rc_flag": 1},
+    "promotion": {"rc_flag": 2, "intra_thresh": 1400},
+    "two_pass": {"rc_flag": 1, "two_pass": True, "vbs_enable": True, "fme_enable": True},
+    "roi_fast": {"roi_qp_map": np.arange(24) % 5 - 2, "fast_me": True, "vbs_enable": True},
+}
+
+
+@pytest.mark.parametrize("name", list(RC_CASES))
+def test_rate_control_on_card_matches_cpu(cuda, name, monkeypatch):
+    """Rate control, promotion, two-pass and an ROI map on the card against
+    the CPU port, every ``*_plain`` patched to raise; the decode of the
+    package (row QPs from the stream) equals the reconstructions."""
+    from streamoptima_tpu_torch.engine import frame_arrays_of
+
+    kw = dict(height=64, width=96, frames=6, search_range=4, qp=4, intra_dur=4, lam=0.015, target_br="60 kbps",
+              qp_rate_tables=RC_TABLES, **RC_CASES[name])
+    clip = synthetic_clip(64, 96, 6, seed=5)
+    b = TorchCodec(CodecConfig(**kw), clip, device="cpu").encode(package=False)
+    _refuse_plain(monkeypatch)
+    codec = TorchCodec(CodecConfig(**kw), clip, device=cuda)
+    a = codec.encode(package=False)
+    for k in ("frame_type_seq", "Qp_per_row_per_frame", "residual size per frame"):
+        assert a[k] == b[k], k
+    np.testing.assert_array_equal(a["reconstructed frames"], b["reconstructed frames"])
+    for fa, fb in zip(a["per_frame"], b["per_frame"]):
+        for k in ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "row_bits"):
+            assert torch.equal(fa[k].cpu(), fb[k]), k
+    fts = a["frame_type_seq"]
+    pairs = [frame_arrays_of(o, ft) for o, ft in zip(a["per_frame"], fts)]
+    dec = codec.decode(fts, [r for _, r in pairs], a["Qp_per_row_per_frame"], [m for m, _ in pairs])
+    np.testing.assert_array_equal(torch.stack(dec).cpu().numpy(), b["reconstructed frames"])

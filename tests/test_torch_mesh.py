@@ -337,11 +337,19 @@ def test_mesh_intra_mode1_on_the_data_axis():
     (dict(roi_qp_map=np.zeros(16, np.int32)), "roi_qp_map"),
 ])
 def test_mesh_refuses_later_slices_by_name(kw, name):
+    """Rate control, promotion, two-pass and the ROI map are refused by name
+    (the mesh's rate-control slice); fast ME is ported: the mesh constructs
+    and encodes it as one device does."""
     cfg = CodecConfig(height=64, width=64, frames=4, search_range=4, **kw)
-    with pytest.raises(NotImplementedError, match=name):
-        ShardedCodec(cfg, make_mesh(cfg, devices=CPU8))
-    with pytest.raises(NotImplementedError, match=name):
-        VideoCodec(cfg, mesh=make_mesh(cfg, devices=CPU8))
+    if name == "fast_me":
+        clip = synthetic_clip(h=64, w=64, frames=4, motion=2)
+        pkg = VideoCodec(cfg, clip, mesh=make_mesh(cfg, devices=CPU8)).encode(compute_ssim=False)
+        _assert_same_as_torch_codec(pkg, TorchCodec(cfg, clip, device="cpu").encode())
+    else:
+        with pytest.raises(NotImplementedError, match=name):
+            ShardedCodec(cfg, make_mesh(cfg, devices=CPU8))
+        with pytest.raises(NotImplementedError, match=name):
+            VideoCodec(cfg, mesh=make_mesh(cfg, devices=CPU8))
     for bad, err in ((dict(parallel_mode=1), ValueError), (dict(engine="compat"), ValueError)):
         cfg = CodecConfig(height=64, width=64, frames=4, search_range=4, **bad)
         with pytest.raises(err):
@@ -349,10 +357,12 @@ def test_mesh_refuses_later_slices_by_name(kw, name):
 
 
 def test_a_tile_engine_refuses_fast_me_and_parallel_modes():
+    """A tile engine codes fast ME (the mesh solves the chain over its
+    tiles); parallel modes stay refused on a tile."""
     TorchCodec(CodecConfig(**KW), device="cpu", rows=(16, 32))
-    for kw in (dict(fast_me=True), dict(parallel_mode=3)):
-        with pytest.raises(ValueError, match="tile"):
-            TorchCodec(CodecConfig(**KW, **kw), device="cpu", rows=(16, 32))
+    TorchCodec(CodecConfig(**KW, fast_me=True), device="cpu", rows=(16, 32))
+    with pytest.raises(ValueError, match="tile"):
+        TorchCodec(CodecConfig(**KW, parallel_mode=3), device="cpu", rows=(16, 32))
 
 
 def test_facade_with_a_mesh_writes_and_reads_the_same_stream(tmp_path):

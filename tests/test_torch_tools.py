@@ -29,6 +29,7 @@ from streamoptima_tpu_torch.codec import VideoCodec
 from streamoptima_tpu_torch.core import kernels as K
 from streamoptima_tpu_torch.core import me as TME
 from streamoptima_tpu_torch.engine import TorchCodec, check_slice
+from streamoptima_tpu_torch.parallel import ShardedCodec, make_mesh
 
 torch.set_num_threads(1)
 BLOCK_KEYS = ("mv", "sad", "ok")
@@ -317,11 +318,15 @@ def test_tools_cross_decode_from_files(encoded):
 ])
 @pytest.mark.parametrize("tools", ["vbs", "nref3_fast_vbs_fme", "intra1_sr16_vbs", "pm2_fast"])
 def test_check_slice_refuses_rc_roi_two_pass_by_name(tools, kw, feature):
+    """Rate control, the ROI map and two-pass pass ``check_slice`` and
+    construct on one device beside every tool set; the mesh refuses them by
+    name, and parallel modes with ValueError, as the JAX mesh does."""
     cfg = CodecConfig(**BASE, **CASES[tools], **kw)
-    with pytest.raises(NotImplementedError, match=feature):
-        check_slice(cfg)
-    with pytest.raises(NotImplementedError, match=feature):
-        TorchCodec(cfg, device="cpu")
+    check_slice(cfg)
+    TorchCodec(cfg, device="cpu")
+    err, name = (ValueError, "parallel_mode") if "parallel_mode" in CASES[tools] else (NotImplementedError, feature)
+    with pytest.raises(err, match=name):
+        ShardedCodec(cfg, make_mesh(cfg, devices=["cpu"] * 2))
 
 
 def test_every_tool_combination_passes_check_slice():
