@@ -67,14 +67,20 @@ Before the paths, the band phase holds each search and fetch mode on the
 three tiles' halo bands (sr = 8, zero rows past the frame's edges) against
 its plain version, and times the three launches of one frame; the tile
 phase holds ``rowscan_pass`` on each tile's rows with the whole frame's
-planes (both modes; clip, black-vs-white and flat inputs; zero, random and
-converged seeds) and ``window_fetch`` at each tile's confirm origins against
+planes (both modes; clip, black-vs-white, flat and drift inputs; zero,
+random and converged seeds) and ``window_fetch`` at each tile's confirm origins against
 their plain versions, and times each tile's launch.  ``[reference]`` also
 holds rate control, promotion, two-pass and an ROI map, and fast ME on a
 (2, 2) mesh of the card, against the CPU port.
 
 Should the run outgrow its time, the 16-frame full-search paths are the ones
 to cut to 8 frames first.
+
+The kernel phase's inputs are the clip's frames 1 and 0, black against
+white, a flat all-tie pair, and a zero block against a ramp on which every
+fast-ME step drifts one step toward the bottom-right (so ``rowscan_pass``'s
+prefetched regions cross every plane edge); ``rowscan_pass`` also starts
+from seeds far outside the frame.
 
 Every comparison is exact (tolerance 0): the codec's arithmetic is integer.
 Prints one line per phase, then the kernels' JSON line, the card's name and
@@ -305,6 +311,16 @@ def _window_bytes_read(flat, by0, bx0, nwin: int) -> int:
     return int(torch.unique(got[got > 0]).numel())
 
 
+def _drift_ramp(h: int, w: int) -> np.ndarray:
+    """A reference whose SAD against an all-zero block falls toward the
+    bottom-right corner, so every fast-ME step moves its MVP one step that
+    way while it stays valid: the prefetched regions cross the plane edges.
+    Even values <= 126, so half-pel row sums never wrap and a half-pel
+    average lies strictly between two different neighbours."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    return (2 * np.minimum((h + w - xx - yy) // 32, 63)).astype(np.uint8)
+
+
 def _adversarial_mvs(rng, nb: int, bound: int) -> np.ndarray:
     mv = np.stack([rng.integers(-bound, bound + 1, nb), rng.integers(-bound, bound + 1, nb),
                    np.zeros(nb, int)], 1).astype(np.int32)
@@ -461,6 +477,7 @@ def main() -> None:
         "clip": (cur, ref),
         "black_vs_white": (torch.zeros_like(cur), torch.full_like(ref, 255)),
         "flat_ties": (torch.full_like(cur, 77), torch.full_like(ref, 77)),
+        "drift": (torch.zeros_like(cur), torch.from_numpy(_drift_ramp(H, W)).to(dev)[None].contiguous()),
     }
     err_a = 0
     for name, (c, r) in pairs.items():
@@ -597,6 +614,10 @@ def main() -> None:
                 _require(torch.equal(got, plain), f"rowscan_pass {mode} {name} {sname} seeds: differs from the plain "
                                                   f"version")
                 err_e = max(err_e, _max_err([(got, plain)]))
+                if name == "drift" and sname == "zero":  # the MVPs did drift, one step a column, over many columns
+                    steps = (plain[0, 1:, :2] - plain[0, :-1, :2]).abs()
+                    _require(int((steps == 1).all(dim=1).sum()) >= 20, f"rowscan_pass {mode}: the drift clip drifted "
+                                                                        f"{plain[0, :, :2].tolist()}")
         c, p = sets["clip"]
         ch = chain[fme]
         ch["err"] = err_e

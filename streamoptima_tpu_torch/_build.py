@@ -111,4 +111,6 @@ def library() -> ctypes.CDLL:
     lib.so_window_fetch.restype = i
     lib.so_rowscan_pass.argtypes = [p, p, p, i, i, i, i, i, i, i, p, p]
     lib.so_rowscan_pass.restype = i
+    lib.so_rowscan_pass_smem.argtypes = [i, i, i]  # nref, bs, fme
+    lib.so_rowscan_pass_smem.restype = i
     return lib

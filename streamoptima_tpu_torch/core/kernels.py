@@ -602,12 +602,11 @@ def rowscan_pass(cur: torch.Tensor, planes: torch.Tensor, seeds: torch.Tensor, b
         raise ValueError(f"rowscan_pass runs on cpu or cuda tensors, not {cur.device}")
     if cur.device.type == "cpu":
         return rowscan_pass_plain(cur, planes, seeds, bs, fme, g_row0=g_row0, grid=(H, w))
-    # shared memory without opt-in: the sums, the block, the plane regions
-    if (9 * nref + 4) * 4 + bs * bs + nref * (4 if fme else 1) * (bs + 2) ** 2 > 48 * 1024:
-        raise ValueError(f"bs={bs}, nref={nref}: the candidate regions exceed 48 KB of shared memory")
     from streamoptima_tpu_torch._build import library
 
     lib = library()
+    if lib.so_rowscan_pass_smem(nref, bs, int(fme)) == 0:
+        raise ValueError(f"bs={bs}, nref={nref}: the prefetched regions exceed a block's shared memory")
     mvs = torch.empty((h // bs, w // bs, 3), dtype=torch.int32, device=cur.device)
     with torch.cuda.device(cur.device):
         rc = lib.so_rowscan_pass(cur.data_ptr(), planes.data_ptr(), seeds.data_ptr(), nref, h, w, bs, int(fme),

@@ -1,6 +1,7 @@
 // Pieces shared by the full-search kernels (full_search.cu and
 // full_search_fme.cu): the packed (SAD, sec) key, its block-wide minimum,
-// the four quad SADs of one candidate, and the winner's write-back.
+// the four quad SADs of one candidate, and the winner's write-back; and by
+// full_search_fme.cu and rowscan_pass.cu: word staging and packed byte SADs.
 //
 // A key is SAD << 32 | sec with sec = ((l1 << 3 | ref) << 8 | dxi) << 8 | dyi,
 // so the lexicographic (SAD, sec) minimum of core/me.py is one unsigned min.
@@ -13,6 +14,8 @@
 namespace so_search {
 
 constexpr unsigned long long kNone = ~0ull;
+
+constexpr int kSmemLimit = 232448;  // shared memory a block may use on Hopper (bytes)
 
 __device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
     for (int off = 16; off > 0; off >>= 1) {
@@ -88,6 +91,57 @@ __device__ __forceinline__ void store_winner(unsigned long long v, int range, in
     mv[2] = found ? (int)((sec >> 16) & 0x7) : 0;
     *sad = found ? (int32_t)(v >> 32) : 0x7fffffff;
     *ok = found ? 1 : 0;
+}
+
+// ---- staging and packed byte sums (full_search_fme.cu, rowscan_pass.cu)
+
+// one 4-byte asynchronous copy into shared memory, zero-filled where !ok
+// (src is then not read, but must still be a valid address)
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const void* src, bool ok) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// stage the word of bytes [xx, xx + 4) of one plane row (row: its first byte,
+// or any valid address where !row_ok), zero outside [0, w) and where the
+// row is outside the plane.  aligned: the row and xx are 4-byte aligned and
+// w % 4 == 0, so a word lies wholly inside or outside the row and one
+// asynchronous copy moves it; otherwise four byte loads, stored at once.
+__device__ __forceinline__ void stage_word(uint32_t* dst, const uint8_t* row, long long xx, int w, bool row_ok,
+                                           bool aligned) {
+    if (aligned) {
+        const bool ok = row_ok && xx >= 0 && xx < w;
+        cp_async4(dst, ok ? row + xx : row, ok);
+        return;
+    }
+    uint32_t v = 0u;
+    for (int b = 0; b < 4; ++b) {
+        const long long x = xx + b;
+        if (row_ok && x >= 0 && x < w) v |= (uint32_t)row[x] << (8 * b);
+    }
+    *dst = v;
+}
+
+// dp4a selector: 1 in the bytes [p, q) of a word, 0 elsewhere
+__device__ __forceinline__ uint32_t byte_sel(int p, int q) {
+    uint32_t s = 0u;
+    for (int b = p; b < q; ++b) s |= 1u << (8 * b);
+    return s;
+}
+
+constexpr uint32_t kOnes = 0x01010101u;
+
+// sum of |c - r| over the four bytes of c and r that sel selects
+__device__ __forceinline__ unsigned sad4(uint32_t c, uint32_t r, uint32_t sel, unsigned acc) {
+    return __dp4a(__vabsdiffu4(c, r), sel, acc);
 }
 
 }  // namespace so_search

@@ -16,7 +16,8 @@ a whole encode and a device decode of the same clip:
   profiler;
 - from one ``torch.profiler`` run each: the device busy time (the sum of
   device-side events: kernels and copies), the number of device ops, the idle
-  share (1 - busy / unprofiled median) and the ten largest device ops.
+  share (1 - busy / unprofiled median), the ten largest device ops and every
+  hand-written kernel (``csrc/``) outside them.
 
 Under ``--fast`` the inter step is timed warm-started from its own converged
 MVPs, as every inter frame after a clip's first runs, and the passes per
@@ -64,6 +65,11 @@ def _wall_ms(fn, reps: int) -> tuple[float, float, float]:
     return float(np.median(ts)), float(np.percentile(ts, 25)), float(np.percentile(ts, 75))
 
 
+#: the names of the kernels in csrc/, as the profiler lists them
+_OWN_KERNELS = ("full_search_kernel", "full_search_fme_kernel", "pred_fetch_kernel", "window_fetch_kernel",
+                "rowscan_pass_kernel")
+
+
 def _device_ms(e) -> float:
     return (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)) / 1e3
 
@@ -81,7 +87,9 @@ def _profile(name: str, fn, median_ms: float) -> None:
     busy = sum(_device_ms(e) for e in ops)
     print(f"== {name}: device busy {busy:.4f} ms, device ops {sum(e.count for e in ops)}, "
           f"idle share {1 - busy / median_ms:.3f} of the unprofiled median")
-    for e in sorted(ops, key=_device_ms, reverse=True)[:10]:
+    top = sorted(ops, key=_device_ms, reverse=True)
+    # the ten largest, and every hand-written kernel (csrc/) among the rest
+    for e in top[:10] + [e for e in top[10:] if any(k in e.key for k in _OWN_KERNELS)]:
         print(f"   {_device_ms(e):9.4f} ms  x{e.count:5d}  {e.key[:110]}")
 
 

@@ -582,3 +582,211 @@ def test_rate_control_on_card_matches_cpu(cuda, name, monkeypatch):
     pairs = [frame_arrays_of(o, ft) for o, ft in zip(a["per_frame"], fts)]
     dec = codec.decode(fts, [r for _, r in pairs], a["Qp_per_row_per_frame"], [m for m, _ in pairs])
     np.testing.assert_array_equal(torch.stack(dec).cpu().numpy(), b["reconstructed frames"])
+
+
+# ------------------------- the redesigned kernels' edges: prefetched supersets, packed words, unaligned inputs
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose first byte is not word-aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 4
+    return out
+
+
+def _drift_frames(content, nref, h, w):
+    """References whose SAD against an all-zero block falls toward one corner,
+    so each chain step moves its MVP one step that way while it stays valid."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    ramp = (xx + yy) if content == "drift_up_left" else (h + w - xx - yy)
+    # even values <= 126: the half-pel row sums never wrap, and a half-pel average lies strictly between two
+    # different neighbours, so the FME chain drifts too
+    ramp = (2 * np.minimum(ramp // 10, 63)).astype(np.uint8)
+    return np.stack([np.roll(ramp, 3 * r, axis=1) for r in range(nref)])
+
+
+def _edge_seeds(rng, S, nref, h, w):
+    seeds = rng.integers(-9, 10, (S, 3)).astype(np.int32)
+    seeds[:, 2] = rng.integers(0, nref, S)
+    edges = [(0, 0, 0), (-19, -2, nref - 1), (5001, -4001, 0), (-2 * w - 1, 2 * h + 1, 0), (-17, 1, 0),
+             (3, -h - 18, 0), (w - 20, 2, 0), (1, h - 20, 0)]
+    for s, e in enumerate(edges[:S]):
+        seeds[s] = e
+    return seeds
+
+
+@pytest.mark.parametrize("tile", [False, True], ids=["frame", "tile"])
+@pytest.mark.parametrize("content", ["drift_down_right", "drift_up_left", "flat", "random"])
+@pytest.mark.parametrize("nref", [1, 4, 8])
+@pytest.mark.parametrize("fme", [False, True])
+def test_rowscan_pass_kernel_matches_plain_at_plane_edges(cuda, fme, nref, content, tile):
+    """MVPs that drift one step a column for a whole row (so the prefetched
+    supersets cross every plane edge), seeds far outside the frame and
+    straddling each edge, all-tie content, nref up to 8 (the new shared
+    memory budget), on the whole frame and on tile 1 of a tile-4 split."""
+    rng = np.random.default_rng(nref + 10 * fme)
+    h, w = 128, 512
+    if content == "flat":
+        refs = np.full((nref, h, w), 77, np.uint8)
+    elif content == "random":
+        refs = rng.integers(0, 256, (nref, h, w), dtype=np.uint8)
+    else:
+        refs = _drift_frames(content, nref, h, w)
+    refs = torch.from_numpy(refs).to(cuda)
+    planes = M.fme_parity_planes(refs, True) if fme else refs
+    h_c, kw = (32, {"g_row0": 32, "grid": (h, w)}) if tile else (h, {})
+    cur = (torch.from_numpy(rng.integers(0, 256, (h_c, w), dtype=np.uint8)).to(cuda) if content == "random"
+           else torch.full((h_c, w), 77 if content == "flat" else 0, dtype=torch.uint8, device=cuda))
+    S = h_c // 16
+    for seeds in (np.zeros((S, 3), np.int32), _edge_seeds(rng, S, nref, h, w)):
+        seeds = torch.from_numpy(seeds).to(cuda)
+        want = K.rowscan_pass_plain(cur, planes, seeds, 16, fme, **kw)
+        n0 = K.rowscan_pass.launches
+        got = K.rowscan_pass(cur, planes, seeds, 16, fme, **kw)
+        torch.cuda.synchronize()
+        assert K.rowscan_pass.launches == n0 + 1
+        assert torch.equal(got, want)
+    if content == "drift_down_right" and not tile:  # the zero-seed row did drift, one step a column
+        steps = (want[0, 1:, :2] - want[0, :-1, :2]).abs().cpu()
+        assert int((steps == 1).all(dim=1).sum()) >= 8
+
+
+@pytest.mark.parametrize("bs", [6, 8, 12, 32])
+@pytest.mark.parametrize("fme", [False, True])
+def test_rowscan_pass_kernel_matches_plain_at_other_block_sizes_and_unaligned(cuda, fme, bs):
+    """Block sizes whose rows end in a partial word (w % 4 != 0 at bs = 6),
+    bs = 32 at eight references (FME: one column prefetched, as two do not
+    fit), and planes and cur that do not start on a word: the 4-byte and
+    byte-load staging."""
+    rng = np.random.default_rng(bs + fme)
+    h, w, nref = 4 * bs, 15 * bs, 8 if bs == 32 else 2
+    cur = torch.from_numpy(rng.integers(0, 256, (h, w), dtype=np.uint8)).to(cuda)
+    refs = torch.from_numpy(rng.integers(0, 256, (nref, h, w), dtype=np.uint8)).to(cuda)
+    planes = M.fme_parity_planes(refs, True) if fme else refs
+    seeds = torch.from_numpy(_edge_seeds(rng, h // bs, nref, h, w)).to(cuda)
+    want = K.rowscan_pass_plain(cur, planes, seeds, bs, fme)
+    assert torch.equal(K.rowscan_pass(cur, planes, seeds, bs, fme), want)
+    assert torch.equal(K.rowscan_pass(_unaligned(cur), _unaligned(planes), seeds, bs, fme), want)
+
+
+@pytest.mark.parametrize("content", ["random", "flat"])
+@pytest.mark.parametrize("nref", [16, 20])
+@pytest.mark.parametrize("fme", [False, True])
+def test_rowscan_pass_kernel_matches_plain_beyond_fourteen_references(cuda, fme, nref, content):
+    """More references than a 7-bit scan index holds (9 * nref > 127): the
+    winner's SAD and its first scan index are two reductions.  FME at nref 20
+    prefetches one column ahead, as two do not fit."""
+    rng = np.random.default_rng(nref + fme)
+    h, w = 64, 256
+    if content == "flat":
+        cur, refs = np.full((h, w), 40, np.uint8), np.full((nref, h, w), 40, np.uint8)
+    else:
+        cur = rng.integers(0, 256, (h, w), dtype=np.uint8)
+        refs = rng.integers(0, 256, (nref, h, w), dtype=np.uint8)
+    cur, refs = torch.from_numpy(cur).to(cuda), torch.from_numpy(refs).to(cuda)
+    planes = M.fme_parity_planes(refs, True) if fme else refs
+    seeds = torch.from_numpy(_edge_seeds(rng, h // 16, nref, h, w)).to(cuda)
+    want = K.rowscan_pass_plain(cur, planes, seeds, 16, fme)
+    assert torch.equal(K.rowscan_pass(cur, planes, seeds, 16, fme), want)
+    if content == "random":
+        assert int((want[..., 2] > 14).sum()) > 0  # some winners lie past the 7-bit index
+
+
+@pytest.mark.parametrize("nref", list(range(1, 9)))
+@pytest.mark.parametrize("fme", [False, True])
+def test_rowscan_pass_fits_up_to_eight_references(cuda, nref, fme):
+    """The codec's block sizes at up to eight references fit a block (0: they do not)."""
+    from streamoptima_tpu_torch._build import library
+
+    for bs in (8, 16, 32):
+        assert library().so_rowscan_pass_smem(nref, bs, int(fme)) > 0
+
+
+def test_rowscan_pass_refuses_what_does_not_fit(cuda):
+    h, w = 64, 128
+    cur = torch.zeros((h, w), dtype=torch.uint8, device=cuda)
+    seeds = torch.zeros((1, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.rowscan_pass(cur, torch.zeros((8, 4, h, w), dtype=torch.uint8, device=cuda), seeds, 64, True)
+    planes = torch.full((1, 4, h, w), 9, dtype=torch.uint8, device=cuda)
+    assert torch.equal(K.rowscan_pass(cur, planes, seeds, 64, True), K.rowscan_pass_plain(cur, planes, seeds, 64, True))
+
+
+@pytest.mark.parametrize("content", ["random", "flat", "gradient"])
+@pytest.mark.parametrize("sr", [4, 8, 16])
+def test_fme_search_kernels_match_plain_at_frame_edges(cuda, sr, content):
+    """Both FME searches at sr 4, 8 and 16 on a frame whose every block row
+    and column has windows past an edge, on all-tie content and on a
+    gradient that puts the winners at the range's corners."""
+    rng = np.random.default_rng(sr)
+    h, w, nref = 80, 144, 2
+    if content == "flat":
+        cur, refs = np.full((h, w), 90, np.uint8), np.full((nref, h, w), 90, np.uint8)
+    elif content == "gradient":
+        cur = np.zeros((h, w), np.uint8)
+        refs = np.stack([_drift_frames("drift_down_right", 1, h, w)[0], _drift_frames("drift_up_left", 1, h, w)[0]])
+    else:
+        cur = rng.integers(0, 256, (h, w), dtype=np.uint8)
+        refs = rng.integers(0, 256, (nref, h, w), dtype=np.uint8)
+    cur, refs = torch.from_numpy(cur).to(cuda), torch.from_numpy(refs).to(cuda)
+    planes = M.fme_parity_planes(refs, True)
+    for fn, plain in ((K.full_search_fme, K.full_search_fme_plain), (K.full_search_fme_vbs, K.full_search_fme_vbs_plain)):
+        n0 = fn.launches
+        got = fn(cur, planes, sr, 16)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1
+        want = plain(cur, planes, sr, 16)
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (fn.__name__, k)
+
+
+@pytest.mark.parametrize("sr", [4, 8, 16])
+def test_fme_band_search_kernels_match_plain(cuda, sr):
+    """A middle tile's halo band (band_row0 = sr + 1, g_row0 != 0) and the
+    whole frames read at band_row0 = g_row0."""
+    rng = np.random.default_rng(20 + sr)
+    for comm in ("halo", "all_gather"):
+        cur, band, kw = _band_case(cuda, rng, 1, comm, sr=sr, h=128, w=112)
+        planes = M.fme_parity_planes(band, True)
+        for fn, plain in ((K.full_search_fme, K.full_search_fme_plain),
+                          (K.full_search_fme_vbs, K.full_search_fme_vbs_plain)):
+            got, want = fn(cur, planes, sr, 16, **kw), plain(cur, planes, sr, 16, **kw)
+            for k in want:
+                assert torch.equal(got[k], want[k]), (comm, fn.__name__, k)
+
+
+@pytest.mark.parametrize("bs", [6, 8, 12])
+def test_fme_search_kernels_match_plain_at_other_block_sizes_and_unaligned(cuda, bs):
+    """Rows that end in a partial word and quads whose halves straddle a word
+    (bs 6 and 12), w % 4 != 0, and planes and cur that do not start on a
+    word: the byte-load staging."""
+    rng = np.random.default_rng(40 + bs)
+    h, w, nref, sr = 5 * bs, 9 * bs, 3, 5
+    cur = torch.from_numpy(rng.integers(0, 256, (h, w), dtype=np.uint8)).to(cuda)
+    refs = torch.from_numpy(rng.integers(0, 256, (nref, h, w), dtype=np.uint8)).to(cuda)
+    planes = M.fme_parity_planes(refs, True)
+    for fn, plain in ((K.full_search_fme, K.full_search_fme_plain), (K.full_search_fme_vbs, K.full_search_fme_vbs_plain)):
+        want = plain(cur, planes, sr, bs)
+        for c, p in ((cur, planes), (_unaligned(cur), _unaligned(planes))):
+            got = fn(c, p, sr, bs)
+            for k in want:
+                assert torch.equal(got[k], want[k]), (fn.__name__, k)
+
+
+@pytest.mark.parametrize("sr,bs", [(4, 208), (16, 188)])
+def test_fme_search_kernels_match_plain_at_the_largest_blocks(cuda, sr, bs):
+    """The largest even block size the budget takes at sr 4 and 16: a
+    reference's four windows do not fit a block, so the kernel stages one
+    plane at a time."""
+    rng = np.random.default_rng(60 + sr)
+    h = w = 3 * bs
+    cur = torch.from_numpy(rng.integers(0, 256, (h, w), dtype=np.uint8)).to(cuda)
+    refs = torch.from_numpy(rng.integers(0, 256, (2, h, w), dtype=np.uint8)).to(cuda)
+    planes = M.fme_parity_planes(refs, True)
+    for fn, plain in ((K.full_search_fme, K.full_search_fme_plain), (K.full_search_fme_vbs, K.full_search_fme_vbs_plain)):
+        want = plain(cur, planes, sr, bs)
+        assert bool(want["ok"].any())
+        got = fn(cur, planes, sr, bs)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (fn.__name__, k)
