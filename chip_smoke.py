@@ -100,7 +100,7 @@ The two fast-ME rows carry the whole-pel mode's numbers under
 ``whole_pel_*`` keys beside the FME mode's; the two whole-pel search rows
 and ``pred_fetch`` carry their numbers at four references (``[main-nref4]``)
 under ``nref4_*`` keys, and ``full_search_vbs`` its numbers at sr=16
-(``[main-intra1]``: 33^2 candidates, more than a CUDA block's 1024 threads)
+(``[main-intra1]``: 33^2 candidates, 297 groups of four for a macroblock's 32 lanes)
 under ``sr16_*`` keys.  The eight band modes are rows of their own
 (``"<kernel> band"``): time, plain time and bound per launch (the mean over
 the three tiles; ``frame_ms`` is one frame's three launches), launches on
@@ -191,7 +191,10 @@ def _time_ms(fn, reps: int, cycles_per_ms: float) -> tuple[float, float]:
     A small kernel finishes before the host has enqueued the next one, so
     events around a bare loop time the host.  A spin kernel queued first,
     longer than the host's whole loop, keeps the stream busy meanwhile: the
-    calls then run back to back on the device between the events."""
+    calls then run back to back on the device between the events.  The spin
+    covers four times the host's measured loop and 5 ms more: on a shared
+    host one loop can run slower than the one measured, and events that
+    outlast the spin would time the host again."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -200,7 +203,7 @@ def _time_ms(fn, reps: int, cycles_per_ms: float) -> tuple[float, float]:
     host_ms = (time.perf_counter() - t0) * 1e3 / reps
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(cycles_per_ms * (2 * host_ms * reps + 1)))
+    torch.cuda._sleep(int(cycles_per_ms * (4 * host_ms * reps + 5)))
     start.record()
     for _ in range(reps):
         fn()
@@ -560,7 +563,7 @@ def main() -> None:
 
     hold("full_search_vbs", {k: (c, r, SR, BS_) for k, (c, r) in pairs.items()}, K.full_search_vbs,
          K.full_search_vbs_plain, (cur, ref, SR, BS_), 50, 5, f"sr={SR}, one reference")
-    # [main-intra1]'s range: 1089 candidates for 1024 threads, so some threads take two
+    # [main-intra1]'s range: 33^2 candidates, 297 groups of four, ten rounds of a macroblock's 32 lanes
     hold("full_search_vbs sr=16", {k: (c, r, 16, BS_) for k, (c, r) in pairs.items()}, K.full_search_vbs,
          K.full_search_vbs_plain, (cur, ref, 16, BS_), 20, 2, "sr=16, one reference")
     hold("full_search_vbs nref=4", {k: (c, r, SR, BS_) for k, (c, r) in pairs4.items()}, K.full_search_vbs,

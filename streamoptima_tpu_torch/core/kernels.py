@@ -110,6 +110,19 @@ def _stream(dev: torch.device) -> int:
 
 
 # ------------------------------------------------------------ full search
+def _search_smem(sr: int, bs: int, vbs: bool) -> int:
+    """The whole-pel search's shared-memory budget for a macroblock (bytes):
+    the block (as int32 without VBS, as bytes with it) and its (bs + 2sr)^2
+    window.  The wrappers refuse what exceeds ``_SMEM_LIMIT``; the kernel
+    runs every shape inside this budget (``csrc/full_search.cu``)."""
+    return bs * bs * (1 if vbs else 4) + (bs + 2 * sr) ** 2
+
+
+def _check_smem(bs: int, sr: int, smem: int) -> None:
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"bs={bs}, sr={sr}: the search window exceeds a block's shared memory")
+
+
 def _grid(refs: torch.Tensor, grid) -> tuple[int, int]:
     return (refs.shape[-2], refs.shape[-1]) if grid is None else tuple(grid)
 
@@ -147,8 +160,7 @@ def full_search(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int, *, band
     _check_search(cur, refs, nref, sr, bs)
     if cur.device.type == "cpu":
         return full_search_plain(cur, refs, sr, bs, band_row0=band_row0, g_row0=g_row0, grid=(H, w))
-    if bs * bs * 4 + (bs + 2 * sr) ** 2 > _SMEM_LIMIT:
-        raise ValueError(f"bs={bs}, sr={sr}: the search window exceeds a block's shared memory")
+    _check_smem(bs, sr, _search_smem(sr, bs, False))
     from streamoptima_tpu_torch._build import library
 
     lib = library()
@@ -176,11 +188,10 @@ _QUAD_KEYS = ("sub_mv", "sub_sad", "sub_ok")
 
 def _launch_search(entry: str, cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int, vbs: bool,
                    smem: int, band: tuple) -> dict:
-    """Allocate the outputs and launch one MVs-only search kernel, which
-    stages ``smem`` bytes of shared memory per macroblock; ``band`` is
+    """Allocate the outputs and launch one MVs-only search kernel, whose
+    shared-memory budget for a macroblock is ``smem`` bytes; ``band`` is
     (band_row0, g_row0, H)."""
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"bs={bs}, sr={sr}: the search windows exceed a block's shared memory")
+    _check_smem(bs, sr, smem)
     from streamoptima_tpu_torch._build import library
 
     h, w = cur.shape
@@ -223,7 +234,7 @@ def full_search_vbs(cur: torch.Tensor, refs: torch.Tensor, sr: int, bs: int, *, 
     _check_search(cur, refs, refs.shape[0], sr, bs)
     if cur.device.type == "cpu":
         return full_search_vbs_plain(cur, refs, sr, bs, band_row0=band_row0, g_row0=g_row0, grid=(H, cur.shape[1]))
-    out = _launch_search("full_search_vbs", cur, refs, sr, bs, True, bs * bs + (bs + 2 * sr) ** 2,
+    out = _launch_search("full_search_vbs", cur, refs, sr, bs, True, _search_smem(sr, bs, True),
                          (band_row0, g_row0, H))
     full_search_vbs.launches += 1
     return out

@@ -29,9 +29,10 @@
 // byte at a time (two byte loads from shared memory and one __sad per
 // pixel) the load/store units, at half the INT32 lanes' issue rate, would
 // set the time.  Packed, four candidates' sums over one word of four pixels
-// take 13 instructions (two shared loads, three funnel shifts, four
-// __vabsdiffu4, four __dp4a): about 0.06 ms without VBS and 0.09 with it
-// (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6, from chip_smoke.py).
+// take 9 instructions (two shared loads, three funnel shifts, four
+// accumulating VABSDIFF4), and the VABSDIFF4 pipe sets the time (PERF.md
+// section 6; the row sums are so_search::words4, shared with
+// full_search.cu).
 //
 // Design: one CUDA block per macroblock; the current block and the four
 // plane windows (uint8 is exact: every parity value is <= 255) staged in
@@ -42,8 +43,8 @@
 // the four column offsets that share one staged word, 4a .. 4a + 3: per row
 // of the block it reads the window's words a + m once, aligns them for the
 // four candidates with three funnel shifts, and sums four abs-diffs per
-// instruction pair (__vabsdiffu4, then __dp4a with a byte selector, which
-// also masks a block's partial last word).  The current block's words are
+// accumulating VABSDIFF4 (a partial word: __vabsdiffu4, then __dp4a with a
+// byte selector, which masks a block's partial last word).  The current block's words are
 // broadcast reads.  The left and right halves of each row and the top and
 // bottom halves of the block give the four quad SADs of VBS (a byte
 // selector splits a word that straddles the halves); the block SAD is their
@@ -84,6 +85,8 @@ namespace {
 
 using so_search::kNone;
 using so_search::kSmemLimit;
+using so_search::Layout;
+using so_search::row_range;
 constexpr int kMaxThreads = 512;
 
 // the reference's candidate bounds on the half-pel grid (H2, W2) for an
@@ -92,48 +95,6 @@ constexpr int kMaxThreads = 512;
 // is 0 <= g < D - 3n
 __device__ __forceinline__ bool valid_fme(int gx, int gy, int n, int H2, int W2) {
     return gx >= 0 && gx < W2 - 3 * n && gy >= 0 && gy < H2 - 3 * n;
-}
-
-// the staged windows: per plane WH = bs + 2sr rows of RW words.  A thread's group a < NA of four column offsets
-// reads words [a, a + G] of a row; the window's first column is rounded down to a word, by c0 <= 3 bytes, so
-// the groups cover bytes [0, c0 + 2sr] and NA = (2sr + 3) / 4 + 1.
-struct Layout {
-    int G, WH, NA, RW, cur_words, plane_words;
-    __host__ __device__ Layout(int sr, int bs)
-        : G((bs + 3) / 4), WH(bs + 2 * sr), NA((2 * sr + 3) / 4 + 1), RW(NA + G), cur_words(bs * G),
-          plane_words(WH * RW) {}
-};
-
-// acc[k] += the selected byte abs-diffs of the row's words [m0, m1) against
-// candidate k, whose row starts k bytes into the staged row wr
-__device__ __forceinline__ void words4(const uint32_t* wr, const uint32_t* cr, int m0, int m1, uint32_t sel,
-                                       unsigned (&acc)[4]) {
-    if (m0 >= m1) return;
-    uint32_t lo = wr[m0];
-    for (int m = m0; m < m1; ++m) {
-        const uint32_t hi = wr[m + 1], c = cr[m];
-        acc[0] = so_search::sad4(c, lo, sel, acc[0]);
-        acc[1] = so_search::sad4(c, __funnelshift_r(lo, hi, 8), sel, acc[1]);
-        acc[2] = so_search::sad4(c, __funnelshift_r(lo, hi, 16), sel, acc[2]);
-        acc[3] = so_search::sad4(c, __funnelshift_r(lo, hi, 24), sel, acc[3]);
-        lo = hi;
-    }
-}
-
-// the same over the row's bytes [lo, hi): whole words with no selector, a
-// partial word at either end with one
-__device__ __forceinline__ void row_range(const uint32_t* wr, const uint32_t* cr, int lo, int hi,
-                                          unsigned (&acc)[4]) {
-    if (lo & 3) {
-        const int m = lo >> 2, e = min(hi, 4 * m + 4);
-        words4(wr, cr, m, m + 1, so_search::byte_sel(lo - 4 * m, e - 4 * m), acc);
-        lo = e;
-    }
-    if (lo < hi) {
-        const int m0 = lo >> 2, m1 = hi >> 2;
-        words4(wr, cr, m0, m1, so_search::kOnes, acc);
-        if (hi & 3) words4(wr, cr, m1, m1 + 1, so_search::byte_sel(0, hi - 4 * m1), acc);
-    }
 }
 
 // VBS: the block key and the four quad keys; otherwise the block key alone.  BSC: the block size when it is

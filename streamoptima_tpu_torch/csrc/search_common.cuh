@@ -1,7 +1,10 @@
-// Pieces shared by the full-search kernels (full_search.cu and
-// full_search_fme.cu): the packed (SAD, sec) key, its block-wide minimum,
-// the four quad SADs of one candidate, and the winner's write-back; and by
-// full_search_fme.cu and rowscan_pass.cu: word staging and packed byte SADs.
+// Pieces shared by the hand-written search kernels:
+// - full_search.cu (whole-pel) and full_search_fme.cu (half-pel): the packed
+//   (SAD, sec) key, its warp- and block-wide minimum, the winners'
+//   write-back, the staged window's Layout and the packed four-candidate
+//   row sums (words4, row_range);
+// - those two and rowscan_pass.cu: word staging (stage_word, cp_async4)
+//   and packed byte SADs (sad4, byte_sel).
 //
 // A key is SAD << 32 | sec with sec = ((l1 << 3 | ref) << 8 | dxi) << 8 | dyi,
 // so the lexicographic (SAD, sec) minimum of core/me.py is one unsigned min.
@@ -47,23 +50,6 @@ __device__ __forceinline__ unsigned long long pack_sec(int dx, int dy, int ref, 
     return ((((l1 << 3) | (unsigned)ref) << 8 | (unsigned)dxi) << 8) | (unsigned)dyi;
 }
 
-// the four 8x8 quad SADs (Z order) of a bs x bs block against the window
-// at wp (row stride ww), in one pass over the pixels
-__device__ __forceinline__ void quad_sads(const uint8_t* cur, const uint8_t* wp, int ww, int bs, unsigned qs[4]) {
-    const int s = bs / 2;
-    qs[0] = qs[1] = qs[2] = qs[3] = 0u;
-    for (int i = 0; i < bs; ++i) {
-        const uint8_t* cr = cur + i * bs;
-        const uint8_t* rr = wp + i * ww;
-        const int qrow = (i >= s) * 2;
-        unsigned a = 0u, b = 0u;
-        for (int j = 0; j < s; ++j) a = __sad((unsigned)cr[j], (unsigned)rr[j], a);
-        for (int j = s; j < bs; ++j) b = __sad((unsigned)cr[j], (unsigned)rr[j], b);
-        qs[qrow] += a;
-        qs[qrow + 1] += b;
-    }
-}
-
 // fold one candidate into the block key (best[0], when the block is valid
 // there) and the quad keys (best[1..4], each where its quad is valid); the
 // block SAD is the sum of the quads'
@@ -93,7 +79,7 @@ __device__ __forceinline__ void store_winner(unsigned long long v, int range, in
     *ok = found ? 1 : 0;
 }
 
-// ---- staging and packed byte sums (full_search_fme.cu, rowscan_pass.cu)
+// ---- staging and packed byte sums
 
 // one 4-byte asynchronous copy into shared memory, zero-filled where !ok
 // (src is then not read, but must still be a valid address)
@@ -142,6 +128,64 @@ constexpr uint32_t kOnes = 0x01010101u;
 // sum of |c - r| over the four bytes of c and r that sel selects
 __device__ __forceinline__ unsigned sad4(uint32_t c, uint32_t r, uint32_t sel, unsigned acc) {
     return __dp4a(__vabsdiffu4(c, r), sel, acc);
+}
+
+// the same over all four bytes: one accumulating VABSDIFF4 (the byte differences are summed into acc in the
+// instruction, so no __dp4a follows)
+__device__ __forceinline__ unsigned sad4_all(uint32_t c, uint32_t r, unsigned acc) {
+    unsigned d;
+    asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;" : "=r"(d) : "r"(c), "r"(r), "r"(acc));
+    return d;
+}
+
+// A macroblock's staged reference window (full_search.cu) or parity-plane
+// window (full_search_fme.cu): WH = bs + 2sr rows of RW words, and the block
+// itself as bs rows of G words.  The window's first column is rounded down
+// to a word, by c0 <= 3 bytes, so a row's candidate column offsets
+// 0 .. 2sr sit at bytes c0 .. c0 + 2sr.  A thread's group a < NA takes the
+// four offsets at bytes 4a .. 4a + 3 and reads words [a, a + G] of a row, so
+// NA = (2sr + 3) / 4 + 1 groups cover the worst c0 and RW = NA + G.
+struct Layout {
+    int G, WH, NA, RW, cur_words, plane_words;
+    __host__ __device__ Layout(int sr, int bs)
+        : G((bs + 3) / 4), WH(bs + 2 * sr), NA((2 * sr + 3) / 4 + 1), RW(NA + G), cur_words(bs * G),
+          plane_words(WH * RW) {}
+};
+
+// acc[k] += the selected byte abs-diffs of the row's words [m0, m1) against
+// candidate k, whose row starts k bytes into the staged row wr (whole words:
+// sad4_all; a partial word: sad4 with its selector).  cr[m] is
+// word m of the block's row: a pointer to its staged words, or any type
+// whose operator[] returns them.
+template <class CurRow>
+__device__ __forceinline__ void words4(const uint32_t* wr, const CurRow& cr, int m0, int m1, uint32_t sel,
+                                       unsigned (&acc)[4]) {
+    if (m0 >= m1) return;
+    uint32_t lo = wr[m0];
+    for (int m = m0; m < m1; ++m) {
+        const uint32_t hi = wr[m + 1], c = cr[m];
+        const uint32_t r[4] = {lo, __funnelshift_r(lo, hi, 8), __funnelshift_r(lo, hi, 16),
+                               __funnelshift_r(lo, hi, 24)};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[k] = sel == kOnes ? sad4_all(c, r[k], acc[k]) : sad4(c, r[k], sel, acc[k]);
+        lo = hi;
+    }
+}
+
+// the same over the row's bytes [lo, hi): whole words with no selector, a
+// partial word at either end with one
+template <class CurRow>
+__device__ __forceinline__ void row_range(const uint32_t* wr, const CurRow& cr, int lo, int hi, unsigned (&acc)[4]) {
+    if (lo & 3) {
+        const int m = lo >> 2, e = min(hi, 4 * m + 4);
+        words4(wr, cr, m, m + 1, byte_sel(lo - 4 * m, e - 4 * m), acc);
+        lo = e;
+    }
+    if (lo < hi) {
+        const int m0 = lo >> 2, m1 = hi >> 2;
+        words4(wr, cr, m0, m1, kOnes, acc);
+        if (hi & 3) words4(wr, cr, m1, m1 + 1, byte_sel(0, hi - 4 * m1), acc);
+    }
 }
 
 }  // namespace so_search

@@ -790,3 +790,272 @@ def test_fme_search_kernels_match_plain_at_the_largest_blocks(cuda, sr, bs):
         got = fn(cur, planes, sr, bs)
         for k in want:
             assert torch.equal(got[k], want[k]), (fn.__name__, k)
+
+
+# ------------------------- the whole-pel search's edges: packed words, warps per CTA, budgets, bands
+def _whole_search_pairs(vbs):
+    return ((K.full_search_vbs, K.full_search_vbs_plain) if vbs else (K.full_search, K.full_search_plain))
+
+
+def _assert_search_equal(got, want, what=""):
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), (what, k)
+
+
+def _random_search_inputs(cuda, seed, h, w, nref):
+    rng = np.random.default_rng(seed)
+    cur = torch.from_numpy(rng.integers(0, 256, (h, w), dtype=np.uint8)).to(cuda)
+    refs = torch.from_numpy(rng.integers(0, 256, (nref, h, w), dtype=np.uint8)).to(cuda)
+    return cur, refs
+
+
+@pytest.mark.parametrize("vbs", [False, True], ids=["full", "vbs"])
+@pytest.mark.parametrize("sr", [1, 4, 8, 16, 32, 63, 127])
+def test_whole_pel_search_kernels_match_plain_at_every_range(cuda, sr, vbs):
+    """Ranges from 1 to the key's limit of 127 on a 5 x 7 block frame (35
+    macroblocks, not a multiple of the warps a CTA takes): groups of four
+    column offsets that end in a partial group, and windows far past every
+    edge."""
+    fn, plain = _whole_search_pairs(vbs)
+    cur, refs = _random_search_inputs(cuda, 100 + sr, 80, 112, 2)
+    n0 = fn.launches
+    got = fn(cur, refs, sr, 16)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    _assert_search_equal(got, plain(cur, refs, sr, 16), sr)
+
+
+@pytest.mark.parametrize("bs,vbs", [(4, False), (4, True), (5, False), (6, False), (6, True), (8, False),
+                                    (8, True), (12, False), (12, True), (16, False), (16, True), (32, False),
+                                    (32, True)])
+def test_whole_pel_search_kernels_match_plain_at_other_block_sizes_and_unaligned(cuda, bs, vbs):
+    """Block sizes whose rows end in a partial word (5, 6) and whose quad
+    halves straddle a word (6, 12), odd sizes without VBS only; w = 7 bs, not
+    a multiple of 4 at bs 5 and 6; and cur and refs that do not start on a
+    word (a view one byte into a larger buffer): the byte-load staging."""
+    fn, plain = _whole_search_pairs(vbs)
+    cur, refs = _random_search_inputs(cuda, 200 + bs, 5 * bs, 7 * bs, 3)
+    want = plain(cur, refs, 5, bs)
+    assert bool(want["ok"].any())
+    for c, r in ((cur, refs), (_unaligned(cur), _unaligned(refs))):
+        _assert_search_equal(fn(c, r, 5, bs), want, (bs, c.data_ptr() % 4))
+
+
+@pytest.mark.parametrize("vbs", [False, True], ids=["full", "vbs"])
+@pytest.mark.parametrize("nref", [1, 4, 8])
+def test_whole_pel_search_kernels_match_plain_at_one_four_and_eight_references(cuda, nref, vbs):
+    """One window buffer (nref 1) or two, the next reference's copied while
+    one is summed; the winner's pixels from the staged window or from device
+    memory; aligned and unaligned references."""
+    fn, plain = _whole_search_pairs(vbs)
+    cur, refs = _random_search_inputs(cuda, 300 + nref, 64, 96, nref)
+    want = plain(cur, refs, 8, 16)
+    if nref > 1:
+        assert len(set(want["mv"][:, 2].tolist())) > 1  # winners from several references
+    for r in (refs, _unaligned(refs)):
+        _assert_search_equal(fn(cur, r, 8, 16), want, nref)
+
+
+@pytest.mark.parametrize("vbs", [False, True], ids=["full", "vbs"])
+@pytest.mark.parametrize("content", ["flat", "stripes", "black_vs_white"])
+def test_whole_pel_search_kernels_break_ties_like_plain(cuda, content, vbs):
+    """All-tie content over three identical references (ties within a lane's
+    four candidates, across lanes and across references: the least l1, then
+    reference, then dx, then dy wins), columns of period two (every other
+    candidate ties), and black against white (every SAD the largest)."""
+    fn, plain = _whole_search_pairs(vbs)
+    h, w, nref = 64, 80, 3
+    if content == "flat":
+        cur, refs = np.full((h, w), 90, np.uint8), np.full((nref, h, w), 90, np.uint8)
+    elif content == "stripes":
+        row = np.where(np.arange(w) % 2 == 0, 30, 200).astype(np.uint8)
+        cur = np.broadcast_to(row, (h, w)).copy()
+        refs = np.broadcast_to(row, (nref, h, w)).copy()
+    else:
+        cur, refs = np.zeros((h, w), np.uint8), np.full((nref, h, w), 255, np.uint8)
+    cur, refs = torch.from_numpy(cur).to(cuda), torch.from_numpy(refs).to(cuda)
+    _assert_search_equal(fn(cur, refs, 8, 16), plain(cur, refs, 8, 16), content)
+
+
+@pytest.mark.parametrize("h,w", [(16, 16), (16, 48), (32, 16)])
+def test_whole_pel_search_kernels_with_blocks_that_have_no_candidate(cuda, h, w):
+    """Frames so small that no candidate is valid for a 16 x 16 block on some
+    axis while its top-left quads still have some: mv (0, 0, 0), sad
+    INT32_MAX, ok False and a zero pred where none is valid."""
+    cur, refs = _random_search_inputs(cuda, h + w, h, w, 2)
+    for vbs in (False, True):
+        fn, plain = _whole_search_pairs(vbs)
+        want = plain(cur, refs, 4, 16)
+        assert not bool(want["ok"].any())
+        if vbs:
+            assert bool(want["sub_ok"].any())
+        _assert_search_equal(fn(cur, refs, 4, 16), want, (h, w, vbs))
+
+
+@pytest.mark.parametrize("vbs", [False, True], ids=["full", "vbs"])
+@pytest.mark.parametrize("t", [0, 1, 2], ids=["top", "middle", "bottom"])
+def test_whole_pel_band_search_kernels_match_plain_on_a_tile_three_split(cuda, t, vbs):
+    """The top, middle and bottom band of a tile-3 split (halo of sr + 1 rows,
+    zero rows past the frame), and the whole frames at the tile's row."""
+    fn, plain = _whole_search_pairs(vbs)
+    rng = np.random.default_rng(400 + t)
+    for comm in ("halo", "all_gather"):
+        cur, band, kw = _band_case(cuda, rng, t, comm, nref=2, sr=8, h=96, w=112, ntile=3)
+        _assert_search_equal(fn(cur, band, 8, 16, **kw), plain(cur, band, 8, 16, **kw), (comm, t))
+
+
+@pytest.mark.parametrize("vbs,sr,bs", [(False, 8, 212), (False, 63, 184), (True, 8, 332), (True, 63, 272)])
+def test_whole_pel_search_kernels_match_plain_at_the_largest_blocks(cuda, vbs, sr, bs):
+    """The largest block each wrapper's budget takes at sr 8 and 63
+    (``tests/test_torch_kernel_limits.py``): at VBS (63, 272) the block's
+    words do not fit beside the window, so its rows are read from device
+    memory."""
+    fn, plain = _whole_search_pairs(vbs)
+    cur, refs = _random_search_inputs(cuda, 500 + bs, 2 * bs, 2 * bs, 2)
+    want = plain(cur, refs, sr, bs)
+    assert bool(want["ok"].any())
+    _assert_search_equal(fn(cur, refs, sr, bs), want, (sr, bs))
+
+
+def test_whole_pel_search_launches_the_largest_block_of_every_range(cuda):
+    """The largest block each wrapper's budget takes at every range from 1 to
+    127 launches (a block's layout grows with bs, so every smaller block fits
+    too; more references only add a second window where it fits): the
+    kernel refuses no shape its wrappers take.  A one-block frame has no
+    valid candidate for the block."""
+    for vbs in (False, True):
+        fn = _whole_search_pairs(vbs)[0]
+        step = 2 if vbs else 1
+        for sr in range(1, 128):
+            bs = step
+            while K._search_smem(sr, bs + step, vbs) <= K._SMEM_LIMIT:
+                bs += step
+            cur = torch.zeros((bs, bs), dtype=torch.uint8, device=cuda)
+            got = fn(cur, torch.zeros((1, bs, bs), dtype=torch.uint8, device=cuda), sr, bs)
+            torch.cuda.synchronize()
+            assert not bool(got["ok"].any()) and int(got["sad"][0]) == 2**31 - 1, (vbs, sr, bs)
+
+
+# ------------------------- the prediction fetch's edges: segments, case boundaries, store widths
+def _fetch_fns(mode):
+    fme, vbs = "fme" in mode, "vbs" in mode
+    name = "pred_fetch" + ("_fme" if fme else "") + ("_vbs" if vbs else "")
+    return getattr(K, name), getattr(K, name + "_plain"), fme, vbs
+
+
+def _fetch_args(mv, smv, refs, vbs):
+    return (mv, smv, refs) if vbs else (mv, refs)
+
+
+def _assert_fetch_equal(got, want, what=""):
+    for x, y in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+        assert x.shape == y.shape and torch.equal(x, y), what
+
+
+def _boundary_mvs(rng, x0, y0, n, h, w, fme):
+    """MVs for the n x n (sub)blocks at (x0, y0) that put each window's near
+    or far edge on either side of the FME case boundaries (the primary
+    bounds, last valid origin D - n - 1, and the margin, D - 3n - 1) and of
+    the frame's edges whole-pel; every third one random."""
+    scale = 2 if fme else 1
+    W, H = scale * w - (scale - 1), scale * h - (scale - 1)
+
+    def edges(D):
+        return np.array([-n, -1, 0, D - 3 * n - 1, D - 3 * n, D - n - 1, D - n, D - n + 1, D - 1, D])
+
+    mv = np.stack([rng.choice(edges(W), len(x0)) - scale * x0, rng.choice(edges(H), len(y0)) - scale * y0,
+                   np.zeros(len(x0), np.int64)], 1)
+    mv[::3, :2] = rng.integers(-3 * n, 3 * n + 1, (len(mv[::3]), 2))
+    return mv
+
+
+@pytest.mark.parametrize("mode", ["whole", "vbs", "fme", "fme_vbs"])
+@pytest.mark.parametrize("bs", [6, 8, 12, 16, 32])
+def test_fetch_kernel_modes_match_plain_at_other_block_sizes_and_case_boundaries(cuda, bs, mode):
+    """Each mode at block sizes whose segments are short (6, 12) or several
+    per row (32), with MVs on each side of the FME case A / B / C boundaries
+    and of the frame's edges, for the blocks and for each quad; w = 7 bs is
+    not a multiple of 8 at bs 6 and 12 (scalar stores), and planes that do
+    not start on a word (byte loads)."""
+    fn, plain, fme, vbs = _fetch_fns(mode)
+    rng = np.random.default_rng(600 + bs)
+    h, w, nref = 5 * bs, 7 * bs, 3
+    refs = torch.from_numpy(rng.integers(0, 256, (nref, h, w), dtype=np.uint8)).to(cuda)
+    planes = M.fme_parity_planes(refs, True) if fme else refs
+    nb, nbc, s = (h // bs) * (w // bs), w // bs, bs // 2
+    bx, by = np.arange(nb) % nbc * bs, np.arange(nb) // nbc * bs
+    mv = _boundary_mvs(rng, bx, by, bs, h, w, fme)
+    mv[:, 2] = rng.integers(0, nref, nb)
+    q = np.arange(4)
+    qx, qy = (bx[:, None] + (q & 1) * s).reshape(-1), (by[:, None] + (q >> 1) * s).reshape(-1)
+    smv = _boundary_mvs(rng, qx, qy, s, h, w, fme).reshape(nb, 4, 3)
+    smv[..., 2] = rng.integers(0, nref, (nb, 4))
+    mv = torch.from_numpy(mv.astype(np.int32)).to(cuda)
+    smv = torch.from_numpy(smv.astype(np.int32)).to(cuda)
+    want = plain(*_fetch_args(mv, smv, planes, vbs), bs)
+    for p in (planes, _unaligned(planes)):
+        n0 = fn.launches
+        got = fn(*_fetch_args(mv, smv, p, vbs), bs)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1
+        _assert_fetch_equal(got, want, (bs, mode))
+
+
+@pytest.mark.parametrize("mode", ["whole", "vbs", "fme", "fme_vbs"])
+def test_fetch_kernel_modes_write_zeros_for_a_reference_out_of_range(cuda, mode):
+    """A reference index below 0 or at or past nref gives zeros (the host
+    rejects such streams; the kernel stays memory-safe); every other
+    (sub)block is the plain version's."""
+    fn, plain, fme, vbs = _fetch_fns(mode)
+    rng = np.random.default_rng(700)
+    h, w, nref, bs = 48, 64, 2, 16
+    refs = torch.from_numpy(rng.integers(1, 256, (nref, h, w), dtype=np.uint8)).to(cuda)
+    planes = M.fme_parity_planes(refs, True) if fme else refs
+    nb = (h // bs) * (w // bs)
+    mv = np.stack([rng.integers(-6, 7, nb), rng.integers(-6, 7, nb), rng.integers(0, nref, nb)], 1)
+    smv = np.stack([rng.integers(-6, 7, (nb, 4)), rng.integers(-6, 7, (nb, 4)), rng.integers(0, nref, (nb, 4))], 2)
+    bad, bad_q = np.array([1, 5, 9]), np.array([[2, 1], [4, 3], [7, 0]])
+    mv_bad, smv_bad = mv.copy(), smv.copy()
+    mv_bad[bad, 2] = (-1, nref, 1000)
+    smv_bad[bad_q[:, 0], bad_q[:, 1], 2] = (nref, -7, 2**30)
+
+    def to(a):
+        return torch.from_numpy(a.astype(np.int32)).to(cuda)
+
+    want = plain(*_fetch_args(to(mv), to(smv), planes, vbs), bs)
+    got = fn(*_fetch_args(to(mv_bad), to(smv_bad), planes, vbs), bs)
+    want, got = (want if vbs else (want,)), (got if vbs else (got,))
+    blk = torch.zeros(nb, dtype=torch.bool)
+    blk[bad] = True
+    full_bad = blk.reshape(h // bs, 1, w // bs, 1).expand(-1, bs, -1, bs).reshape(h, w).to(cuda)
+    assert torch.equal(got[0], torch.where(full_bad, 0, want[0]).to(torch.int16))
+    if vbs:
+        q = torch.zeros(nb, 4, dtype=torch.bool)
+        q[bad_q[:, 0], bad_q[:, 1]] = True
+        s = bs // 2
+        quad_bad = q.reshape(h // bs, w // bs, 2, 2).permute(0, 2, 1, 3).reshape(h // s, 1, w // s, 1)
+        quad_bad = quad_bad.expand(-1, s, -1, s).reshape(h, w).to(cuda)
+        assert torch.equal(got[1], torch.where(quad_bad, 0, want[1]).to(torch.int16))
+
+
+@pytest.mark.parametrize("mode", ["whole", "vbs", "fme", "fme_vbs"])
+@pytest.mark.parametrize("t", [0, 1, 2], ids=["top", "middle", "bottom"])
+def test_band_fetch_kernel_modes_clamp_to_the_band_on_a_tile_three_split(cuda, t, mode):
+    """MVs whose rows lie in the frame but past the band's halo on either
+    side, and past the frame: the band's nearest row, or zeros; the top,
+    middle and bottom tile of a tile-3 split."""
+    fn, plain, fme, vbs = _fetch_fns(mode)
+    rng = np.random.default_rng(800 + t)
+    cur, band, kw = _band_case(cuda, rng, t, "halo", nref=2, sr=4, h=96, w=112, ntile=3)
+    planes = M.fme_parity_planes(band, True) if fme else band
+    scale = 2 if fme else 1
+    nb = cur.shape[0] // 16 * (112 // 16)
+    reach = scale * 48
+    mv = np.stack([rng.integers(-24, 25, nb), rng.integers(-reach, reach + 1, nb), rng.integers(0, 2, nb)], 1)
+    mv[:3, 1] = (-reach, reach, scale * 9)  # far above, far below, just past the halo
+    smv = np.stack([rng.integers(-24, 25, (nb, 4)), rng.integers(-reach, reach + 1, (nb, 4)),
+                    rng.integers(0, 2, (nb, 4))], 2)
+    mv, smv = torch.from_numpy(mv.astype(np.int32)).to(cuda), torch.from_numpy(smv.astype(np.int32)).to(cuda)
+    _assert_fetch_equal(fn(*_fetch_args(mv, smv, planes, vbs), 16, **kw),
+                        plain(*_fetch_args(mv, smv, planes, vbs), 16, **kw), (t, mode))
