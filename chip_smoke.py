@@ -93,9 +93,15 @@ same work: the larger of the bytes it must move over the memory rate
 (3.35 TB/s, the H100 SXM data sheet) and its operations over the integer
 rate (SMs x 64 INT32 lanes x the maximum SM clock ``nvidia-smi`` reports),
 counting one operation per pixel abs-diff-accumulate of each candidate the
-inputs make valid.  ``window_fetch``'s plain version is one PyTorch indexing
-read of the padded planes, so its time is also that row's ``library_ms``; no
-single PyTorch call computes any of the other functions, and theirs is null.
+inputs make valid.  ``window_fetch``'s ``library_ms`` is one PyTorch indexing
+read of the zero-padded planes, which are padded and indexed before the
+timing as the TPU kernel's ``window_prep`` pads once a frame (its plain
+version pads on every call); no single PyTorch call computes any of the other
+functions, and theirs is null.  The ``window_fetch`` row also carries the
+confirm at four references under FME, (3600, 16, 18, 18), under ``nref4_*``
+keys, and an odd-width input whose base is one byte past 16-byte alignment
+under ``unaligned_*`` keys; its rows' ``write_floor_ms`` is one ``zero_`` of
+an output-sized tensor, the launch and a bare write of the same bytes.
 The two fast-ME rows carry the whole-pel mode's numbers under
 ``whole_pel_*`` keys beside the FME mode's; the two whole-pel search rows
 and ``pred_fetch`` carry their numbers at four references (``[main-nref4]``)
@@ -312,6 +318,43 @@ def _window_bytes_read(flat, by0, bx0, nwin: int) -> int:
     idx = torch.arange(1, flat.numel() + 1, device=flat.device, dtype=torch.int64).reshape(flat.shape)
     got = FM.window_fetch_plain(idx, by0, bx0, nwin).reshape(-1)
     return int(torch.unique(got[got > 0]).numel())
+
+
+def _window_library(flat, by0, bx0, nwin: int):
+    """One PyTorch call computing ``window_fetch``'s function, for its row's
+    ``library_ms``: an indexing read of the zero-padded planes straight into
+    the (nb, P, nwin, nwin) layout.  The padded planes and the index tensors
+    are built here, before any timing, as the TPU kernel's ``window_prep`` is
+    built once a frame; the returned call is what is timed."""
+    P, h, w = flat.shape
+    padded = torch.nn.functional.pad(flat, (nwin, nwin, nwin, nwin))
+    ar = torch.arange(nwin, device=flat.device)
+    ri = (by0.to(torch.int64).clamp(-nwin, h)[:, None] + nwin + ar)[:, None, :, None]
+    ci = (bx0.to(torch.int64).clamp(-nwin, w)[:, None] + nwin + ar)[:, None, None, :]
+    pi = torch.arange(P, device=flat.device)[None, :, None, None]
+    return lambda: padded[pi, ri, ci]
+
+
+def _hold_window(what: str, flat, sets: dict, timed: str, cyc: float) -> dict:
+    """``window_fetch`` (bs + 2 square windows) on ``flat`` at each origin
+    set (name -> (by0, bx0)) against its plain version and the library read,
+    exactly; then the kernel's, the plain version's and the library read's
+    times at the set ``timed``, and a yardstick: one ``zero_`` of an
+    output-sized tensor (the launch and a bare write of the same bytes)."""
+    n = BS_ + 2
+    err = 0
+    for name, (by0, bx0) in sets.items():
+        got = K.window_fetch(flat, by0, bx0, n)
+        err = max(err, _check_equal(f"window_fetch {what} {name}", got, K.window_fetch_plain(flat, by0, bx0, n)))
+        _require(torch.equal(_window_library(flat, by0, bx0, n)(), got),
+                 f"window_fetch {what} {name}: differs from the library read")
+    by0, bx0 = sets[timed]
+    ms, host = _time_ms(lambda: K.window_fetch(flat, by0, bx0, n), 200, cyc)
+    plain_ms, _ = _time_ms(lambda: K.window_fetch_plain(flat, by0, bx0, n), 20, cyc)
+    lib_ms, _ = _time_ms(_window_library(flat, by0, bx0, n), 200, cyc)
+    blank = torch.empty((by0.shape[0], flat.shape[0], n, n), dtype=torch.uint8, device=flat.device)
+    floor_ms, _ = _time_ms(blank.zero_, 200, cyc)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "lib_ms": lib_ms, "host_ms": host, "floor_ms": floor_ms}
 
 
 def _drift_ramp(h: int, w: int) -> np.ndarray:
@@ -638,19 +681,31 @@ def main() -> None:
         adv_x = rng.integers(-40, W + 40, nb).astype(np.int32)
         adv_y[:6] = (-5, H - 3, 7, 9, -(10**6), 2**30)  # straddling each edge, odd, far outside
         adv_x[:6] = (11, 13, -7, W - 5, 10**6, -(2**30))
-        err_f = 0
-        for name, by0, bx0 in (("adversarial", torch.from_numpy(adv_y).to(dev), torch.from_numpy(adv_x).to(dev)),
-                               ("confirm_origins", ch["by0"], ch["bx0"])):
-            got, plain = K.window_fetch(flat, by0, bx0, BS_ + 2), K.window_fetch_plain(flat, by0, bx0, BS_ + 2)
-            torch.cuda.synchronize()
-            _require(torch.equal(got, plain), f"window_fetch {mode} {name}: differs from the plain version")
-            err_f = max(err_f, _max_err([(got, plain)]))
-        ch["werr"] = err_f
-        ch["wms"], host_f = _time_ms(lambda: K.window_fetch(flat, ch["by0"], ch["bx0"], BS_ + 2), 200, cyc)
-        ch["wplain_ms"], _ = _time_ms(lambda: K.window_fetch_plain(flat, ch["by0"], ch["bx0"], BS_ + 2), 20, cyc)
+        wsets = {"adversarial": (torch.from_numpy(adv_y).to(dev), torch.from_numpy(adv_x).to(dev)),
+                 "confirm_origins": (ch["by0"], ch["bx0"])}
+        wf = _hold_window(mode, flat, wsets, "confirm_origins", cyc)
+        ch.update(werr=wf["err"], wms=wf["ms"], wplain_ms=wf["plain_ms"], wlib_ms=wf["lib_ms"],
+                  wfloor_ms=wf["floor_ms"])
         print(f"[kernel] window_fetch 720p {mode} ({nb}, {flat.shape[0]}, {BS_ + 2}, {BS_ + 2}): bit-equal (tolerance "
-              f"0) on adversarial and converged confirm origins; {ch['wms']:.4f} ms vs plain (one indexing read) "
-              f"{ch['wplain_ms']:.4f} ms (host enqueue {host_f:.4f} ms per call)", flush=True)
+              f"0) on adversarial and converged confirm origins, to the plain version and the library read; "
+              f"{wf['ms']:.4f} ms vs plain {wf['plain_ms']:.4f} ms, library (one indexing read of planes padded "
+              f"beforehand) {wf['lib_ms']:.4f} ms, a bare write of the output {wf['floor_ms']:.4f} ms (host enqueue "
+              f"{wf['host_ms']:.4f} ms per call)", flush=True)
+        if fme:  # the confirm at four references (P = 16), and planes whose rows and base are not word-aligned
+            flat4 = M.fme_parity_planes(ref4, wrap_row_pass=True).reshape(-1, H, W)
+            ch["nref4"] = _hold_window("FME nref=4", flat4, wsets, "confirm_origins", cyc)
+            ch["nref4"]["bytes"] = (_window_bytes_read(flat4, ch["by0"], ch["bx0"], BS_ + 2) + nb * 8
+                                    + nb * flat4.shape[0] * (BS_ + 2) ** 2)
+            wu = W - 3  # an odd width; the planes start one byte past the allocation's 16-byte alignment
+            big = torch.from_numpy(rng.integers(0, 256, 4 * H * wu + 1, dtype=np.uint8)).to(dev)
+            flat_u = big[1:].view(4, H, wu)
+            ch["unaligned"] = _hold_window(f"FME w={wu} base+1", flat_u, wsets, "confirm_origins", cyc)
+            for label, r in (("four references", ch["nref4"]), (f"w={wu}, base 1 byte past 16-byte alignment",
+                                                                 ch["unaligned"])):
+                print(f"[kernel] window_fetch 720p FME, {label}: bit-equal (tolerance 0) on adversarial and "
+                      f"converged confirm origins, to the plain version and the library read; {r['ms']:.4f} ms vs "
+                      f"plain {r['plain_ms']:.4f} ms, library {r['lib_ms']:.4f} ms, a bare write of the output "
+                      f"{r['floor_ms']:.4f} ms", flush=True)
 
     # band inputs: each mode on the three tiles of a tile-3 split (240 rows), a halo of sr + 1 rows of each
     # neighbour and zero rows past the frame's edges, as the mesh paths call them
@@ -747,17 +802,14 @@ def main() -> None:
         pass_ms, _ = _time_ms(lambda: [K.rowscan_pass(curs[t], p, tl["seeds"][t], BS_, fme, **kws[t])
                                        for t in range(N_TILES)], 20, cyc)
         origins = [FM.region_base(g, e.by + e.g_row0, e.bx, fme) for g, e in zip(tl["gs"], engines)]
-        werr = 0
-        for t, (by0, bx0) in enumerate(origins):
-            werr = max(werr, _check_equal(f"window_fetch tile {t} {mode} confirm origins",
-                                          K.window_fetch(flat, by0, bx0, BS_ + 2),
-                                          K.window_fetch_plain(flat, by0, bx0, BS_ + 2)))
-        wms = [_time_ms(lambda: K.window_fetch(flat, *origins[t], BS_ + 2), 200, cyc)[0] for t in range(N_TILES)]
-        wplain = [_time_ms(lambda: K.window_fetch_plain(flat, *origins[t], BS_ + 2), 20, cyc)[0]
-                  for t in range(N_TILES)]
+        wt = [_hold_window(f"tile {t} {mode}", flat, {"confirm_origins": origins[t]}, "confirm_origins", cyc)
+              for t in range(N_TILES)]
+        werr, wms = max(x["err"] for x in wt), [x["ms"] for x in wt]
+        wplain, wlib, wfloor = [x["plain_ms"] for x in wt], [x["lib_ms"] for x in wt], [x["floor_ms"] for x in wt]
         wbytes = [_window_bytes_read(flat, *origins[t], BS_ + 2) for t in range(N_TILES)]
         tl.update(err=err, ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)), pass_ms=pass_ms,
-                  werr=werr, wms=float(np.mean(wms)), wplain_ms=float(np.mean(wplain)),
+                  werr=werr, wms=float(np.mean(wms)), wplain_ms=float(np.mean(wplain)), wlib_ms=float(np.mean(wlib)),
+                  wfloor_ms=float(np.mean(wfloor)),
                   # per launch, the mean over the tiles: the tile's rows of cur, the plane bytes its windows read at
                   # the converged chain, seeds and MVs; the candidates its K7 bounds make valid there
                   bytes=h_t * W + float(np.mean(wbytes)) + S_t * 12 + nb_t * 12,
@@ -768,8 +820,9 @@ def main() -> None:
               f"{', '.join(f'{x:.4f}' for x in ms)} ms (tiles 0-2) vs plain {tl['plain_ms']:.4f} ms; a mesh pass's "
               f"three launches {pass_ms:.4f} ms; a cold start on the clip converges in {tl['passes']} passes", flush=True)
         print(f"[tile] window_fetch 720p {mode} at the tiles' confirm origins ({nb_t}, {flat.shape[0]}, {BS_ + 2}, "
-              f"{BS_ + 2}): bit-equal (tolerance 0); per launch {', '.join(f'{x:.4f}' for x in wms)} ms vs plain "
-              f"{tl['wplain_ms']:.4f} ms", flush=True)
+              f"{BS_ + 2}): bit-equal (tolerance 0) to the plain version and the library read; per launch "
+              f"{', '.join(f'{x:.4f}' for x in wms)} ms vs plain {tl['wplain_ms']:.4f} ms, library "
+              f"{tl['wlib_ms']:.4f} ms, a bare write of the output {tl['wfloor_ms']:.4f} ms", flush=True)
 
     x = rng.integers(-255, 256, (nb, 16, 16)).astype(np.int32)
     x[0], x[1] = 255, -255
@@ -964,11 +1017,22 @@ def main() -> None:
                         _chain_ops(ch["g"], 1, fme, dev), int_ops_per_ms),
             _kernel_row("window_fetch", "window_fetch.cu", 1267, launches["window_fetch"], ch["werr"], ch["wms"],
                         ch["wplain_ms"], _window_bytes_read(flat, ch["by0"], ch["bx0"], BS_ + 2) + nb * 8
-                        + nb * flat.shape[0] * (BS_ + 2) ** 2, 0, int_ops_per_ms, library_ms=ch["wplain_ms"]))
+                        + nb * flat.shape[0] * (BS_ + 2) ** 2, 0, int_ops_per_ms, library_ms=ch["wlib_ms"]))
+        rows[fme][1]["write_floor_ms"] = ch["wfloor_ms"]
     for row, wp in zip(rows[True], rows[False]):
         row.update({f"whole_pel_{k}": wp[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                                       "bound_by", "library_ms")})
+        if "write_floor_ms" in wp:
+            row["whole_pel_write_floor_ms"] = wp["write_floor_ms"]
         kernels.append(row)
+    # window_fetch at four references under FME (the nref4_* keys) and on unaligned planes (unaligned_*)
+    w4, wu = chain[True]["nref4"], chain[True]["unaligned"]
+    bound_ms, bound_by = _bound(w4["bytes"], 0, int_ops_per_ms)
+    rows[True][1].update({"nref4_max_abs_err": w4["err"], "nref4_ms": w4["ms"], "nref4_plain_ms": w4["plain_ms"],
+                          "nref4_bound_ms": bound_ms, "nref4_bound_by": bound_by, "nref4_library_ms": w4["lib_ms"],
+                          "nref4_write_floor_ms": w4["floor_ms"],
+                          "unaligned_max_abs_err": wu["err"], "unaligned_ms": wu["ms"],
+                          "unaligned_plain_ms": wu["plain_ms"], "unaligned_library_ms": wu["lib_ms"]})
     # fast ME on a tile, per launch (the mean over the three tiles); frame_ms: a mesh pass's three launches
     tile_rows = {}
     for fme, label in ((True, "mesh-fast-vbs-fme"), (False, "mesh-fast")):
@@ -977,13 +1041,15 @@ def main() -> None:
                         tl["plain_ms"], tl["bytes"], tl["ops"], int_ops_per_ms)
         r["frame_ms"] = tl["pass_ms"]
         w_ = _kernel_row("window_fetch tile", "window_fetch.cu", 1267, launches["window_fetch"], tl["werr"], tl["wms"],
-                         tl["wplain_ms"], tl["wbytes"], 0, int_ops_per_ms, library_ms=tl["wplain_ms"])
+                         tl["wplain_ms"], tl["wbytes"], 0, int_ops_per_ms, library_ms=tl["wlib_ms"])
+        w_["write_floor_ms"] = tl["wfloor_ms"]
         tile_rows[fme] = (r, w_)
     for row, wp in zip(tile_rows[True], tile_rows[False]):
         row.update({f"whole_pel_{k}": wp[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                                       "bound_by", "library_ms")})
-        if "frame_ms" in wp:
-            row["whole_pel_frame_ms"] = wp["frame_ms"]
+        for k in ("frame_ms", "write_floor_ms"):
+            if k in wp:
+                row[f"whole_pel_{k}"] = wp[k]
         kernels.append(row)
     for name, (source, replaces, _, _) in BAND_MODES.items():  # the band modes, per launch on a tile
         b = band[name]

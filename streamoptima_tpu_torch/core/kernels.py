@@ -543,7 +543,8 @@ def window_fetch(planes: torch.Tensor, by0: torch.Tensor, bx0: torch.Tensor, nwi
     Returns (nb, P, nwin, nwin_c) uint8 (``nwin_c`` defaults to ``nwin``):
     plane values are pixels or ceil-averages of pixels, so uint8 holds them;
     the TPU kernel it replaces returns int32.  The plain version is
-    ``window_fetch_plain``.
+    ``window_fetch_plain``.  The kernel takes any P, H, W, extents and
+    planes base address; an empty output (nb or P zero) launches nothing.
     """
     _check_plane(planes, "planes", 3)
     nc = nwin if nwin_c is None else nwin_c
@@ -558,9 +559,11 @@ def window_fetch(planes: torch.Tensor, by0: torch.Tensor, bx0: torch.Tensor, nwi
         return window_fetch_plain(planes, by0, bx0, nwin, nc)
     from streamoptima_tpu_torch._build import library
 
-    lib = library()
     P, H, W = planes.shape
     out = torch.empty((nb, P, nwin, nc), dtype=torch.uint8, device=planes.device)
+    if out.numel() == 0:  # no window or no plane: nothing to launch
+        return out
+    lib = library()
     with torch.cuda.device(planes.device):
         rc = lib.so_window_fetch(planes.data_ptr(), by0.data_ptr(), bx0.data_ptr(), nb, P, H, W, nwin, nc,
                                  out.data_ptr(), _stream(planes.device))

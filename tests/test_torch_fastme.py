@@ -75,12 +75,15 @@ def _origins(rng, H, W, nwin, nc, nb=24):
 
 
 @pytest.mark.parametrize("source", ["window_gather", "pallas_window_fetch"])
-@pytest.mark.parametrize("nwin,nwin_c", [(18, None), (10, None), (21, 69), (24, 72)])
-def test_window_fetch_plain_matches_jax_package(nwin, nwin_c, source):
-    """Square and rectangular windows; origins inside, straddling every
-    edge, and wholly outside the plane."""
-    rng = np.random.default_rng(nwin)
-    P, H, W = 8, 64, 96
+@pytest.mark.parametrize("nwin,nwin_c,P,W", [(18, None, 8, 96), (10, None, 8, 96), (21, 69, 8, 96), (24, 72, 8, 96),
+                                             (18, None, 1, 96), (18, None, 4, 97), (10, 21, 1, 59)],
+                         ids=["18-None", "10-None", "21-69", "24-72", "18-None-P1", "18-None-W97", "10-21-P1-W59"])
+def test_window_fetch_plain_matches_jax_package(nwin, nwin_c, P, W, source):
+    """Square and rectangular windows, eight planes or one, even and odd
+    widths; origins inside, straddling every edge, and wholly outside the
+    plane."""
+    rng = np.random.default_rng(nwin if (P, W) == (8, 96) else (nwin, P, W))
+    H = 64
     planes = rng.integers(1, 256, (P, H, W)).astype(np.uint8)
     by0, bx0 = _origins(rng, H, W, nwin, nwin_c or nwin)
     got = K.window_fetch(_t(planes), _t(by0), _t(bx0), nwin, nwin_c)

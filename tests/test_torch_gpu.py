@@ -187,6 +187,43 @@ def test_window_fetch_kernel_matches_plain(cuda, nwin, nwin_c):
     assert torch.equal(got, K.window_fetch_plain(planes, by0, bx0, nwin, nwin_c))
 
 
+@pytest.mark.parametrize("P,H,W,nwin,nwin_c,nb,offset", [
+    (4, 64, 98, 18, None, 203, 0),  # w not a multiple of 4; nb not a multiple of a CTA's eight windows
+    (4, 63, 97, 18, None, 203, 1),  # odd w; the base one byte past the allocation's 16-byte alignment
+    (1, 64, 97, 18, None, 1, 0),
+    (1, 63, 97, 18, None, 0, 1),  # no window: nothing launched
+    (4, 63, 97, 18, None, 0, 1),
+    (32, 48, 96, 18, None, 61, 0),  # nref 8 under FME
+    (16, 72, 128, 18, None, 150, 3),  # nref 4 under FME: several warps to a window
+    (32, 40, 98, 24, 128, 37, 1),  # windows larger than a CTA's staging budget, rows cut in pieces
+    (3, 21, 35, 3, 40, 77, 1),
+    (2, 40, 64, 6, 5, 50, 2),  # rows narrower than a word, and rows wider than 32 words: a thread per byte
+    (1, 40, 320, 4, 260, 9, 0),
+])
+def test_window_fetch_kernel_unaligned_planes_and_counts(cuda, P, H, W, nwin, nwin_c, nb, offset):
+    """Rows and bases that are not word-aligned, 1 to 32 planes, window
+    counts that leave a CTA part-filled or empty, and windows that need
+    several CTAs; origins inside, on every edge, far outside and at +-2^30."""
+    rng = np.random.default_rng(P * W + nb + offset)
+    nc = nwin_c or nwin
+    big = torch.from_numpy(rng.integers(1, 256, P * H * W + offset, dtype=np.uint8)).to(cuda)
+    planes = big[offset:].view(P, H, W)
+    assert planes.is_contiguous() and planes.data_ptr() % 16 == offset
+    by0 = rng.integers(-nwin - 2, H + 2, nb).astype(np.int32)
+    bx0 = rng.integers(-nc - 2, W + 2, nb).astype(np.int32)
+    edges = [(-5, 11), (H - 3, 13), (7, -7), (9, W - 5), (-(10**6), 10**6), (2**30, -(2**30)), (0, 0),
+             (H - nwin, W - nc), (-nwin, 0), (H, W), (-(2**30), 2**30), (0, W - nc + 1)]
+    for k, (y, x) in enumerate(edges[:nb]):
+        by0[k], bx0[k] = y, x
+    by0, bx0 = torch.from_numpy(by0).to(cuda), torch.from_numpy(bx0).to(cuda)
+    n0 = K.window_fetch.launches
+    got = K.window_fetch(planes, by0, bx0, nwin, nwin_c)
+    torch.cuda.synchronize()
+    assert K.window_fetch.launches == n0 + (nb > 0)
+    assert got.dtype == torch.uint8 and got.shape == (nb, P, nwin, nc)
+    assert torch.equal(got, K.window_fetch_plain(planes, by0, bx0, nwin, nwin_c))
+
+
 def _chain_inputs(cuda, rng, h, w, nref, fme, case):
     fill = {"flat": (77, 77), "black_vs_white": (0, 255)}.get(case)
     if fill is None:
