@@ -63,6 +63,30 @@ settings (``rc_tables``, 8 mbps, 30 fps: the tables' QPs 7 and 8):
   from frame 4's coarse reconstruction (a promoted frame's search runs, its
   fetch does not).
 
+Rate control on the mesh, the same configs on the six shards (each tile
+codes its rows of every frame's QPs), each checked as the mesh paths above
+(the single-device encode, frame types and row QPs included, and the
+all-gather mesh):
+
+- ``[mesh-rc]``: ``[main-rc]``'s config, 16 frames: both data rows code a
+  GOP, and rate control crosses the GOP boundary;
+- ``[mesh-two-pass]`` and ``[mesh-roi]``: ``[main-two-pass]``'s and
+  ``[main-roi]``'s, 8 frames (two-pass: six band searches per inter frame);
+- ``[mesh-rc-promote]``: ``[main-rc-promote]``'s config and threshold, 16
+  frames: its clip's first 8 frames, the cut at frame 4 included, then the
+  clip's own frames 8-15; frames 4-7 come out intra, the second GOP as
+  ``[mesh-rc]``'s.
+
+``[binary]`` writes the binary container (SOTPB1) from ``[main]``'s and
+``[mesh]``'s encodes (one config, one device and the mesh) and from
+``[mesh-rc]``'s and its single-device twin's: each pair of files is
+byte-equal, and each file decodes on one device and on the mesh to the
+reconstructions.  It says whether the C++ RLE runtime or its Python twin
+ran.  ``[dryrun]`` runs ``parallel.dryrun.dryrun_multichip(8)`` on an
+8-shard mesh of the card: the six feature sets of the JAX package's
+multi-chip dry run at 64x64, each bit for bit with one device and its
+sharded decode closed, with the launches each makes.
+
 Before the paths, the band phase holds each search and fetch mode on the
 three tiles' halo bands (sr = 8, zero rows past the frame's edges) against
 its plain version, and times the three launches of one frame; the tile
@@ -140,6 +164,7 @@ from streamoptima_tpu_torch.core.blocks import blockify
 from streamoptima_tpu_torch.core.pred import gather_predictions
 from streamoptima_tpu_torch.engine import TorchCodec, fast_chain, frame_arrays_of
 from streamoptima_tpu_torch.parallel import ShardedCodec, make_mesh
+from streamoptima_tpu_torch.parallel.dryrun import dryrun_multichip
 from streamoptima_tpu_torch.parallel.mesh import _halo_band
 
 H, W, FRAMES = 720, 1280, 16
@@ -453,7 +478,7 @@ def _drive(label: str, extra: dict, clip: np.ndarray, dev, frames: int = FRAMES,
              f"kernel launches in the {label} path {launches}, expected {expected}")
     if extra.get("rc_flag"):
         print(f"[{label}] row QPs of frames 0 and 1: {pkg['Qp_per_row_per_frame'][:2]}", flush=True)
-    return {"launches": launches, "pkg": pkg, "n_inter": n_inter, "enc_s": enc_s}
+    return {"launches": launches, "pkg": pkg, "n_inter": n_inter, "enc_s": enc_s, "codec": enc, "cfg": cfg}
 
 
 def _stream_bytes(pkg: dict, cfg: CodecConfig) -> bytes:
@@ -476,18 +501,100 @@ def _require_same_encode(what: str, a: dict, b: dict) -> None:
             _require(torch.equal(fa[k].cpu(), fb[k].cpu()), f"{what}: frame {i} {k} differs")
 
 
-def _check_mesh(label: str, extra: dict, clip: np.ndarray, dev, run: dict, frames: int = FRAMES) -> None:
+def _check_mesh(label: str, extra: dict, clip: np.ndarray, dev, run: dict, frames: int = FRAMES) -> VideoCodec:
     """A mesh path's encode against the single-device encode and against the
-    all-gather mesh encode, bit for bit (after the counted run)."""
+    all-gather mesh encode, bit for bit (after the counted run).  Returns
+    the single-device codec, its encode done."""
     cfg = _cfg(frames=frames, **extra)
     clip = clip[:frames]
-    single = TorchCodec(cfg, clip, device=dev).encode(package=False)
+    one = VideoCodec(cfg, clip, device=dev)
+    single = one.encode(compute_ssim=False, package=False)
     _require_same_encode(f"{label} vs the single-device encode", run["pkg"], single)
     _require(_stream_bytes(run["pkg"], cfg) == _stream_bytes(single, cfg), f"{label}: text bitstream bytes differ")
     gathered = ShardedCodec(cfg, make_mesh(cfg, devices=[dev] * N_SHARDS), clip, tile_comm="all_gather")
     _require_same_encode(f"{label} all_gather vs halo", gathered.encode(package=False), run["pkg"])
-    print(f"[{label}] == the single-device encode (MVs, coefficients, sizes, PSNR, recon, text bitstream bytes) and "
-          f"== tile_comm='all_gather', bit for bit", flush=True)
+    for k in ("frame_type_seq", "Qp_per_row_per_frame"):
+        _require(run["pkg"][k] == single[k], f"{label}: {k} differs from the single-device encode")
+    print(f"[{label}] == the single-device encode (MVs, coefficients, sizes, PSNR, recon, frame types, row QPs, text "
+          f"bitstream bytes) and == tile_comm='all_gather', bit for bit", flush=True)
+    return one
+
+
+def _binary_phase(dev, pairs: dict) -> None:
+    """The binary container: ``pairs``: label -> (the single-device codec,
+    the mesh codec, the mesh's package) of one whole-pel config, each codec
+    after its encode.  Each writes the container; the two files are
+    byte-equal, and each decodes, on one device and on the mesh, to the
+    reconstructions, with one fetch per inter frame (on the mesh one per
+    tile)."""
+    rle = "the C++ RLE runtime" if native.available() else "its Python twin (the C++ library did not build)"
+    with tempfile.TemporaryDirectory() as d:
+        for label, (one, on_mesh, pkg) in pairs.items():
+            cfg = one.cfg
+            _require(not (cfg.vbs_enable or cfg.fme_enable or cfg.fast_me), f"[binary] {label}: not whole-pel")
+            files, write_s = [], []
+            for tag, codec in (("device", one), ("mesh", on_mesh)):
+                files.append(Path(d) / f"{label}-{tag}.sob")
+                t0 = time.perf_counter()
+                codec.transmit_bitstream_binary(files[-1])
+                write_s.append(time.perf_counter() - t0)
+            _require(files[0].read_bytes() == files[1].read_bytes(),
+                     f"[binary] {label}: the one-device and the mesh container differ")
+            n_inter = pkg["frame_type_seq"].count(1)
+            decodes = []
+            for f in files:
+                for mesh in (False, True):
+                    where = {"mesh": make_mesh(cfg, devices=[dev] * N_SHARDS)} if mesh else {"device": dev}
+                    for fn in KERNELS.values():
+                        fn.launches = 0
+                    t0 = time.perf_counter()
+                    dec = VideoCodec(cfg, **where).decode_bitstream_binary(f)  # ends in a device-to-host copy
+                    decodes.append(time.perf_counter() - t0)
+                    launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
+                    _require(np.array_equal(dec, pkg["reconstructed frames"]),
+                             f"[binary] {label}: the decode of {f.name} on {'the mesh' if mesh else 'one device'} "
+                             "differs from the reconstructions")
+                    want = {"pred_fetch": n_inter * (N_TILES if mesh else 1)}
+                    _require(launches == want, f"[binary] {label}: decode launches {launches}, expected {want}")
+            print(f"[binary] {label}: 720p {cfg.frames} frames, SOTPB1 {files[0].stat().st_size} bytes written in "
+                  f"{write_s[0]:.3f} s (one device) and {write_s[1]:.3f} s (mesh), byte-equal; decode_bitstream_binary "
+                  f"of each file on one device and on the mesh == recon ({', '.join(f'{x:.3f}' for x in decodes)} s); "
+                  f"RLE by {rle}", flush=True)
+
+
+def _dryrun_launches(summary: dict) -> dict:
+    """The kernel launches ``dryrun_multichip`` makes, from its summary.  Per
+    feature set: one single-device encode, one mesh encode and one mesh
+    decode.  A full search runs once per inter candidate (each frame off a
+    GOP opener, promoted or not) and, under two-pass, again per inter frame;
+    its winners' fetch follows each search but for the whole-pel kernel,
+    which keeps their pixels.  Fast ME (never with two-pass there) runs its
+    chain's passes and one confirm read and one fetch per inter step.  The
+    decode fetches once per inter frame.  On the mesh each is once per
+    tile."""
+    out: dict = {}
+
+    def add(name: str, n: int) -> None:
+        if n:
+            out[name] = out.get(name, 0) + n
+
+    for s in summary.values():
+        cfg, (_, ntile), types = s["cfg"], s["mesh"], s["frame_types"]
+        inter = types.count(1)
+        steps = sum(1 for i in range(cfg.frames) if i % cfg.intra_dur) + (inter if cfg.two_pass else 0)
+        suffix = ("_fme" if cfg.fme_enable else "") + ("_vbs" if cfg.vbs_enable else "")
+        if cfg.fast_me:
+            _require(not cfg.two_pass, "dryrun: the count of a two-pass fast-ME case needs pass 1's passes")
+            single, mesh = s["fast_me_passes"]
+            add("rowscan_pass", sum(single) + ntile * sum(mesh))
+            add("window_fetch", (1 + ntile) * steps)
+            add("pred_fetch" + suffix, (1 + ntile) * steps)
+        else:
+            add("full_search" + suffix, (1 + ntile) * steps)
+            if suffix:
+                add("pred_fetch" + suffix, (1 + ntile) * steps)
+        add("pred_fetch" + suffix, ntile * inter)
+    return out
 
 
 def main() -> None:
@@ -960,6 +1067,46 @@ def main() -> None:
           f"{rcs['main-rc-promote']['pkg']['residual size per frame']} against [main-rc]'s {sizes}", flush=True)
     _require(rcs["main-two-pass"]["pkg"]["Qp_per_row_per_frame"] != rcs["main-rc"]["pkg"]["Qp_per_row_per_frame"],
              "main-two-pass: the second pass kept the table QPs")
+
+    # rate control on the mesh: the same configs on the six shards, each tile at its rows of the frame's QPs.
+    # [mesh-rc] and [mesh-rc-promote] run 16 frames, a GOP on each data row; the promoted clip keeps its cut at
+    # frame 4 and the clip's own frames 8-15, so the second GOP codes as [mesh-rc]'s does
+    cut16 = np.concatenate([cut, clip[8:16]])
+    promote16 = promote_types + [0] + [1] * 7
+    mesh_rcs = {
+        "mesh-rc": (RC, clip, FRAMES, None, RC_MIN_PSNR, {"full_search": tiled["n"], "pred_fetch": tiled["n"]}),
+        "mesh-two-pass": ({**RC, "two_pass": True}, clip, 8, None, RC_MIN_PSNR,
+                          {"full_search": 2 * tiled["n8"], "pred_fetch": tiled["n8"]}),
+        "mesh-roi": ({"roi_qp_map": roi}, clip, 8, None, ROI_MIN_PSNR,
+                     {"full_search": tiled["n8"], "pred_fetch": tiled["n8"]}),
+        # every inter candidate's band search runs (a promoted frame's too); its fetch does not
+        "mesh-rc-promote": ({**RC, "rc_flag": 2, "intra_thresh": thresh}, cut16, FRAMES, promote16, PROMOTE_MIN_PSNR,
+                            {"full_search": N_TILES * N_INTER, "pred_fetch": N_TILES * promote16.count(1)}),
+    }
+    singles = {}
+    for label, (extra, src, frames, types, floor, expected) in mesh_rcs.items():
+        mesh_runs[label] = _drive(label, extra, src, dev, frames, mesh=True, types=types, min_psnr=floor, **expected)
+        singles[label] = _check_mesh(label, extra, src, dev, mesh_runs[label], frames)
+    _require(mesh_runs["mesh-rc-promote"]["pkg"]["frame_type_seq"][4] == 0, "mesh-rc-promote: frame 4 not promoted")
+    _require(mesh_runs["mesh-two-pass"]["pkg"]["Qp_per_row_per_frame"]
+             != mesh_runs["mesh-rc"]["pkg"]["Qp_per_row_per_frame"][:8], "mesh-two-pass: pass 2 kept the table QPs")
+
+    # the binary container from [main] and [mesh]'s encodes (one config, one device and the mesh), and from
+    # [mesh-rc]'s and its single-device twin's
+    _binary_phase(dev, {"main": (whole["codec"], mesh_runs["mesh"]["codec"], mesh_runs["mesh"]["pkg"]),
+                        "mesh-rc": (singles["mesh-rc"], mesh_runs["mesh-rc"]["codec"], mesh_runs["mesh-rc"]["pkg"])})
+
+    # the dry run: __graft_entry__.dryrun_multichip's six feature sets at 64x64 on an 8-shard mesh of the card
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(8, device=dev)
+    dry_s = time.perf_counter() - t0
+    dry_launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
+    _require(dry_launches == _dryrun_launches(dry),
+             f"[dryrun] kernel launches {dry_launches}, expected {_dryrun_launches(dry)}")
+    print(f"[dryrun] {len(dry)} feature sets on an 8-shard mesh of the card, bit for bit with one device, "
+          f"{dry_s:.2f} s; launches {dry_launches}", flush=True)
 
     refs_used = {int(r) for o in tools["main-nref4"]["pkg"]["per_frame"][1:8] for r in o["mv"][:, 2].unique()}
     _require(len(refs_used) > 1, f"main-nref4: inter frames chose only reference {sorted(refs_used)}")

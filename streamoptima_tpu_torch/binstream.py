@@ -1,0 +1,227 @@
+"""Binary bitstream container (native extension, format "SOTPB1").
+
+The port's copy of the JAX package's ``binstream`` module: the same layout,
+byte for byte, so either package reads the other's files.  It is host code:
+numpy and the C++ RLE runtime (``native``), with the Python RLE twin in
+``core/zigzag.py`` where the library does not build.
+
+The reference's two text files are the parity format (bitstream.py,
+byte-exact with decoder.py:651-670); this single-file binary container is
+the production form the SURVEY planned behind the same serializer interface
+(SURVEY.md section 7.4): ~3-7x smaller than the text files and parsed into
+the device-shaped array interchange (bitstream.FrameMVArrays /
+FrameResArrays) by pure batched NumPy + the C++ RLE runtime — no per-block
+text walk at all.  Both engines decode either format identically: the
+container stores exactly the arrays the text format round-trips (split
+flags, MVs, per-row QPs, diagonal-RLE coefficient lists), so a clip written
+as text and as binary reconstructs bit-identically.
+
+Layout (little-endian):
+
+    magic  b"SOTPB1\\n"
+    u32    height, width, frames, block_size, flags
+           flags bit0 = rc_active, bit1 = has ROI map
+    [i16   roi_qp_map[nb]]                  (bit1)
+    per frame:
+      u8   frame_type
+      u8   split bitmap  (ceil(nb/8) bytes, np.packbits order)
+      i16  mv[nb*3]                         (intra: component 0, rest 0)
+      u32  n_split
+      i16  smv[n_split*4*3]                 (split blocks, raster order)
+      [i16 row_qps[block_rows]]             (rc_active)
+      u32  offs_f[n_unsplit+1]; i16 vals_f  (full-block RLE lists)
+      u32  offs_q[4*n_split+1]; i16 vals_q  (quad RLE lists, Z order)
+
+RLE lists are the reference's diagonal-scan run-length code (core/zigzag);
+every symbol fits i16 (|qtc| <= 4080 for the orthonormal 16x16 DCT of
++-255 residuals, run headers bounded by the block size — out-of-range
+coefficients raise at write time instead of truncating).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from streamoptima_tpu_torch import native
+from streamoptima_tpu_torch.bitstream import FrameMVArrays, FrameResArrays, _reconcile_roi
+from streamoptima_tpu_torch.bitstream import widen_mvs as BS_widen
+from streamoptima_tpu_torch.core.zigzag import rle_decode_block, rle_encode_block
+from streamoptima_tpu_torch.engine import list_to_mvs_np, list_to_res_np
+
+MAGIC = b"SOTPB1\n"
+
+
+def _rle_encode_batch(blocks) -> tuple[np.ndarray, np.ndarray]:
+    """(nblocks, n, n) -> (values i64, offsets i64) via the C++ runtime,
+    Python twin as fallback."""
+    if blocks.shape[0] == 0:
+        return np.zeros(0, np.int64), np.zeros(1, np.int64)
+    r = native.rle_encode_blocks(blocks)
+    if r is not None:
+        return r
+    vals, offs = [], [0]
+    for b in blocks:
+        e = rle_encode_block(np.asarray(b))
+        vals.extend(int(v) for v in e)
+        offs.append(len(vals))
+    return np.asarray(vals, np.int64), np.asarray(offs, np.int64)
+
+
+def _rle_decode_batch(vals, offs, n: int) -> np.ndarray:
+    nblocks = len(offs) - 1
+    if nblocks == 0:
+        return np.zeros((0, n, n), np.int64)
+    r = native.rle_decode_blocks(vals.astype(np.int64), offs.astype(np.int64), n)
+    if r is not None:
+        return r
+    return np.stack([
+        rle_decode_block(list(vals[offs[i]: offs[i + 1]]), n) for i in range(nblocks)
+    ])
+
+
+def _i16(a, what: str) -> np.ndarray:
+    a = np.asarray(a)
+    if a.size and (a.min() < -32768 or a.max() > 32767):
+        raise ValueError(f"{what} outside int16 range — refusing to truncate")
+    return a.astype("<i2")
+
+
+class _Writer:
+    def __init__(self, f):
+        self.f = f
+
+    def arr(self, a):
+        self.f.write(np.ascontiguousarray(a).tobytes())
+
+    def u32(self, *vs):
+        self.arr(np.asarray(vs, "<u4"))
+
+
+class _Reader:
+    def __init__(self, buf):
+        self.buf = buf
+        self.pos = 0
+
+    def arr(self, dtype, count):
+        dt = np.dtype(dtype)
+        end = self.pos + dt.itemsize * count
+        if end > len(self.buf):
+            raise ValueError("truncated binary bitstream")
+        out = np.frombuffer(self.buf, dtype=dt, count=count, offset=self.pos)
+        self.pos = end
+        return out
+
+    def u32(self, count=1):
+        v = self.arr("<u4", count)
+        return int(v[0]) if count == 1 else v
+
+
+def write_binary(path, frame_types, mvs_per_frame, qp_rows_per_frame,
+                 residuals_per_frame, cfg) -> None:
+    """Write the container.  Frame structures may be the array interchange
+    (FrameMVArrays / FrameResArrays — encode(package=False) via
+    engine.frame_arrays_of, or read_binary/read_bitstream output) or the
+    list format; both normalize through engine.list_to_*_np."""
+    nb, bs, sbs = cfg.n_blocks, cfg.block_size, cfg.sub_block_size
+    n = len(frame_types)
+    flags = (1 if cfg.rc_active else 0) | (2 if cfg.roi_qp_map is not None else 0)
+    with open(path, "wb") as f:
+        w = _Writer(f)
+        f.write(MAGIC)
+        w.u32(cfg.height, cfg.width, n, bs, flags)
+        if cfg.roi_qp_map is not None:
+            w.arr(_i16(np.asarray(cfg.roi_qp_map).reshape(-1), "roi_qp_map"))
+        for i in range(n):
+            ft = int(frame_types[i])
+            mv, split, smv = list_to_mvs_np(mvs_per_frame[i], ft, nb)
+            qf, qq = list_to_res_np(residuals_per_frame[i], nb, bs, sbs)
+            m3, s3 = BS_widen(ft, mv, smv, dtype=np.int64)
+            split = np.asarray(split, bool)
+            # canonical form = the text format's information content: a
+            # block carries EITHER its full MV or its quad MVs (the array
+            # package also holds the unchosen variant's winners; the list
+            # package zeroes them) — zero the unchosen slots so both
+            # package kinds serialize byte-identically and decode exactly
+            # like a text-parsed stream
+            m3[split] = 0
+            f.write(np.uint8(ft).tobytes())
+            w.arr(np.packbits(split))
+            w.arr(_i16(m3.reshape(-1), "mv"))
+            si = np.flatnonzero(split)
+            w.u32(si.size)
+            w.arr(_i16(s3[si].reshape(-1), "sub_mv"))
+            if cfg.rc_active:
+                q = np.asarray(qp_rows_per_frame[i])
+                if q.shape[0] != cfg.block_rows:
+                    raise ValueError("rc stream needs one QP per block row")
+                w.arr(_i16(q, "row_qps"))
+            vals_f, offs_f = _rle_encode_batch(np.asarray(qf)[~split].astype(np.int64))
+            vals_q, offs_q = _rle_encode_batch(
+                np.asarray(qq)[si].reshape(-1, sbs, sbs).astype(np.int64))
+            w.arr(offs_f.astype("<u4"))
+            w.arr(_i16(vals_f, "coefficients"))
+            w.arr(offs_q.astype("<u4"))
+            w.arr(_i16(vals_q, "coefficients"))
+
+
+def read_binary(path, cfg):
+    """Read the container -> (frame_types, mvs, qps, residuals) in the array
+    interchange (mvs: FrameMVArrays, residuals: FrameResArrays) — the same
+    contract as bitstream.read_bitstream.  ROI is reconciled with cfg
+    exactly like the text reader (adopt / loud mismatch).  Dimension or
+    block-size disagreement with cfg raises."""
+    nb, bs, sbs = cfg.n_blocks, cfg.block_size, cfg.sub_block_size
+    with open(path, "rb") as f:
+        buf = f.read()
+    if buf[: len(MAGIC)] != MAGIC:
+        raise ValueError("not a SOTPB1 binary bitstream")
+    r = _Reader(buf)
+    r.pos = len(MAGIC)
+    h, w_, n, bs_f, flags = (int(v) for v in r.u32(5))
+    if (h, w_, bs_f) != (cfg.height, cfg.width, bs):
+        raise ValueError(
+            f"stream is {w_}x{h} bs={bs_f} but cfg is {cfg.width}x{cfg.height} bs={bs}"
+        )
+    if n != cfg.frames:
+        raise ValueError(f"stream carries {n} frames but cfg.frames is {cfg.frames}")
+    rc = bool(flags & 1)
+    if rc != cfg.rc_active:
+        raise ValueError("stream and cfg disagree on rate-control activity")
+    stream_roi = None
+    if flags & 2:
+        stream_roi = r.arr("<i2", nb).astype(np.int32).reshape(cfg.block_rows, cfg.blocks_per_row)
+    _reconcile_roi(stream_roi, cfg)
+    frame_types, mvs, qps, residuals = [], [], [], []
+    for _ in range(n):
+        ft = int(r.arr("u1", 1)[0])
+        split = np.unpackbits(r.arr("u1", -(-nb // 8)))[:nb].astype(bool)
+        m3 = r.arr("<i2", nb * 3).astype(np.int32).reshape(nb, 3)
+        n_split = r.u32()
+        s3 = np.zeros((nb, 4, 3), np.int32)
+        si = np.flatnonzero(split)
+        if n_split != si.size:
+            raise ValueError("split bitmap and sub-MV count disagree")
+        s3[si] = r.arr("<i2", n_split * 12).astype(np.int32).reshape(n_split, 4, 3)
+        qp = [int(v) for v in r.arr("<i2", cfg.block_rows)] if rc else []
+        def _offsets(count):
+            # file-derived offsets reach C++ pointer arithmetic — validate
+            # shape here (0-start, monotone) and the window bound below once
+            # the value count is known, so corruption raises instead of
+            # reading out of bounds
+            o = r.arr("<u4", count).astype(np.int64)
+            if o[0] != 0 or (np.diff(o) < 0).any():
+                raise ValueError("corrupt binary bitstream: non-monotone RLE offsets")
+            return o
+
+        offs_f = _offsets(nb - n_split + 1)
+        vals_f = r.arr("<i2", int(offs_f[-1]))
+        offs_q = _offsets(4 * n_split + 1)
+        vals_q = r.arr("<i2", int(offs_q[-1]))
+        qf = np.zeros((nb, bs, bs), np.int16)
+        qq = np.zeros((nb, 4, sbs, sbs), np.int16)
+        qf[~split] = _rle_decode_batch(vals_f, offs_f, bs).astype(np.int16)
+        qq[si] = _rle_decode_batch(vals_q, offs_q, sbs).reshape(-1, 4, sbs, sbs).astype(np.int16)
+        frame_types.append(ft)
+        mvs.append(FrameMVArrays(ft, m3, split, s3))
+        qps.append(qp)
+        residuals.append(FrameResArrays(split, qf, qq))
+    return frame_types, mvs, qps, residuals

@@ -7,11 +7,14 @@ Counterpart of ``streamoptima_tpu.codec.VideoCodec`` for the main path::
     codec.transmit_bitstream("mv.txt", "res.txt")     # text bitstream
     frames = VideoCodec(cfg, device="cuda").decode_bitstream("mv.txt", "res.txt")
     # or in two steps: decode(*parse_bitstream("mv.txt", "res.txt"))
+    codec.transmit_bitstream_binary("clip.sob")       # one-file binary container
+    frames = VideoCodec(cfg, device="cuda").decode_bitstream_binary("clip.sob")
     codec.save_decoded_frames("out.yuv")
 
-The bitstream is written through ``bitstream.write_bitstream`` with the
-array-form interchange (byte-identical to the JAX engine's files); the
-binary container waits for a later port.
+The text bitstream is written through ``bitstream.write_bitstream`` and the
+binary container (format SOTPB1) through ``binstream.write_binary``, both
+with the array-form interchange and byte-identical to the JAX package's
+files.
 
 With ``mesh=`` in place of ``device=`` (``parallel.make_mesh``), encode and
 decode go through ``parallel.ShardedCodec``, GOP- and row-tile-sharded over
@@ -20,16 +23,19 @@ the mesh's devices, with the same package and streams::
     mesh = make_mesh(cfg, devices=["cuda:0"] * 6)   # or ["cpu"] * 8
     codec = VideoCodec(cfg, y_frames, mesh=mesh)
 
-A mesh decodes a stream whose GOPs are not the mesh's (intra frames off
-``intra_dur``: another encoder's, or scene-change promotion's) on one
-device, a ``TorchCodec`` on the mesh's first device, as the JAX facade
-takes its single-chip decoder for them.  The choice is made from the
-stream's frame types before anything is decoded.
+The mesh runs every tool set a device runs but the parallel modes: rate
+control, scene-change promotion, two-pass and ROI maps included.  A mesh
+decodes a stream whose GOPs are not the mesh's (a GOP opening off
+``intra_dur``: another encoder's stream) on one device, a ``TorchCodec`` on
+the mesh's first device, as the JAX facade takes its single-chip decoder
+for them; a promoted stream keeps its GOP openers and stays on the mesh.
+The choice is made from the stream's frame types before anything is
+decoded.
 
-ROI streams are self-describing: ``parse_bitstream`` adopts a stream's
-per-block QP-offset header into ``cfg`` (``bitstream.read_bitstream``), and
-the decoders, which hold the map from their construction, are rebuilt
-whenever the effective map changed.
+ROI streams are self-describing: the readers adopt a stream's per-block
+QP-offset header into ``cfg`` (``bitstream.read_bitstream``,
+``binstream.read_binary``), and the decoders, which hold the map from their
+construction, are rebuilt whenever the effective map changed.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ import time
 import numpy as np
 import torch
 
+from streamoptima_tpu_torch import binstream as BIN
 from streamoptima_tpu_torch import bitstream as BS
 from streamoptima_tpu_torch import metrics
 from streamoptima_tpu_torch.config import CodecConfig
@@ -82,8 +89,10 @@ class VideoCodec:
         self._pkg = pkg
         return pkg
 
-    def transmit_bitstream(self, mv_file, residual_file, raw_mv_file=None) -> None:
-        """Write the two text bitstream files of the last encode."""
+    def _stream(self) -> tuple:
+        """The last encode's (frame_types, mvs, qp_rows, residuals), for the
+        writers: the array interchange of a ``package=False`` encode, else
+        the list interchange."""
         if self._pkg is None:
             raise ValueError("encode() first")
         p = self._pkg
@@ -92,8 +101,17 @@ class VideoCodec:
             mvs, res = [m for m, _ in pairs], [r for _, r in pairs]
         else:
             mvs, res = p["MVS per Frame"], p["approx residual"]
-        BS.write_bitstream(mv_file, residual_file, p["frame_type_seq"], mvs, p["Qp_per_row_per_frame"],
-                           res, self.cfg, raw_mv_path=raw_mv_file)
+        return p["frame_type_seq"], mvs, p["Qp_per_row_per_frame"], res
+
+    def transmit_bitstream(self, mv_file, residual_file, raw_mv_file=None) -> None:
+        """Write the two text bitstream files of the last encode."""
+        fts, mvs, qps, res = self._stream()
+        BS.write_bitstream(mv_file, residual_file, fts, mvs, qps, res, self.cfg, raw_mv_path=raw_mv_file)
+
+    def transmit_bitstream_binary(self, path) -> None:
+        """Write the last encode as the one-file binary container
+        (``binstream``, format SOTPB1)."""
+        BIN.write_binary(path, *self._stream(), self.cfg)
 
     # ----------------------------------------------------------- decoding
     def decode(self, frame_types=None, residuals=None, qp_rows=None, mvs=None) -> np.ndarray:
@@ -109,23 +127,32 @@ class VideoCodec:
         dec = self._dec_mesh if self._dec_mesh is not None and self._dec_mesh.gop_regular(frame_types) else self._dec
         return self._finish(dec.decode(frame_types, residuals, qp_rows, mvs))
 
-    def parse_bitstream(self, mv_file, residual_file) -> tuple:
-        """Parse the two text bitstream files into ``decode``'s arguments
-        (frame_types, residuals, qp_rows, mvs), on the host.  A stream that
-        changes the effective ROI map (adopted from its header, or cleared)
-        rebuilds the decoders (``streamoptima_tpu.codec`` does the same)."""
+    def _read(self, read) -> tuple:
+        """Run a bitstream reader and return ``decode``'s arguments
+        (frame_types, residuals, qp_rows, mvs), on the host.  The readers
+        adopt a stream's ROI map into ``cfg`` (or clear an adopted one); a
+        stream that changes the effective map rebuilds the decoders
+        (the JAX package's facade does the same)."""
         before = None if self.cfg.roi_qp_map is None else np.asarray(self.cfg.roi_qp_map)
-        fts, mvs, qps, res = BS.read_bitstream(mv_file, residual_file, self.cfg)
+        fts, mvs, qps, res = read()
         after = None if self.cfg.roi_qp_map is None else np.asarray(self.cfg.roi_qp_map)
         if (before is None) != (after is None) or (before is not None and not np.array_equal(before, after)):
             self._dec = TorchCodec(self.cfg, device=self.device)
             if self._dec_mesh is not None:
-                self._dec_mesh = ShardedCodec(self.cfg, self.mesh)  # refuses an ROI map by name
+                self._dec_mesh = ShardedCodec(self.cfg, self.mesh)
         return fts, res, qps, mvs
+
+    def parse_bitstream(self, mv_file, residual_file) -> tuple:
+        """Parse the two text bitstream files into ``decode``'s arguments."""
+        return self._read(lambda: BS.read_bitstream(mv_file, residual_file, self.cfg))
 
     def decode_bitstream(self, mv_file, residual_file) -> np.ndarray:
         """File-level decode of the two text bitstream files."""
         return self.decode(*self.parse_bitstream(mv_file, residual_file))
+
+    def decode_bitstream_binary(self, path) -> np.ndarray:
+        """File-level decode of the binary container."""
+        return self.decode(*self._read(lambda: BIN.read_binary(path, self.cfg)))
 
     def _finish(self, frames) -> np.ndarray:
         self._decoded = torch.stack(frames).cpu().numpy()

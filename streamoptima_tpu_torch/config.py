@@ -95,6 +95,9 @@ class CodecConfig:
         if self.roi_qp_map is not None and self.engine != "jax":
             raise ValueError("roi_qp_map is a native-engine feature (the reference's README "
                              "promises ROI but ships no implementation)")
+        if self.rc_flag is not None and self.rc_flag > 1 and self.intra_thresh is None:
+            # the engines compare every inter frame's size with it
+            raise ValueError("scene-change promotion (rc_flag > 1) requires intra_thresh")
         if self.two_pass:
             if self.engine != "jax":
                 raise ValueError("two_pass is a native-engine feature (the reference only gathers "

@@ -338,20 +338,21 @@ class TorchCodec:
         return out
 
     # ------------------------------------------------------------ encode
-    def _encode_pass(self, ftypes_fixed: list | None = None, rqps: list | None = None, light: bool = False):
+    def _encode_pass(self, ftypes_fixed: list | None = None, rqps: np.ndarray | None = None, light: bool = False):
         """One encode pass over the clip (``JaxCodec._encode_pass``).
 
         ``ftypes_fixed`` / ``rqps``: two-pass's second pass, with pass 1's
-        frame types (promotion is not decided again) and each frame's row QPs
-        (device tensors).  ``light`` keeps only each frame's row bits (pass
-        1).  Returns (per_frame, ftypes)."""
+        frame types (promotion is not decided again) and the clip's
+        (n, block_rows) row QPs, uploaded here in one copy.  ``light`` keeps
+        only each frame's row bits (pass 1).  Returns (per_frame, ftypes)."""
         cfg = self.cfg
         ftypes: list[int] = []
         per_frame: list[dict] = []
         refs = [self._plane128()]
         initial = True
         self.fast_me_passes = []
-        promote = ftypes_fixed is None and cfg.rc_flag is not None and cfg.rc_flag > 1
+        promote = promotes(cfg, ftypes_fixed)
+        rqps = None if rqps is None else torch.from_numpy(rqps).to(self.device)
         g_carry = None  # fast ME: the last inter frame's converged MVPs warm-start the next
         for i in range(cfg.frames):
             cur = self._y_dev[i]
@@ -387,21 +388,11 @@ class TorchCodec:
         """Encode the clip.  ``package=False`` leaves the per-frame outputs as
         device tensors under "per_frame" instead of building the list-form
         "MVS per Frame" / "approx residual" interchange.  Two-pass is
-        clip-level (``JaxCodec.encode``): pass 1 at the table QPs, its row
-        bits in one device-to-host copy, the second pass's row QPs on the
-        host, pass 2 with pass 1's frame types."""
+        clip-level (``encode_passes``)."""
         if self._y_dev is None:
             raise ValueError("construct with y_frames to encode")
         cfg = self.cfg
-        if cfg.two_pass and cfg.rc_active:
-            pf1, ftypes1 = self._encode_pass(light=True)
-            row_bits = torch.stack([o["row_bits"] for o in pf1]).cpu().numpy()  # the one copy
-            rqps = [rc.second_pass_row_qps(cfg, row_bits[i], t, self.row_qps_np[t]) for i, t in enumerate(ftypes1)]
-            per_frame, ftypes = self._encode_pass(ftypes1, [torch.from_numpy(q).to(self.device) for q in rqps])
-            qp_rows = [[int(q) for q in r] for r in rqps]
-        else:
-            per_frame, ftypes = self._encode_pass()
-            qp_rows = [[int(q) for q in self.row_qps_np[t]] if cfg.rc_active else [] for t in ftypes]
+        per_frame, ftypes, qp_rows = encode_passes(cfg, self.row_qps_np, self._encode_pass)
         pkg = build_package(cfg, per_frame, ftypes, "full" if package else "arrays", qp_rows)
         if self.fast:
             pkg["fast_me_passes"] = list(self.fast_me_passes)
@@ -447,6 +438,32 @@ class TorchCodec:
 
 
 # ------------------------------------------- shared with the mesh (module level)
+def promotes(cfg: CodecConfig, ftypes_fixed: list | None) -> bool:
+    """Whether a pass decides scene-change promotion: ``rc_flag > 1``, except
+    in two-pass's second pass, which keeps pass 1's frame types."""
+    return ftypes_fixed is None and cfg.rc_flag is not None and cfg.rc_flag > 1
+
+
+def encode_passes(cfg: CodecConfig, row_qps_np, run_pass) -> tuple[list, list, list]:
+    """The clip's encode passes (``JaxCodec.encode``), for one device and the
+    mesh alike.  ``run_pass(ftypes_fixed, rqps, light) -> (per_frame,
+    ftypes)`` runs one pass; ``rqps`` is a host (n, block_rows) array.
+
+    Two-pass is clip-level: pass 1 light at the table QPs (promotion decided
+    there), its row bits in one device-to-host copy, the second pass's row
+    QPs on the host, pass 2 with pass 1's frame types.  Returns (per_frame,
+    ftypes, qp_rows): pass 2's rows under two-pass, the table rows of each
+    frame's type under rate control, ``[]`` per frame without it."""
+    if cfg.two_pass and cfg.rc_active:
+        pf1, ftypes1 = run_pass(None, None, True)
+        row_bits = torch.stack([o["row_bits"] for o in pf1]).cpu().numpy()  # the one copy
+        rqps = np.stack([rc.second_pass_row_qps(cfg, row_bits[i], t, row_qps_np[t]) for i, t in enumerate(ftypes1)])
+        per_frame, ftypes = run_pass(ftypes1, rqps, False)
+        return per_frame, ftypes, rqps.tolist()
+    per_frame, ftypes = run_pass(None, None, False)
+    return per_frame, ftypes, [row_qps_np[t].tolist() if cfg.rc_active else [] for t in ftypes]
+
+
 def fifo_push(refs: list, frame: torch.Tensor, nref: int) -> None:
     """Reference FIFO update (Encoder.py:1864-1867): append the newest
     reconstruction, evicting the oldest once ``nref`` are held.  The one

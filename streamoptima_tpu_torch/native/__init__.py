@@ -57,6 +57,14 @@ def _load():
         ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_void_p, ctypes.c_int64,
     ]
+    lib.rle_encode_blocks.restype = ctypes.c_int64
+    lib.rle_encode_blocks.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.rle_decode_blocks.restype = None
+    lib.rle_decode_blocks.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p,
+    ]
     lib.encode_mv_line.restype = ctypes.c_int64
     lib.encode_mv_line.argtypes = [
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
@@ -105,6 +113,38 @@ def encode_residual_line(qtc_full, qtc_quads, split, numpy_repr: bool) -> str | 
     if n < 0:
         return None
     return buf[:n].tobytes().decode("ascii")
+
+
+def rle_encode_blocks(blocks) -> tuple[np.ndarray, np.ndarray] | None:
+    """Batch RLE of (nblocks, n, n) blocks: (the values concatenated, int64;
+    offsets (nblocks + 1,), int64).  Returns None when the native library
+    is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    b = np.ascontiguousarray(np.asarray(blocks), dtype=np.int64)
+    nblocks, n = b.shape[0], b.shape[-1]
+    out = np.empty(nblocks * (2 * n * n + 1), dtype=np.int64)
+    offs = np.empty(nblocks + 1, dtype=np.int64)
+    total = lib.rle_encode_blocks(b.ctypes.data, ctypes.c_int64(nblocks), ctypes.c_int32(n), out.ctypes.data,
+                                  offs.ctypes.data)
+    return out[:total].copy(), offs
+
+
+def rle_decode_blocks(data, offsets, n: int) -> np.ndarray | None:
+    """Batch RLE decode: block i from ``data[offsets[i]:offsets[i + 1]]``
+    into (nblocks, n, n) int64.  Returns None when the native library is
+    unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    d = np.ascontiguousarray(np.asarray(data), dtype=np.int64)
+    offs = np.ascontiguousarray(np.asarray(offsets), dtype=np.int64)
+    nblocks = len(offs) - 1
+    out = np.empty((nblocks, n, n), dtype=np.int64)
+    lib.rle_decode_blocks(d.ctypes.data, offs.ctypes.data, ctypes.c_int64(nblocks), ctypes.c_int32(n),
+                          out.ctypes.data)
+    return out
 
 
 def encode_mv_line(frame_type: int, mv, split, smv, qps, rc_active: bool,

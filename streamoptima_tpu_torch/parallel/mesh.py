@@ -28,9 +28,25 @@ device in turn.
 
 The mesh runs the full search and fast ME (whole-pel or half-pel, VBS on or
 off, up to eight references) with intra mode 0, and intra mode 1 on the
-"data" axis alone.  Rate control (per-row, scene-change promotion,
-two-pass) and ROI maps raise ``NotImplementedError`` naming the feature:
-they come with the mesh's rate-control slice.
+"data" axis alone, with rate control: per-row QPs from the rate tables,
+scene-change promotion (``rc_flag > 1``), clip-level two-pass and ROI maps.
+A frame's row QPs are one (block_rows,) vector; each tile takes its rows
+of it and turns them into block QPs with its own ROI rows
+(``TorchCodec._frame_qps``), so the block QPs are the single device's.
+
+Promotion: an inter frame runs on every tile first; where the merged
+frame's size (the tiles' sizes summed) exceeds ``intra_thresh``, every tile
+codes it again intra and empties its reference FIFO.  That is one size read
+per inter frame, as on one device.  The JAX mesh batches the GOPs of its
+data rows in one SPMD program and selects per GOP between the inter and the
+intra result (``_select_gops``); here the host runs each GOP in turn on its
+data row, so each GOP decides for itself and no select is needed.
+
+Two-pass: pass 1 is the GOP loop at the table QPs, promotion decided there;
+its merged row bits come to the host in one copy, ``rc.second_pass_row_qps``
+gives every frame's row QPs, and pass 2 codes with pass 1's frame types and
+those rows (``engine.encode_passes``, which ``TorchCodec.encode`` runs too).  The decode reads the stream's row QPs
+and hands each tile its rows.
 """
 from __future__ import annotations
 
@@ -41,8 +57,8 @@ import torch
 
 from streamoptima_tpu_torch import metrics
 from streamoptima_tpu_torch.config import CodecConfig
-from streamoptima_tpu_torch.engine import (TorchCodec, build_package, fast_chain, fifo_push, pack_stream,
-                                           unpack_payload)
+from streamoptima_tpu_torch.engine import (TorchCodec, build_package, encode_passes, fast_chain, fifo_push,
+                                           pack_stream, promotes, unpack_payload)
 
 #: per-frame outputs that concatenate over tiles, in block raster or row order
 _TILED_KEYS = ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "row_bits", "recon", "mae")
@@ -117,23 +133,13 @@ def make_mesh(cfg: CodecConfig, devices=None, tile: int | None = None) -> Mesh:
 
 
 def check_mesh_slice(cfg: CodecConfig) -> None:
-    """Refuse, by name, what the mesh does not run: what the JAX mesh
-    refuses (``ValueError``) and what later slices of the port bring
-    (``NotImplementedError``)."""
+    """Refuse, by name, what the mesh does not run (``ValueError``): the host
+    reference engine and the reference's parallel modes, as the JAX mesh
+    does."""
     if cfg.compat:
         raise ValueError("sharded encoding requires the native engine (engine='jax')")
     if cfg.parallel_mode != 0:
         raise ValueError("mesh sharding replaces the reference's parallel modes: parallel_mode must be 0")
-    later = {  # two-pass and promotion first: both imply rc_flag
-        "two_pass": cfg.two_pass,
-        "rc_flag > 1 (scene-change promotion)": cfg.rc_flag is not None and cfg.rc_flag > 1,
-        "rc_flag": cfg.rc_active,
-        "roi_qp_map": cfg.roi_qp_map is not None,
-    }
-    for name, on in later.items():
-        if on:
-            raise NotImplementedError(f"{name} is not ported to the mesh yet: it comes with the mesh's rate-control "
-                                      "slice (one device runs it: TorchCodec)")
 
 
 class ShardedCodec:
@@ -160,8 +166,9 @@ class ShardedCodec:
         self.cfg, self.mesh, self.tile_comm = cfg, mesh, tile_comm
         self.y = None if y_frames is None else np.asarray(y_frames, dtype=np.uint8)
         self.gl = cfg.intra_dur  # GOP length
-        self.nb_t = cfg.block_rows // self.ntile * cfg.blocks_per_row
-        self.h_t = cfg.block_rows // self.ntile * cfg.block_size
+        self.nbr_t = cfg.block_rows // self.ntile
+        self.nb_t = self.nbr_t * cfg.blocks_per_row
+        self.h_t = self.nbr_t * cfg.block_size
         self.halo = cfg.search_range + 1
         if self.ntile > 1 and tile_comm == "halo" and self.halo > self.h_t:
             raise ValueError(f"the search halo {self.halo} exceeds the {self.h_t}-row tile; lower the tile count")
@@ -174,6 +181,8 @@ class ShardedCodec:
         #: fast ME: the passes of each inter frame of the last encode, in frame order
         self.fast_me_passes: list[int] = []
         self._g_carry: list = []  # fast ME, per data row: its last inter frame's MVPs per tile
+        #: the frame's per-row QPs of each frame type (the rate tables' or qp), on the host
+        self.row_qps_np = self._tiles[0][0].row_qps_np
 
     # ----------------------------------------------------------- shared
     def _bands(self, fifos: list, d: int, t: int, comm: str) -> tuple[list, int]:
@@ -184,12 +193,23 @@ class ShardedCodec:
             return [_all_gather([f[r] for f in fifos], dev) for r in range(len(fifos[t]))], t * self.h_t
         return [_halo_band([f[r] for f in fifos], t, self.halo, dev) for r in range(len(fifos[t]))], self.halo
 
+    def _tile_rows(self, rows: np.ndarray, d: int, frames: range) -> list:
+        """Each tile's block rows of ``frames``' row QPs (an (n, block_rows)
+        host array), on its device on data row ``d``: one upload per tile."""
+        sl = slice(frames[0], frames[-1] + 1)
+        return [torch.from_numpy(np.ascontiguousarray(rows[sl, t * self.nbr_t:(t + 1) * self.nbr_t])).to(dev)
+                for t, dev in enumerate(self.mesh.devices[d])]
+
+    def _size(self, outs: list) -> torch.Tensor:
+        """One frame's size: its tiles' sizes summed, on the first device."""
+        return torch.stack([o["size"].to(self.home) for o in outs]).sum()
+
     def _merge(self, outs: list, curs: list) -> dict:
         """One frame's tile outputs as one frame's output on the first device:
         block rasters and rows concatenated in tile order, sizes summed, PSNR
         on the whole frame."""
         m = {k: torch.cat([o[k].to(self.home) for o in outs]) for k in _TILED_KEYS}
-        m["size"] = torch.stack([o["size"].to(self.home) for o in outs]).sum()
+        m["size"] = self._size(outs)
         m["psnr"] = metrics.psnr(_all_gather(curs, self.home), m["recon"])
         return m
 
@@ -205,11 +225,12 @@ class ShardedCodec:
                 part = np.ascontiguousarray(self.y[idx, t * self.h_t:(t + 1) * self.h_t])
                 self._frames_dev[d][t] = torch.from_numpy(part).to(self.mesh.devices[d, t])
 
-    def _inter_tiles(self, d: int, curs: list, fifos: list) -> list:
+    def _inter_tiles(self, d: int, curs: list, fifos: list, qps: list) -> list:
         """One inter frame on data row ``d``: each tile's step against its
-        reference bands.  Fast ME reads whole frames and solves the frame's
-        chain over the row's tiles first (``fast_chain``), warm-started from
-        the row's last inter frame; each tile then confirms at its MVPs."""
+        reference bands at its block QPs ``qps``.  Fast ME reads whole frames
+        and solves the frame's chain over the row's tiles first
+        (``fast_chain``), warm-started from the row's last inter frame; each
+        tile then confirms at its MVPs."""
         engines = self._tiles[d]
         comm = "all_gather" if self.fast else self.tile_comm
         refs = [self._bands(fifos, d, t, comm) for t in range(self.ntile)]
@@ -219,53 +240,83 @@ class ShardedCodec:
             mvps, passes = fast_chain(engines, curs, planes, self._g_carry[d])
             self.fast_me_passes.append(passes)
             self._g_carry[d] = mvps
-        return [e._inter_step(c, p, band_row0=b0, mvp=g)
-                for e, c, p, (_, b0), g in zip(engines, curs, planes, refs, mvps)]
+        return [e._inter_step(c, p, band_row0=b0, qps=q, mvp=g)
+                for e, c, p, (_, b0), q, g in zip(engines, curs, planes, refs, qps, mvps)]
 
-    def _encode_gop_local(self, d: int, frames: range) -> list:
+    def _encode_gop_local(self, d: int, frames: range, ftypes_fixed: list | None = None,
+                          rqps: np.ndarray | None = None, light: bool = False) -> tuple[list, list]:
         """Encode one GOP on data row ``d``: the intra frame, then each inter
-        frame against the tiles' reference FIFOs; the merged per-frame
-        outputs."""
-        engines, gl = self._tiles[d], self.gl
+        frame against the tiles' reference FIFOs.  Under promotion an inter
+        frame whose merged size exceeds ``intra_thresh`` is coded again intra
+        on every tile, and the FIFOs start over from it.  ``ftypes_fixed`` /
+        ``rqps``: two-pass's second pass, with pass 1's frame types and the
+        clip's (n, block_rows) row QPs.  ``light`` keeps only each frame's row
+        bits (pass 1).  Returns the merged per-frame outputs and the frame
+        types."""
+        cfg, engines, gl = self.cfg, self._tiles[d], self.gl
+        promote = promotes(cfg, ftypes_fixed)
+        rows = None if rqps is None else self._tile_rows(rqps, d, frames)
+
+        def qps(k: int, ftype: int) -> list:  # each tile's block QPs of the GOP's frame k
+            if rows is None:
+                return [e.qps_by_type[ftype] for e in engines]
+            return [e._frame_qps(r[k], ftype) for e, r in zip(engines, rows)]
+
         fifos = [[] for _ in engines]
-        outs = []
+        outs, ftypes = [], []
         for k, i in enumerate(frames):
             pos = i // gl // self.ndata * gl + k  # frame i among its data row's staged frames
             curs = [self._frames_dev[d][t][pos] for t in range(self.ntile)]
-            if k == 0:
-                tile_outs = [e._intra_step(c) for e, c in zip(engines, curs)]
+            intra = k == 0 if ftypes_fixed is None else ftypes_fixed[i] == 0
+            if intra:
+                tile_outs, ftype = [e._intra_step(c, q) for e, c, q in zip(engines, curs, qps(k, 0))], 0
             else:
-                tile_outs = self._inter_tiles(d, curs, fifos)
-            outs.append(self._merge(tile_outs, curs))
+                tile_outs, ftype = self._inter_tiles(d, curs, fifos, qps(k, 1)), 1
+                # scene-change promotion: one size read per inter frame, as on one device
+                if promote and int(self._size(tile_outs)) > cfg.intra_thresh:
+                    tile_outs, ftype = [e._intra_step(c, q) for e, c, q in zip(engines, curs, qps(k, 0))], 0
+            ftypes.append(ftype)
+            if light:
+                outs.append({"row_bits": torch.cat([o["row_bits"].to(self.home) for o in tile_outs])})
+            else:
+                outs.append(self._merge(tile_outs, curs))
             for fifo, o in zip(fifos, tile_outs):  # after every tile's step: the halos are the last frame's
-                fifo_push(fifo, o["recon"], self.cfg.n_ref_frames)
-        return outs
+                if ftype == 0:
+                    fifo.clear()
+                fifo_push(fifo, o["recon"], cfg.n_ref_frames)
+        return outs, ftypes
 
-    def _run_scan_batches(self) -> list:
-        """Every GOP's merged per-frame outputs: GOPs in batches of ``ndata``,
-        GOP g on data row g % ndata.  The last batch and the last GOP run
-        only their real frames: the JAX mesh pads them with the last frame
-        to keep its compiled shapes and drops the padding's outputs."""
+    def _run_scan_batches(self, ftypes_fixed: list | None = None, rqps: np.ndarray | None = None,
+                          light: bool = False) -> tuple[list, list]:
+        """Every GOP's merged per-frame outputs and frame types: GOPs in
+        batches of ``ndata``, GOP g on data row g % ndata (arguments: those
+        of ``_encode_gop_local``).  The last batch and the last GOP run only
+        their real frames: the JAX mesh pads them with the last frame to keep
+        its compiled shapes and drops the padding's outputs."""
         n, gl = self.cfg.frames, self.gl
-        per_frame = []
+        per_frame, ftypes = [], []
         self.fast_me_passes = []
         self._g_carry = [[None] * self.ntile for _ in range(self.ndata)]
         for g in range(math.ceil(n / gl)):
-            per_frame += self._encode_gop_local(g % self.ndata, range(g * gl, min(n, (g + 1) * gl)))
-        return per_frame
+            outs, types = self._encode_gop_local(g % self.ndata, range(g * gl, min(n, (g + 1) * gl)), ftypes_fixed,
+                                                 rqps, light)
+            per_frame += outs
+            ftypes += types
+        return per_frame, ftypes
 
     def encode(self, package: bool = True, fetch: str = "full") -> dict:
         """Full-clip encode: ``TorchCodec.encode``'s package.  ``fetch``:
         "full" (the list interchange, or with ``package=False`` the device
         tensors under "per_frame"), "light" (neither) or "metrics" (no
-        reconstructions either)."""
+        reconstructions either).  Two-pass is clip-level
+        (``engine.encode_passes``), over the GOP loop."""
         if self.y is None:
             raise ValueError("construct with y_frames to encode")
         if self._frames_dev is None:
             self._stage_frames()
-        ftypes = [0 if i % self.gl == 0 else 1 for i in range(self.cfg.frames)]
-        pkg = build_package(self.cfg, self._run_scan_batches(), ftypes,
-                            "arrays" if fetch == "full" and not package else fetch)
+        cfg = self.cfg
+        per_frame, ftypes, qp_rows = encode_passes(cfg, self.row_qps_np, self._run_scan_batches)
+        pkg = build_package(cfg, per_frame, ftypes, "arrays" if fetch == "full" and not package else fetch, qp_rows)
         if self.fast:
             pkg["fast_me_passes"] = list(self.fast_me_passes)
         return pkg
@@ -282,9 +333,11 @@ class ShardedCodec:
         max_dy = max(int(np.abs(mv_all[..., 1]).max(initial=0)), int(np.abs(smv_all[..., 1]).max(initial=0)))
         return "all_gather" if max_dy > bound else "halo"
 
-    def _decode_gop_local(self, d: int, frames: range, frame_types, packed: tuple, comm: str) -> list:
+    def _decode_gop_local(self, d: int, frames: range, frame_types, packed: tuple, rqp_all, comm: str) -> list:
         """Decode one GOP on data row ``d``; frame-type driven, so an intra
-        frame inside the GOP resets the FIFOs as ``TorchCodec.decode`` does."""
+        frame inside the GOP resets the FIFOs as ``TorchCodec.decode`` does.
+        ``rqp_all``: the stream's (n, block_rows) row QPs under rate control
+        (None: the table QPs)."""
         engines = self._tiles[d]
         vbs = self.cfg.vbs_enable
         sl = slice(frames[0], frames[-1] + 1)
@@ -293,6 +346,7 @@ class ShardedCodec:
             blocks = slice(t * self.nb_t, (t + 1) * self.nb_t)
             shards.append([None if a is None else torch.from_numpy(np.ascontiguousarray(a[sl, blocks])).to(e.device)
                            for a in packed])
+        rows = None if rqp_all is None else self._tile_rows(rqp_all, d, frames)
         fifos = [[] for _ in engines]
         out = []
         for k, i in enumerate(frames):
@@ -301,12 +355,13 @@ class ShardedCodec:
             for t, e in enumerate(engines):
                 mv, smv, split, pay = (None if a is None else a[k] for a in shards[t])
                 qf, qq = unpack_payload(split, pay, vbs)
+                qps = None if rows is None else e._frame_qps(rows[t][k], 0 if intra else 1)
                 if intra:
-                    f = e._recon_intra(mv[:, 0], split, smv[:, :, 0] if vbs else None, qf, qq)
+                    f = e._recon_intra(mv[:, 0], split, smv[:, :, 0] if vbs else None, qf, qq, qps)
                 else:
                     bands, band_row0 = self._bands(fifos, d, t, comm)
                     pf, pq = e._fetch(mv, smv, e._planes(bands, False), band_row0)
-                    f = e._recon_inter(pf, pq, split, qf, qq)  # the table QPs: the mesh refuses rate control
+                    f = e._recon_inter(pf, pq, split, qf, qq, qps)
                 tiles.append(f)
             for fifo, f in zip(fifos, tiles):
                 if intra:
@@ -318,8 +373,9 @@ class ShardedCodec:
     def gop_regular(self, frame_types) -> bool:
         """Whether a stream's GOPs are the mesh's: every frame i with
         i % intra_dur == 0 intra.  Only such a stream shards over the "data"
-        axis; one whose intra frames fall elsewhere (another intra_dur,
-        scene-change promotion) decodes on one device."""
+        axis; one whose GOPs open elsewhere (another intra_dur) decodes on
+        one device.  Intra frames inside a GOP (scene-change promotion) keep
+        a stream regular: they reset the tiles' FIFOs."""
         return all(int(ft) == 0 for ft in frame_types[::self.gl])
 
     def decode(self, frame_types, residuals_per_frame, qp_rows_per_frame, mvs_per_frame) -> list:
@@ -332,13 +388,13 @@ class ShardedCodec:
             i = next(i for i in range(0, len(frame_types), gl) if int(frame_types[i]) != 0)
             raise ValueError(f"frame {i} has type {frame_types[i]} but every GOP must open intra "
                              "(i % intra_dur == 0): the sharded decoder relies on GOP independence")
-        mv_all, smv_all, split_all, pay_all, _ = pack_stream(self.cfg, frame_types, residuals_per_frame,
-                                                             mvs_per_frame)
+        mv_all, smv_all, split_all, pay_all, rqp_all = pack_stream(self.cfg, frame_types, residuals_per_frame,
+                                                                   mvs_per_frame, qp_rows_per_frame)
         comm = self._decode_comm(mv_all, smv_all)
         packed = (mv_all, smv_all if self.cfg.vbs_enable else None, split_all, pay_all)
         n = len(frame_types)
         out = []
         for g in range(math.ceil(n / gl)):
             out += self._decode_gop_local(g % self.ndata, range(g * gl, min(n, (g + 1) * gl)), frame_types,
-                                          packed, comm)
+                                          packed, rqp_all if self.cfg.rc_active else None, comm)
         return out

@@ -35,7 +35,8 @@ mesh's passes per inter frame).
 ``--rc`` adds per-row rate control at ``benchmarks/sweep.py``'s settings
 (``720p_rc_row_qp``: its tables, 8 mbps, 30 fps), ``--two-pass`` two-pass
 rate control on top (``720p_two_pass``); the decode reads the encode's row
-QPs.
+QPs.  With ``--mesh 6``, ``--rc`` is ``[mesh-rc]`` and ``--two-pass
+--frames 8`` ``[mesh-two-pass]``.
 
 Writes nothing but standard output.  Needs a CUDA card.
 """

@@ -15,6 +15,7 @@ from streamoptima_tpu import metrics as JM
 from streamoptima_tpu import rc as JRC
 from streamoptima_tpu.core import zigzag as JZ
 from streamoptima_tpu.io.video import VideoManager as JVM
+from streamoptima_tpu.jax_engine import JaxCodec
 from streamoptima_tpu.utils import synthetic_clip as jax_synthetic_clip
 from streamoptima_tpu_torch import bitstream as TBS
 from streamoptima_tpu_torch import config as TC
@@ -79,6 +80,18 @@ def test_config_refuses_what_the_jax_package_refuses(kw):
         JC.CodecConfig(**kw)
     with pytest.raises(ValueError):
         TC.CodecConfig(**kw)
+
+
+def test_config_refuses_promotion_without_a_threshold():
+    """``rc_flag > 1`` compares each inter frame's size with
+    ``intra_thresh``: the JAX package takes the config and fails at the
+    first inter frame with a TypeError; the port refuses it by name."""
+    kw = dict(height=64, width=64, frames=3, rc_flag=2, target_br="1 mbps", qp_rate_tables=[[1.0] * 12] * 2)
+    with pytest.raises(TypeError):
+        JaxCodec(JC.CodecConfig(**kw), synthetic_clip(64, 64, 3)).encode()
+    with pytest.raises(ValueError, match="intra_thresh"):
+        TC.CodecConfig(**kw)
+    TC.CodecConfig(**kw, intra_thresh=400)
 
 
 @pytest.mark.parametrize("ftype", [0, 1])

@@ -138,34 +138,44 @@ def test_list_package_roundtrip_and_files(encoded, tmp_path):
     ({"parallel_mode": 2, "vbs_enable": True, "fme_enable": True}, "parallel_mode"),
 ])
 def test_unported_features_raise_by_name(kw, feature):
-    """Every feature of the list is ported to one device now, rate control
-    and the ROI map included: each constructs there, alone and beside an ROI
-    map.  The mesh refuses rate control and the ROI map by name (they come
-    with its rate-control slice), and the parallel modes with ValueError, as
+    """Every feature of the list is ported to one device, rate control and
+    the ROI map included: each constructs there, alone and beside an ROI
+    map.  The mesh runs each beside an ROI map too, and encodes it as one
+    device does, but the parallel modes, which it refuses with ValueError as
     the JAX mesh does."""
-    roi = {} if "roi_qp_map" in kw else {"roi_qp_map": np.zeros(24, np.int32)}
+    roi = {} if "roi_qp_map" in kw else {"roi_qp_map": np.arange(24, dtype=np.int32) % 5 - 2}
     for k in (kw, dict(kw, **roi)):
         TorchCodec(_cfg(8, **k), device="cpu")
         VideoCodec(_cfg(8, **k), device="cpu")
     cfg = _cfg(8, **kw, **roi)
     mesh = make_mesh(cfg, devices=["cpu"] * 2)
-    err, name = ((ValueError, "parallel_mode") if "parallel_mode" in kw
-                 else (NotImplementedError, "rc_flag" if feature == "rc_flag" else "roi_qp_map"))
-    with pytest.raises(err, match=name):
-        ShardedCodec(cfg, mesh)
-    with pytest.raises(err, match=name):
-        VideoCodec(cfg, mesh=mesh)
+    if "parallel_mode" in kw:
+        with pytest.raises(ValueError, match="parallel_mode"):
+            ShardedCodec(cfg, mesh)
+        with pytest.raises(ValueError, match="parallel_mode"):
+            VideoCodec(cfg, mesh=mesh)
+        return
+    clip = synthetic_clip(H, W, FRAMES)
+    pkg = VideoCodec(cfg, clip, mesh=mesh).encode(compute_ssim=False)
+    one = TorchCodec(cfg, clip, device="cpu").encode()
+    for k in ("frame_type_seq", "Qp_per_row_per_frame", "residual size per frame", "PSNR per frame", "MVS per Frame"):
+        assert pkg[k] == one[k], k
+    np.testing.assert_array_equal(pkg["reconstructed frames"], one["reconstructed frames"])
 
 
 def test_two_pass_and_compat_refused():
-    """Two-pass runs on one device now; the mesh refuses it by name, and
+    """Two-pass runs on one device and on the mesh, with the same row QPs;
     every engine refuses ``engine='compat'``."""
     cfg = _cfg(8, rc_flag=1, target_br="1 mbps", qp_rate_tables=[[1.0] * 12] * 2, two_pass=True)
-    TorchCodec(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="two_pass"):
-        ShardedCodec(cfg, make_mesh(cfg, devices=["cpu"] * 2))
+    clip = synthetic_clip(H, W, FRAMES)
+    one = TorchCodec(cfg, clip, device="cpu").encode()
+    pkg = ShardedCodec(cfg, make_mesh(cfg, devices=["cpu"] * 2), clip).encode()
+    assert pkg["Qp_per_row_per_frame"] == one["Qp_per_row_per_frame"]
+    assert pkg["residual size per frame"] == one["residual size per frame"]
     with pytest.raises(ValueError, match="compat"):
         TorchCodec(_cfg(8, engine="compat"), device="cpu")
+    with pytest.raises(ValueError, match="engine='jax'"):
+        ShardedCodec(_cfg(8, engine="compat"), make_mesh(cfg, devices=["cpu"] * 2))
 
 
 def test_device_is_required():
@@ -189,9 +199,10 @@ def test_port_runs_without_importing_jax(tmp_path):
     encode -> text bitstream -> decode, whole-pel and VBS + FME, full search
     and fast ME, VBS alone with two references and intra mode 1, fast ME
     with FME alone under parallel mode 2, rate control with promotion,
-    two-pass and an ROI map, and VBS + FME and fast ME on a (2, 2) CPU mesh
-    (``streamoptima_tpu_torch.parallel``), and never imports jax or the JAX
-    package."""
+    two-pass and an ROI map, and VBS + FME, fast ME and rate control with
+    promotion, two-pass and an ROI map on a (2, 2) CPU mesh
+    (``streamoptima_tpu_torch.parallel``) with the binary container, imports
+    the dry run, and never imports jax or the JAX package."""
     code = textwrap.dedent(f"""
         import sys
         import numpy as np
@@ -213,7 +224,8 @@ def test_port_runs_without_importing_jax(tmp_path):
                                                                  r"{tmp_path / 'res.txt'}")
             assert np.array_equal(dec, pkg["reconstructed frames"])
         from streamoptima_tpu_torch.parallel import make_mesh
-        for extra in (vf, {{"fast_me": True, **vf}}):
+        from streamoptima_tpu_torch.parallel.dryrun import dryrun_multichip
+        for extra in (vf, {{"fast_me": True, **vf}}, rc):
             cfg = CodecConfig(height=32, width=48, frames=3, search_range=4, qp=4, intra_dur=2, **extra)
             mesh = make_mesh(cfg, devices=["cpu"] * 4)
             assert mesh.devices.shape == (2, 2)
@@ -222,6 +234,10 @@ def test_port_runs_without_importing_jax(tmp_path):
             v.transmit_bitstream(r"{tmp_path / 'mv.txt'}", r"{tmp_path / 'res.txt'}")
             dec = VideoCodec(cfg, mesh=mesh).decode_bitstream(r"{tmp_path / 'mv.txt'}", r"{tmp_path / 'res.txt'}")
             assert np.array_equal(dec, pkg["reconstructed frames"])
+            v.transmit_bitstream_binary(r"{tmp_path / 'clip.sob'}")
+            dec = VideoCodec(cfg, mesh=mesh).decode_bitstream_binary(r"{tmp_path / 'clip.sob'}")
+            assert np.array_equal(dec, pkg["reconstructed frames"])
+        assert callable(dryrun_multichip)  # imported, not run: tests/test_torch_mesh_rc.py runs it
         bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "streamoptima_tpu"))
         assert not bad, bad
         print("OK")

@@ -142,32 +142,45 @@ def test_fast_me_list_package_roundtrip(encoded, tmp_path):
 def test_fast_me_with_one_of_vbs_fme_refused_by_name(one):
     """Fast ME with exactly one of VBS and FME is ported (its parity with
     JaxCodec is ``tests/test_torch_tools.py``'s), on one device and on the
-    mesh, and so is rate control on one device; the mesh refuses rate
-    control by name."""
+    mesh, and so is rate control beside it: the mesh encodes it as one
+    device does."""
     cfg = CodecConfig(**BASE, **{one: True})
     check_slice(cfg)
     VideoCodec(cfg, device="cpu")
     VideoCodec(cfg, mesh=make_mesh(cfg, devices=["cpu"] * 2))
     rc = CodecConfig(**BASE, **{one: True}, rc_flag=1, target_br="1 mbps", qp_rate_tables=[[1.0] * 12] * 2)
     check_slice(rc)
-    VideoCodec(rc, device="cpu")
-    with pytest.raises(NotImplementedError, match="rc_flag"):
-        ShardedCodec(rc, make_mesh(rc, devices=["cpu"] * 2))
-    with pytest.raises(NotImplementedError, match="rc_flag"):
-        VideoCodec(rc, mesh=make_mesh(rc, devices=["cpu"] * 2))
+    clip = _clip(BASE["height"], BASE["width"], BASE["frames"])
+    pkg = VideoCodec(rc, clip, mesh=make_mesh(rc, devices=["cpu"] * 2)).encode(compute_ssim=False, package=False)
+    single = VideoCodec(rc, clip, device="cpu").encode(compute_ssim=False, package=False)
+    assert pkg["Qp_per_row_per_frame"] == single["Qp_per_row_per_frame"] != [[]] * BASE["frames"]
+    for a, b in zip(pkg["per_frame"], single["per_frame"]):
+        for k in ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "recon"):
+            assert torch.equal(a[k], b[k]), k
 
 
 @pytest.mark.parametrize("kw,feature", [({"parallel_mode": 2}, "parallel_mode"), ({"n_ref_frames": 2}, "n_ref_frames"),
                                         ({"intra_mode": 1}, "intra_mode=1")])
 def test_fast_me_outside_the_slice_still_refused_by_name(kw, feature):
     """``feature`` is ported with every fast-ME mode, and so is an ROI map
-    beside it, on one device.  The mesh refuses the ROI map by name, and
-    parallel modes with ValueError, as the JAX mesh does."""
+    beside it, on one device and on the mesh.  The mesh refuses parallel
+    modes with ValueError, as the JAX mesh does."""
     for mode in MODES.values():
         roi = np.zeros(mode["height"] * mode["width"] // 256, np.int32)
         TorchCodec(CodecConfig(**mode, **kw), device="cpu")
         cfg = CodecConfig(**mode, **kw, roi_qp_map=roi)
         TorchCodec(cfg, device="cpu")
-        err, name = (ValueError, "parallel_mode") if "parallel_mode" in kw else (NotImplementedError, "roi_qp_map")
-        with pytest.raises(err, match=name):
+        if "parallel_mode" in kw:
+            with pytest.raises(ValueError, match="parallel_mode"):
+                ShardedCodec(cfg, make_mesh(cfg, devices=["cpu"] * 2))
+        else:
             ShardedCodec(cfg, make_mesh(cfg, devices=["cpu"] * 2))
+    if "parallel_mode" not in kw:  # and on the smallest mode, the mesh encodes as one device does
+        mode = MODES["fast"]
+        roi = np.arange(mode["height"] * mode["width"] // 256, dtype=np.int32) % 5 - 2
+        cfg = CodecConfig(**mode, **kw, roi_qp_map=roi)
+        clip = _clip(mode["height"], mode["width"], mode["frames"])
+        pkg = ShardedCodec(cfg, make_mesh(cfg, devices=["cpu"] * 2), clip).encode()
+        single = TorchCodec(cfg, clip, device="cpu").encode()
+        assert pkg["residual size per frame"] == single["residual size per frame"]
+        np.testing.assert_array_equal(pkg["reconstructed frames"], single["reconstructed frames"])

@@ -621,6 +621,37 @@ def test_rate_control_on_card_matches_cpu(cuda, name, monkeypatch):
     np.testing.assert_array_equal(torch.stack(dec).cpu().numpy(), b["reconstructed frames"])
 
 
+@pytest.mark.parametrize("name", list(RC_CASES))
+def test_rate_control_on_card_mesh_matches_cpu(cuda, name, monkeypatch):
+    """The same four on a (2, 2) mesh of the card, every ``*_plain``
+    patched to raise: the mesh's package equals the CPU port's one-device
+    package, and the mesh's decode of it (each tile its rows of the stream's
+    QPs) the reconstructions."""
+    from streamoptima_tpu_torch.engine import frame_arrays_of
+    from streamoptima_tpu_torch.parallel import ShardedCodec, make_mesh
+
+    kw = dict(height=64, width=96, frames=6, search_range=4, qp=4, intra_dur=3, lam=0.015, target_br="60 kbps",
+              qp_rate_tables=RC_TABLES, **RC_CASES[name])
+    clip = synthetic_clip(64, 96, 6, seed=5)
+    cfg = CodecConfig(**kw)
+    b = TorchCodec(cfg, clip, device="cpu").encode(package=False)
+    _refuse_plain(monkeypatch)
+    mesh = make_mesh(cfg, devices=[cuda] * 4, tile=2)
+    assert mesh.devices.shape == (2, 2)
+    sc = ShardedCodec(cfg, mesh, clip)
+    a = sc.encode(package=False)
+    for k in ("frame_type_seq", "Qp_per_row_per_frame", "residual size per frame"):
+        assert a[k] == b[k], k
+    np.testing.assert_array_equal(a["reconstructed frames"], b["reconstructed frames"])
+    for fa, fb in zip(a["per_frame"], b["per_frame"]):
+        for k in ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "row_bits"):
+            assert torch.equal(fa[k].cpu(), fb[k]), k
+    fts = a["frame_type_seq"]
+    pairs = [frame_arrays_of(o, ft) for o, ft in zip(a["per_frame"], fts)]
+    dec = sc.decode(fts, [r for _, r in pairs], a["Qp_per_row_per_frame"], [m for m, _ in pairs])
+    np.testing.assert_array_equal(torch.stack(dec).cpu().numpy(), b["reconstructed frames"])
+
+
 # ------------------------- the redesigned kernels' edges: prefetched supersets, packed words, unaligned inputs
 def _unaligned(t):
     """A contiguous copy of ``t`` whose first byte is not word-aligned."""

@@ -332,27 +332,25 @@ def test_mesh_intra_mode1_on_the_data_axis():
 @pytest.mark.parametrize("kw,name", [
     (dict(fast_me=True), "fast_me"),
     (dict(rc_flag=1, target_br="1 mbps", qp_rate_tables=[[1.0] * 12] * 2), "rc_flag"),
-    (dict(rc_flag=2, target_br="1 mbps", qp_rate_tables=[[1.0] * 12] * 2), "scene-change promotion"),
+    (dict(rc_flag=2, target_br="1 mbps", qp_rate_tables=[[1.0] * 12] * 2, intra_thresh=400),
+     "scene-change promotion"),
     (dict(rc_flag=1, target_br="1 mbps", qp_rate_tables=[[1.0] * 12] * 2, two_pass=True), "two_pass"),
     (dict(roi_qp_map=np.zeros(16, np.int32)), "roi_qp_map"),
 ])
 def test_mesh_refuses_later_slices_by_name(kw, name):
-    """Rate control, promotion, two-pass and the ROI map are refused by name
-    (the mesh's rate-control slice); fast ME is ported: the mesh constructs
-    and encodes it as one device does."""
+    """Fast ME, rate control, promotion, two-pass and the ROI map were each
+    once a later slice of the mesh; all are ported now, and the mesh
+    constructs and encodes each as one device does.  What the mesh refuses
+    is refused by name: parallel modes and the compat engine."""
     cfg = CodecConfig(height=64, width=64, frames=4, search_range=4, **kw)
-    if name == "fast_me":
-        clip = synthetic_clip(h=64, w=64, frames=4, motion=2)
-        pkg = VideoCodec(cfg, clip, mesh=make_mesh(cfg, devices=CPU8)).encode(compute_ssim=False)
-        _assert_same_as_torch_codec(pkg, TorchCodec(cfg, clip, device="cpu").encode())
-    else:
-        with pytest.raises(NotImplementedError, match=name):
-            ShardedCodec(cfg, make_mesh(cfg, devices=CPU8))
-        with pytest.raises(NotImplementedError, match=name):
-            VideoCodec(cfg, mesh=make_mesh(cfg, devices=CPU8))
-    for bad, err in ((dict(parallel_mode=1), ValueError), (dict(engine="compat"), ValueError)):
+    clip = synthetic_clip(h=64, w=64, frames=4, motion=2)
+    pkg = VideoCodec(cfg, clip, mesh=make_mesh(cfg, devices=CPU8)).encode(compute_ssim=False)
+    tpkg = TorchCodec(cfg, clip, device="cpu").encode()
+    _assert_same_as_torch_codec(pkg, tpkg)
+    assert pkg["Qp_per_row_per_frame"] == tpkg["Qp_per_row_per_frame"]
+    for bad, match in ((dict(parallel_mode=1), "parallel_mode"), (dict(engine="compat"), "engine='jax'")):
         cfg = CodecConfig(height=64, width=64, frames=4, search_range=4, **bad)
-        with pytest.raises(err):
+        with pytest.raises(ValueError, match=match):
             ShardedCodec(cfg, make_mesh(cfg, devices=CPU8))
 
 

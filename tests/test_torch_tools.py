@@ -319,14 +319,23 @@ def test_tools_cross_decode_from_files(encoded):
 @pytest.mark.parametrize("tools", ["vbs", "nref3_fast_vbs_fme", "intra1_sr16_vbs", "pm2_fast"])
 def test_check_slice_refuses_rc_roi_two_pass_by_name(tools, kw, feature):
     """Rate control, the ROI map and two-pass pass ``check_slice`` and
-    construct on one device beside every tool set; the mesh refuses them by
-    name, and parallel modes with ValueError, as the JAX mesh does."""
+    construct on one device beside every tool set.  The mesh runs them too,
+    and encodes them as one device does; it refuses parallel modes with
+    ValueError, as the JAX mesh does."""
     cfg = CodecConfig(**BASE, **CASES[tools], **kw)
     check_slice(cfg)
     TorchCodec(cfg, device="cpu")
-    err, name = (ValueError, "parallel_mode") if "parallel_mode" in CASES[tools] else (NotImplementedError, feature)
-    with pytest.raises(err, match=name):
-        ShardedCodec(cfg, make_mesh(cfg, devices=["cpu"] * 2))
+    mesh = make_mesh(cfg, devices=["cpu"] * 2)
+    if "parallel_mode" in CASES[tools]:
+        with pytest.raises(ValueError, match="parallel_mode"):
+            ShardedCodec(cfg, mesh)
+        return
+    clip = synthetic_clip(BASE["height"], BASE["width"], BASE["frames"], seed=3)
+    pkg = ShardedCodec(cfg, mesh, clip).encode()
+    one = TorchCodec(cfg, clip, device="cpu").encode()
+    for k in ("frame_type_seq", "Qp_per_row_per_frame", "residual size per frame", "MVS per Frame"):
+        assert pkg[k] == one[k], k
+    np.testing.assert_array_equal(pkg["reconstructed frames"], one["reconstructed frames"])
 
 
 def test_every_tool_combination_passes_check_slice():
