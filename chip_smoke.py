@@ -87,6 +87,26 @@ ran.  ``[dryrun]`` runs ``parallel.dryrun.dryrun_multichip(8)`` on an
 multi-chip dry run at 64x64, each bit for bit with one device and its
 sharded decode closed, with the launches each makes.
 
+After them, three phases run the last modules on the card.  ``[ssim]``
+holds ``metrics.ssim_frames`` (one batched call on the card) against the
+host ``metrics.ssim``, frame by frame, on ``[main]``'s 16 sources and
+reconstructions, within 1e-6, and prints both times; every path line also
+prints the facade's SSIM seconds, on the device.  ``[cli]`` runs the command
+line in this process (``main.main``), each run's launches counted.  Run A:
+``[main]``'s config on a 4:2:0 file of the clip with seeded chroma and the
+binary container, whose reconstruction file must be ``[main]``'s
+reconstructions byte for byte and whose launches must be ``[main]``'s
+encode's and one decode's fetches for each of its two decodes.  Run B: the
+command line's defaults (CIF, 21 frames, fast ME + VBS + FME, sr 16) with
+rate control measured on the card, two-pass and the VBS overlay, whose
+launches must be those of its fast-ME steps and decodes, every file it
+writes byte-equal to the same arguments' ``--device cpu`` run (the plain
+versions), and whose overlay must hold the clip with its block grid drawn.
+Run C, ``python3 -m streamoptima_tpu_torch --synthetic --frames 2`` in a
+process of its own, covers the module's entry point.  Each must exit 0 with
+its decoded file equal to its reconstruction file.  ``[profiling]`` prints
+``profiling.time_steps``' table for ``[main]``'s config.
+
 Before the paths, the band phase holds each search and fetch mode on the
 three tiles' halo bands (sr = 8, zero rows past the frame's edges) against
 its plain version, and times the three launches of one frame; the tile
@@ -124,7 +144,7 @@ version pads on every call); no single PyTorch call computes any of the other
 functions, and theirs is null.  The ``window_fetch`` row also carries the
 confirm at four references under FME, (3600, 16, 18, 18), under ``nref4_*``
 keys, and an odd-width input whose base is one byte past 16-byte alignment
-under ``unaligned_*`` keys; its rows' ``write_floor_ms`` is one ``zero_`` of
+under ``unaligned_*`` keys (each with its own bound, counted as the row's); its rows' ``write_floor_ms`` is one ``zero_`` of
 an output-sized tensor, the launch and a bare write of the same bytes.
 The two fast-ME rows carry the whole-pel mode's numbers under
 ``whole_pel_*`` keys beside the FME mode's; the two whole-pel search rows
@@ -146,6 +166,7 @@ from __future__ import annotations
 
 import json
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -153,8 +174,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from streamoptima_tpu_torch import CodecConfig, _build, native, synthetic_clip
+from streamoptima_tpu_torch import CodecConfig, _build, metrics, native, profiling, synthetic_clip
 from streamoptima_tpu_torch import bitstream as BS
+from streamoptima_tpu_torch import engine as E
 from streamoptima_tpu_torch.codec import VideoCodec
 from streamoptima_tpu_torch.core import fastme as FM
 from streamoptima_tpu_torch.core import kernels as K
@@ -163,6 +185,7 @@ from streamoptima_tpu_torch.core import transform as T
 from streamoptima_tpu_torch.core.blocks import blockify
 from streamoptima_tpu_torch.core.pred import gather_predictions
 from streamoptima_tpu_torch.engine import TorchCodec, fast_chain, frame_arrays_of
+from streamoptima_tpu_torch.main import main as cli_main
 from streamoptima_tpu_torch.parallel import ShardedCodec, make_mesh
 from streamoptima_tpu_torch.parallel.dryrun import dryrun_multichip
 from streamoptima_tpu_torch.parallel.mesh import _halo_band
@@ -465,8 +488,9 @@ def _drive(label: str, extra: dict, clip: np.ndarray, dev, frames: int = FRAMES,
           f"({dec_s:.4f} s incl. parse; parse alone {parse_s:.3f} s), in-memory decode "
           f"{frames / dec_mem_s:.2f} fps ({dec_mem_s:.4f} s); decode == recon bit-exact; launches {launches}",
           flush=True)
-    print(f"[{label}] mean PSNR {psnr.mean():.4f} dB, mean SSIM {np.mean(pkg['SSIM per frame']):.5f}, "
-          f"bits {sum(pkg['residual size per frame'])}", flush=True)
+    print(f"[{label}] mean PSNR {psnr.mean():.4f} dB, mean SSIM {np.mean(pkg['SSIM per frame']):.5f} "
+          f"({pkg['timing']['ssim_s']:.4f} s on the device, besides the encode), bits "
+          f"{sum(pkg['residual size per frame'])}", flush=True)
     passes = pkg.get("fast_me_passes")
     if passes is not None:  # parallel mode 2 runs no chain; every other fast-ME path one or more passes a frame
         chain = extra.get("parallel_mode") != 2
@@ -595,6 +619,136 @@ def _dryrun_launches(summary: dict) -> dict:
                 add("pred_fetch" + suffix, (1 + ntile) * steps)
         add("pred_fetch" + suffix, ntile * inter)
     return out
+
+
+def _ssim_phase(dev, clip: np.ndarray, recon: np.ndarray) -> None:
+    """``metrics.ssim_frames`` on the card against the host ``metrics.ssim``,
+    frame by frame, on ``[main]``'s sources and reconstructions: within
+    1e-6, with both times (the device call's includes the upload of both
+    clips, the 16 results' copy back and a synchronisation)."""
+    t0 = time.perf_counter()
+    host = [metrics.ssim(a, b) for a, b in zip(clip, recon)]
+    host_s = time.perf_counter() - t0
+    metrics.ssim_frames(clip[:2], recon[:2], device=dev)  # warm: allocator and kernels' first launch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = metrics.ssim_frames(clip, recon, device=dev)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    err = float(np.max(np.abs(np.asarray(got) - np.asarray(host))))
+    _require(len(got) == len(recon) and err <= 1e-6, f"[ssim] the device SSIM differs from the host's by {err}")
+    print(f"[ssim] 720p {len(recon)} frames: device ssim_frames {dev_s:.4f} s in one call, host ssim "
+          f"{host_s:.4f} s in a loop ({host_s / len(recon):.4f} s a frame); largest difference {err:.3e} (<= 1e-6), "
+          f"mean SSIM {np.mean(got):.6f}", flush=True)
+
+
+def _cli_phase(clip: np.ndarray, main_run: dict) -> None:
+    """The command line on the card, each run's launches counted from 0 just
+    before it.  Run A: ``[main]``'s config on a 4:2:0 file of the clip's
+    frames with seeded chroma, with the binary container; its
+    reconstruction file must be ``[main]``'s reconstructions, and its
+    launches ``[main]``'s encode's plus one decode's fetches for each of its
+    two decodes (binary and text).  Run B: the command line's defaults (CIF,
+    21 frames, fast ME + VBS + FME, sr 16) with rate control measured on the
+    card, two-pass, the binary container and the VBS overlay; its launches
+    must be one ``window_fetch`` and one ``pred_fetch_fme_vbs`` per fast-ME
+    step (the rate tables' 12 QPs x 2 inter frames, then two passes of 20),
+    ``rowscan_pass`` once per pass of their chains, one fetch per inter
+    frame for each decode, and no other kernel; every file it writes must
+    equal, byte for byte, what the same arguments write with ``--device
+    cpu`` (the kernels' plain versions).  Both in this process; each must
+    exit 0 with its decoded file equal to its reconstruction file.  Run C,
+    ``python3 -m streamoptima_tpu_torch --synthetic --frames 2`` in a
+    process of its own, covers the module's entry point."""
+    rng = np.random.default_rng(420)
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        src = d / "clip420.yuv"
+        with open(src, "wb") as f:
+            for fr in clip:
+                f.write(fr.tobytes())
+                f.write(rng.integers(0, 256, H * W // 2, dtype=np.uint8).tobytes())
+
+        def outputs(tag: str) -> list:
+            return ["--mv-file", str(d / f"{tag}mv.txt"), "--residual-file", str(d / f"{tag}res.txt"), "--out",
+                    str(d / f"{tag}dec.yuv"), "--recon-out", str(d / f"{tag}rec.yuv"), "--binary", str(d / f"{tag}.sob")]
+
+        def closed(tag: str) -> None:
+            _require((d / f"{tag}dec.yuv").read_bytes() == (d / f"{tag}rec.yuv").read_bytes(),
+                     f"[cli] run {tag.upper()}: decoded != recon")
+
+        for fn in KERNELS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        rc_a = cli_main(["--input", str(src), "--height", str(H), "--width", str(W), "--frames", str(FRAMES),
+                         "--search-range", str(SR), "--qp", str(QP), "--intra-dur", str(INTRA_DUR), "--no-fast-me",
+                         "--no-fme", "--no-vbs"] + outputs("a"))
+        a_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
+        want = {"full_search": main_run["launches"]["full_search"], "pred_fetch": 2 * main_run["n_inter"]}
+        _require(rc_a == 0, f"[cli] run A exited {rc_a}")
+        closed("a")
+        _require((d / "arec.yuv").read_bytes() == main_run["pkg"]["reconstructed frames"].tobytes(),
+                 "[cli] run A's reconstruction differs from [main]'s")
+        _require(launches == want, f"[cli] run A's launches {launches}, expected {want}")
+        print(f"[cli] run A, [main]'s config from a 4:2:0 file ({FRAMES} frames 720p): exit 0 in {a_s:.2f} s "
+              f"({FRAMES / a_s:.2f} frames/s, encode + SSIM + text and binary streams + two decodes + files); "
+              f"decoded == recon == [main]'s, byte for byte; launches {launches}", flush=True)
+
+        n_b, h_b, w_b = 21, 288, 352
+        argv_b = ["--synthetic", "--rc-flag", "1", "--target-br", "2400 kbps", "--two-pass"]
+        n_steps = 12 * 2 + 2 * (n_b - 1)  # rc.measure_qp_tables' inter steps, then two passes' inter frames
+        chained = []  # the passes of each fast-ME chain run B solves, read off engine.fast_chain
+        chain = E.fast_chain
+
+        def recording(*a, **k):
+            gs, passes = chain(*a, **k)
+            chained.append(passes)
+            return gs, passes
+
+        for fn in KERNELS.values():
+            fn.launches = 0
+        E.fast_chain = recording
+        try:
+            t0 = time.perf_counter()
+            rc_b = cli_main(argv_b + ["--vbs-overlay", str(d / "bov.yuv")] + outputs("b"))
+            b_s = time.perf_counter() - t0
+        finally:
+            E.fast_chain = chain
+        launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
+        _require(rc_b == 0, f"[cli] run B exited {rc_b}")
+        closed("b")
+        _require(len(chained) == n_steps, f"[cli] run B solved {len(chained)} fast-ME chains, expected {n_steps}")
+        want = {"rowscan_pass": sum(chained), "window_fetch": n_steps,
+                "pred_fetch_fme_vbs": n_steps + 2 * (n_b - 1)}
+        _require(launches == want, f"[cli] run B's launches {launches}, expected {want}")
+        t0 = time.perf_counter()
+        rc_ref = cli_main(argv_b + ["--vbs-overlay", str(d / "cov.yuv"), "--device", "cpu"] + outputs("c"))
+        ref_s = time.perf_counter() - t0
+        _require(rc_ref == 0, f"[cli] run B on the CPU exited {rc_ref}")
+        for name in ("mv.txt", "res.txt", "dec.yuv", "rec.yuv", ".sob", "ov.yuv"):
+            _require((d / f"b{name}").read_bytes() == (d / f"c{name}").read_bytes(),
+                     f"[cli] run B's {name} differs from the CPU run's")
+        ov = np.fromfile(d / "bov.yuv", dtype=np.uint8)
+        _require(ov.size == n_b * h_b * w_b, f"[cli] run B: the overlay holds {ov.size} bytes")
+        ov = ov.reshape(n_b, h_b, w_b)
+        _require(bool((ov[:, ::16, :] == 0).all() and (ov[:, :, ::16] == 0).all()),
+                 "[cli] run B: the overlay's block grid is not drawn")
+        print(f"[cli] run B, --synthetic --rc-flag 1 --target-br '2400 kbps' --two-pass --vbs-overlay (CIF {n_b} "
+              f"frames, fast ME + VBS + FME, sr 16; tables measured on the card): exit 0 in {b_s:.2f} s "
+              f"({n_b / b_s:.2f} frames/s); decoded == recon; launches {launches} ({n_steps} chains); mv.txt, "
+              f"res.txt, the container, decoded, recon and overlay files == the --device cpu run's ({ref_s:.2f} s), "
+              f"byte for byte; overlay {ov.shape}, block grid 0", flush=True)
+
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "streamoptima_tpu_torch", "--synthetic", "--frames", "2"]
+                             + outputs("m"), cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                             timeout=300)
+        m_s = time.perf_counter() - t0
+        _require(res.returncode == 0, f"[cli] run C exited {res.returncode}: {res.stdout[-2000:]} {res.stderr[-2000:]}")
+        closed("m")
+        print(f"[cli] run C, python3 -m streamoptima_tpu_torch --synthetic --frames 2 (CIF): exit 0 in {m_s:.2f} s "
+              f"with its start-up; decoded == recon; its last line: {res.stdout.strip().splitlines()[-1]}", flush=True)
 
 
 def main() -> None:
@@ -807,6 +961,8 @@ def main() -> None:
             big = torch.from_numpy(rng.integers(0, 256, 4 * H * wu + 1, dtype=np.uint8)).to(dev)
             flat_u = big[1:].view(4, H, wu)
             ch["unaligned"] = _hold_window(f"FME w={wu} base+1", flat_u, wsets, "confirm_origins", cyc)
+            ch["unaligned"]["bytes"] = (_window_bytes_read(flat_u, ch["by0"], ch["bx0"], BS_ + 2) + nb * 8
+                                        + nb * flat_u.shape[0] * (BS_ + 2) ** 2)
             for label, r in (("four references", ch["nref4"]), (f"w={wu}, base 1 byte past 16-byte alignment",
                                                                  ch["unaligned"])):
                 print(f"[kernel] window_fetch 720p FME, {label}: bit-equal (tolerance 0) on adversarial and "
@@ -1111,6 +1267,12 @@ def main() -> None:
     refs_used = {int(r) for o in tools["main-nref4"]["pkg"]["per_frame"][1:8] for r in o["mv"][:, 2].unique()}
     _require(len(refs_used) > 1, f"main-nref4: inter frames chose only reference {sorted(refs_used)}")
 
+    _ssim_phase(dev, clip, whole["pkg"]["reconstructed frames"])
+    _cli_phase(clip, whole)
+    times = profiling.time_steps(_cfg(), clip, warmup=1, iters=8, device=dev)
+    print("[profiling] profiling.time_steps, [main]'s config at 720p (8 synchronised runs a step):\n"
+          + profiling.report(times), flush=True)
+
     # ---- the kernels' line: this run's counts, errors, times and bounds
     px = H * W
     out_a = nb * (12 + 4 + 1) + 2 * px
@@ -1175,11 +1337,13 @@ def main() -> None:
     # window_fetch at four references under FME (the nref4_* keys) and on unaligned planes (unaligned_*)
     w4, wu = chain[True]["nref4"], chain[True]["unaligned"]
     bound_ms, bound_by = _bound(w4["bytes"], 0, int_ops_per_ms)
+    u_bound_ms, u_bound_by = _bound(wu["bytes"], 0, int_ops_per_ms)
     rows[True][1].update({"nref4_max_abs_err": w4["err"], "nref4_ms": w4["ms"], "nref4_plain_ms": w4["plain_ms"],
                           "nref4_bound_ms": bound_ms, "nref4_bound_by": bound_by, "nref4_library_ms": w4["lib_ms"],
                           "nref4_write_floor_ms": w4["floor_ms"],
                           "unaligned_max_abs_err": wu["err"], "unaligned_ms": wu["ms"],
-                          "unaligned_plain_ms": wu["plain_ms"], "unaligned_library_ms": wu["lib_ms"]})
+                          "unaligned_plain_ms": wu["plain_ms"], "unaligned_bound_ms": u_bound_ms,
+                          "unaligned_bound_by": u_bound_by, "unaligned_library_ms": wu["lib_ms"]})
     # fast ME on a tile, per launch (the mean over the three tiles); frame_ms: a mesh pass's three launches
     tile_rows = {}
     for fme, label in ((True, "mesh-fast-vbs-fme"), (False, "mesh-fast")):

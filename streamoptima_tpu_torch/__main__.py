@@ -1,0 +1,3 @@
+from streamoptima_tpu_torch.main import main
+
+raise SystemExit(main())

@@ -1,15 +1,15 @@
-"""User-facing facade over ``TorchCodec``: metrics, text bitstream, file I/O.
+"""User-facing facade over ``TorchCodec``: metrics, bitstreams, file I/O.
 
 Counterpart of ``streamoptima_tpu.codec.VideoCodec`` for the main path::
 
     codec = VideoCodec(cfg, y_frames, device="cuda")
-    pkg = codec.encode()                              # PSNR + SSIM per frame
+    pkg = codec.encode()                              # PSNR + SSIM per frame, on the device
     codec.transmit_bitstream("mv.txt", "res.txt")     # text bitstream
     frames = VideoCodec(cfg, device="cuda").decode_bitstream("mv.txt", "res.txt")
     # or in two steps: decode(*parse_bitstream("mv.txt", "res.txt"))
     codec.transmit_bitstream_binary("clip.sob")       # one-file binary container
     frames = VideoCodec(cfg, device="cuda").decode_bitstream_binary("clip.sob")
-    codec.save_decoded_frames("out.yuv")
+    codec.save_decoded_frames("out.yuv", overlay_path="vbs.yuv")  # overlay: optional
 
 The text bitstream is written through ``bitstream.write_bitstream`` and the
 binary container (format SOTPB1) through ``binstream.write_binary``, both
@@ -46,7 +46,7 @@ import torch
 
 from streamoptima_tpu_torch import binstream as BIN
 from streamoptima_tpu_torch import bitstream as BS
-from streamoptima_tpu_torch import metrics
+from streamoptima_tpu_torch import metrics, viz
 from streamoptima_tpu_torch.config import CodecConfig
 from streamoptima_tpu_torch.io.video import VideoManager
 from streamoptima_tpu_torch.engine import TorchCodec, frame_arrays_of
@@ -76,16 +76,21 @@ class VideoCodec:
     # ----------------------------------------------------------- encoding
     def encode(self, compute_ssim: bool = True, **kw) -> dict:
         """Encode the clip; returns the package dict (the JAX facade's keys:
-        PSNR, MAE, sizes, reconstructions, plus SSIM on the host and the
-        encode wall time under pkg["timing"]["total_s"])."""
+        PSNR, MAE, sizes, reconstructions, plus SSIM and the encode wall time
+        under pkg["timing"]["total_s"]).  SSIM is one batched call on the
+        codec's device (a mesh's first), ``metrics.ssim_frames``, on the
+        engine's ``source`` and its reconstructions on the device
+        (``recon``); its wall time is pkg["timing"]["ssim_s"]."""
         if self._enc is None:
             raise ValueError("construct with y_frames to encode")
         t0 = time.perf_counter()
         pkg = self._enc.encode(**kw)
         pkg.setdefault("timing", {})["total_s"] = time.perf_counter() - t0
-        if compute_ssim and pkg["reconstructed frames"] is not None:  # fetch="metrics" returns none
-            recon = pkg["reconstructed frames"]
-            pkg["SSIM per frame"] = [metrics.ssim(self._enc.y[i], recon[i]) for i in range(len(recon))]
+        recon = self._enc.recon  # on the device; fetch="metrics" keeps none
+        if compute_ssim and recon is not None:
+            t0 = time.perf_counter()
+            pkg["SSIM per frame"] = metrics.ssim_frames(self._enc.source[: len(recon)], recon, device=self.device)
+            pkg["timing"]["ssim_s"] = time.perf_counter() - t0
         self._pkg = pkg
         return pkg
 
@@ -158,11 +163,19 @@ class VideoCodec:
         self._decoded = torch.stack(frames).cpu().numpy()
         return self._decoded
 
-    def save_decoded_frames(self, path) -> None:
-        """Write decoded Y frames as raw bytes."""
+    def save_decoded_frames(self, path, overlay_path=None) -> None:
+        """Write decoded Y frames as raw bytes; with ``overlay_path``, also
+        the frames with each block's partition drawn in
+        (``viz.vbs_overlay_frames``), which needs the list-form package
+        (``encode()`` with ``package=True``)."""
         if self._decoded is None:
             raise ValueError("decode first")
         VideoManager.save_y_only(path, self._decoded)
+        if overlay_path is not None:
+            if self._pkg is None or "MVS per Frame" not in self._pkg:
+                raise ValueError("the VBS overlay needs the list-form package: encode() with package=True first")
+            VideoManager.save_y_only(overlay_path, viz.vbs_overlay_frames(
+                self._decoded, self._pkg["MVS per Frame"], self._pkg["frame_type_seq"], self.cfg))
 
     def save_reconstructed(self, path) -> None:
         """Write the encoder-side reconstructions."""

@@ -138,6 +138,13 @@ class TorchCodec:
         self.fast = cfg.fast_me and cfg.parallel_mode != 1
         #: fast ME: ``rowscan_pass`` launches of each inter frame of the last encode
         self.fast_me_passes: list[int] = []
+        #: the last encode's reconstructions, (n, h, w) uint8 on the device (None before an encode)
+        self.recon: torch.Tensor | None = None
+
+    @property
+    def source(self) -> torch.Tensor | None:
+        """The clip the metrics compare against: its copy on the device."""
+        return self._y_dev
 
     # ------------------------------------------------------------ shared
     def _plane128(self) -> torch.Tensor:
@@ -393,7 +400,7 @@ class TorchCodec:
             raise ValueError("construct with y_frames to encode")
         cfg = self.cfg
         per_frame, ftypes, qp_rows = encode_passes(cfg, self.row_qps_np, self._encode_pass)
-        pkg = build_package(cfg, per_frame, ftypes, "full" if package else "arrays", qp_rows)
+        pkg, self.recon = build_package(cfg, per_frame, ftypes, "full" if package else "arrays", qp_rows)
         if self.fast:
             pkg["fast_me_passes"] = list(self.fast_me_passes)
         return pkg
@@ -513,15 +520,18 @@ def fast_chain(engines: list, curs: list, planes: list, g0s: list) -> tuple[list
     return gs, passes
 
 
-def build_package(cfg: CodecConfig, per_frame: list, ftypes: list, fetch: str = "full", qp_rows=None) -> dict:
+def build_package(cfg: CodecConfig, per_frame: list, ftypes: list, fetch: str = "full",
+                  qp_rows=None) -> tuple[dict, torch.Tensor | None]:
     """The encode package from per-frame outputs (each with "psnr" and the
     per-block "mae").  ``fetch``: "full" adds the list-form "MVS per Frame"
     / "approx residual" interchange, "arrays" the per-frame device tensors
     under "per_frame", "light" neither, and "metrics" leaves out the
     reconstructions too.  ``qp_rows``: each frame's row QPs under rate
-    control ([] per frame without)."""
+    control ([] per frame without).  Returns the package and the
+    reconstructions on their device (None under "metrics")."""
     nb = cfg.block_rows * cfg.blocks_per_row
     stats = torch.stack([torch.stack([o["psnr"], o["mae"].mean()]) for o in per_frame]).cpu().numpy()
+    recon = None if fetch == "metrics" else torch.stack([o["recon"] for o in per_frame])
     sizes = torch.stack([o["size"] for o in per_frame]).cpu().numpy()
     pkg = {
         "block size": cfg.block_size,
@@ -534,8 +544,7 @@ def build_package(cfg: CodecConfig, per_frame: list, ftypes: list, fetch: str = 
         "frame_type_seq": ftypes,
         "Qp_per_row_per_frame": [[] for _ in ftypes] if qp_rows is None else qp_rows,
         "residual size per frame": [int(v) for v in sizes],
-        "reconstructed frames": (None if fetch == "metrics"
-                                 else torch.stack([o["recon"] for o in per_frame]).cpu().numpy()),
+        "reconstructed frames": None if recon is None else recon.cpu().numpy(),
     }
     if fetch == "full":
         pkg["MVS per Frame"] = [mvs_to_list(o, ft, nb) for o, ft in zip(per_frame, ftypes)]
@@ -544,7 +553,7 @@ def build_package(cfg: CodecConfig, per_frame: list, ftypes: list, fetch: str = 
         pkg["per_frame"] = per_frame
     elif fetch not in ("light", "metrics"):
         raise ValueError(f"fetch must be full, arrays, light or metrics, not {fetch!r}")
-    return pkg
+    return pkg, recon
 
 
 def pack_stream(cfg: CodecConfig, frame_types, residuals_per_frame, mvs_per_frame, qp_rows_per_frame=None):

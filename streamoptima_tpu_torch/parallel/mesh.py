@@ -181,8 +181,17 @@ class ShardedCodec:
         #: fast ME: the passes of each inter frame of the last encode, in frame order
         self.fast_me_passes: list[int] = []
         self._g_carry: list = []  # fast ME, per data row: its last inter frame's MVPs per tile
+        #: the last encode's reconstructions, (n, h, w) uint8 on the first device (None before an encode or
+        #: after one with fetch="metrics")
+        self.recon: torch.Tensor | None = None
         #: the frame's per-row QPs of each frame type (the rate tables' or qp), on the host
         self.row_qps_np = self._tiles[0][0].row_qps_np
+
+    @property
+    def source(self) -> np.ndarray | None:
+        """The clip the metrics compare against: the host array (each shard
+        holds only its part on its device)."""
+        return self.y
 
     # ----------------------------------------------------------- shared
     def _bands(self, fifos: list, d: int, t: int, comm: str) -> tuple[list, int]:
@@ -316,7 +325,8 @@ class ShardedCodec:
             self._stage_frames()
         cfg = self.cfg
         per_frame, ftypes, qp_rows = encode_passes(cfg, self.row_qps_np, self._run_scan_batches)
-        pkg = build_package(cfg, per_frame, ftypes, "arrays" if fetch == "full" and not package else fetch, qp_rows)
+        pkg, self.recon = build_package(cfg, per_frame, ftypes, "arrays" if fetch == "full" and not package else fetch,
+                                        qp_rows)
         if self.fast:
             pkg["fast_me_passes"] = list(self.fast_me_passes)
         return pkg

@@ -202,7 +202,10 @@ def test_port_runs_without_importing_jax(tmp_path):
     two-pass and an ROI map, and VBS + FME, fast ME and rate control with
     promotion, two-pass and an ROI map on a (2, 2) CPU mesh
     (``streamoptima_tpu_torch.parallel``) with the binary container, imports
-    the dry run, and never imports jax or the JAX package."""
+    the dry run, ``profiling`` and ``viz``, runs the command line once
+    (``main``, on the CPU, with the binary container and the VBS overlay),
+    and never imports jax or the JAX package, nor matplotlib (which the
+    card's machine does not have)."""
     code = textwrap.dedent(f"""
         import sys
         import numpy as np
@@ -238,7 +241,14 @@ def test_port_runs_without_importing_jax(tmp_path):
             dec = VideoCodec(cfg, mesh=mesh).decode_bitstream_binary(r"{tmp_path / 'clip.sob'}")
             assert np.array_equal(dec, pkg["reconstructed frames"])
         assert callable(dryrun_multichip)  # imported, not run: tests/test_torch_mesh_rc.py runs it
-        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "streamoptima_tpu"))
+        import os
+        from streamoptima_tpu_torch import profiling, viz
+        from streamoptima_tpu_torch.main import main
+        os.chdir(r"{tmp_path}")
+        assert main(["--synthetic", "--device", "cpu", "--height", "32", "--width", "48", "--frames", "3",
+                     "--search-range", "4", "--intra-dur", "2", "--binary", "clip.sob", "--vbs-overlay", "ov.yuv"]) == 0
+        assert callable(profiling.time_steps) and callable(viz.mv_field)
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "streamoptima_tpu", "matplotlib"))
         assert not bad, bad
         print("OK")
     """)

@@ -1127,3 +1127,20 @@ def test_band_fetch_kernel_modes_clamp_to_the_band_on_a_tile_three_split(cuda, t
     mv, smv = torch.from_numpy(mv.astype(np.int32)).to(cuda), torch.from_numpy(smv.astype(np.int32)).to(cuda)
     _assert_fetch_equal(fn(*_fetch_args(mv, smv, planes, vbs), 16, **kw),
                         plain(*_fetch_args(mv, smv, planes, vbs), 16, **kw), (t, mode))
+
+
+@pytest.mark.parametrize("allow_tf32", [True, False])
+def test_device_ssim_matches_host_at_720p(cuda, allow_tf32, monkeypatch):
+    """``metrics.ssim_frames`` on the card against the float64 host ``ssim``
+    at 720p, two frames, within 1e-6, with cuDNN's TF32 allowed or not: the
+    window sums are int32 adds, so the switch changes nothing."""
+    from streamoptima_tpu_torch import metrics
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", allow_tf32)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", allow_tf32)
+    clip = synthetic_clip(720, 1280, 3)
+    rng = np.random.default_rng(720)
+    noisy = np.clip(clip[1:].astype(np.int32) + rng.integers(-5, 5, clip[1:].shape), 0, 255).astype(np.uint8)
+    got = metrics.ssim_frames(clip[:2], noisy, device=cuda)
+    host = [metrics.ssim(a, b) for a, b in zip(clip[:2], noisy)]
+    np.testing.assert_allclose(got, host, rtol=0, atol=1e-6)
