@@ -107,6 +107,24 @@ process of its own, covers the module's entry point.  Each must exit 0 with
 its decoded file equal to its reconstruction file.  ``[profiling]`` prints
 ``profiling.time_steps``' table for ``[main]``'s config.
 
+The reference-exact engine (``engine="compat"``, ``CompatCodec``) runs
+after ``[cli]``, at CIF (its limit): ``[compat]``, the command line's
+defaults with ``--engine compat`` (21 frames, fast ME + VBS + FME, sr 16,
+qp 5) in this process; ``[compat-vbs-fme]``, the same with ``--frames 8
+--no-fast-me`` (full search with VBS + FME, the fetch at the quads' own
+FME margin for the residual and at the parent's, K18, for the
+reconstruction and decode); ``[compat-rc-promote]``, through the facade, 8
+whole-pel frames at ``rc_flag=2`` on a clip cut to noise at frame 4.  Each
+writes its MV file, residual file and decoded YUV byte for byte as its
+``--device cpu`` run does, decodes to its reconstructions, and launches
+exactly its kernels (``dct_scipy`` four times a frame in encode, twice in
+decode, under VBS).  The kernel phase's ``[dct-scipy]`` holds the
+``dct_scipy`` kernel to its plain version on the card and both to
+``scipy.fftpack`` on the host, on 10^6 blocks of each size and direction,
+half of them half-integer DC ties; ``[profiling]`` ends with
+``profile_main_path.profile_compat`` (``[compat]``'s encode and decode,
+timed and profiled).
+
 Before the paths, the band phase holds each search and fetch mode on the
 three tiles' halo bands (sr = 8, zero rows past the frame's edges) against
 its plain version, and times the three launches of one frame; the tile
@@ -137,11 +155,20 @@ same work: the larger of the bytes it must move over the memory rate
 (3.35 TB/s, the H100 SXM data sheet) and its operations over the integer
 rate (SMs x 64 INT32 lanes x the maximum SM clock ``nvidia-smi`` reports),
 counting one operation per pixel abs-diff-accumulate of each candidate the
-inputs make valid.  ``window_fetch``'s ``library_ms`` is one PyTorch indexing
-read of the zero-padded planes, which are padded and indexed before the
-timing as the TPU kernel's ``window_prep`` pads once a frame (its plain
-version pads on every call); no single PyTorch call computes any of the other
-functions, and theirs is null.  The ``window_fetch`` row also carries the
+inputs make valid; ``dct_scipy``'s operations are its float64 adds and
+multiplies (counted by running the plain version's line on a counting
+scalar) over SMs x 64 FP64 lanes x the same clock.  ``window_fetch``'s and
+the whole-pel ``pred_fetch`` modes' ``library_ms`` is one PyTorch indexing
+read of the zero-padded planes (references), which are padded and indexed
+before the timing as the TPU kernel's ``window_prep`` pads once a frame (the
+plain versions pad on every call); no single PyTorch call computes any of
+the other functions (none reproduces scipy's rounding), and theirs is null.
+``dct_scipy``'s row (CIF's (396, 16, 16) forward) carries the inverse and
+the 8 x 8 quads' numbers under ``inverse_*``, ``n8_*`` and ``n8_inverse_*``
+keys, and ``pred_fetch_fme_vbs``'s the compat engine's K18 mode under
+``k18_*`` keys (its launches: the wrapper's count of launches at a
+non-default quad margin in ``[compat]``; its bytes: the quads read at that
+margin).  The ``window_fetch`` row also carries the
 confirm at four references under FME, (3600, 16, 18, 18), under ``nref4_*``
 keys, and an odd-width input whose base is one byte past 16-byte alignment
 under ``unaligned_*`` keys (each with its own bound, counted as the row's); its rows' ``write_floor_ms`` is one ``zero_`` of
@@ -177,6 +204,7 @@ import torch
 from streamoptima_tpu_torch import CodecConfig, _build, metrics, native, profiling, synthetic_clip
 from streamoptima_tpu_torch import bitstream as BS
 from streamoptima_tpu_torch import engine as E
+from streamoptima_tpu_torch.compat_engine import CompatCodec
 from streamoptima_tpu_torch.codec import VideoCodec
 from streamoptima_tpu_torch.core import fastme as FM
 from streamoptima_tpu_torch.core import kernels as K
@@ -189,6 +217,7 @@ from streamoptima_tpu_torch.main import main as cli_main
 from streamoptima_tpu_torch.parallel import ShardedCodec, make_mesh
 from streamoptima_tpu_torch.parallel.dryrun import dryrun_multichip
 from streamoptima_tpu_torch.parallel.mesh import _halo_band
+from streamoptima_tpu_torch.profile_main_path import profile_compat
 
 H, W, FRAMES = 720, 1280, 16
 BS_, SR, QP, INTRA_DUR = 16, 8, 4, 8
@@ -217,7 +246,9 @@ TOOLS = {
 #: every kernel wrapper, by name: each path's launch counts cover them all
 KERNELS = {name: getattr(K, name) for name in (
     "full_search", "full_search_vbs", "full_search_fme", "full_search_fme_vbs", "pred_fetch", "pred_fetch_vbs",
-    "pred_fetch_fme", "pred_fetch_fme_vbs", "rowscan_pass", "window_fetch")}
+    "pred_fetch_fme", "pred_fetch_fme_vbs", "rowscan_pass", "window_fetch", "dct_scipy")}
+FP64_LANES_PER_SM = 64  # Hopper: one float64 add or multiply per lane and cycle (an FMA counts two in data sheets)
+CIF_H, CIF_W, CIF_FRAMES = 288, 352, 21  # the command line's defaults, which the compat paths run
 #: rate control as ``benchmarks/sweep.py:136-159`` runs it: ~5.9k bits a row at 8 mbps, 30 fps, 45 rows
 RC_TABLES = [[2e5, 1.2e5, 8e4, 5e4, 3e4, 2e4, 1.2e4, 8e3, 5e3, 3e3, 2e3, 1.2e3]] * 2
 RC = {"rc_flag": 1, "target_br": "8 mbps", "frame_rate": 30, "qp_rate_tables": RC_TABLES}
@@ -304,10 +335,20 @@ def _search_ops(h: int, w: int, nref: int, fme: bool, dev, vbs: bool = True, sr:
     return int(ok.sum()) * BS_ * BS_ * nref
 
 
-def _fetch_bytes_read(mv, refs, sub_mv=None, fme=False, band_row0=0, g_row0=0, grid=None) -> int:
+def _zero_counts() -> None:
+    """Every kernel's launch count, and the fetch's count at the compat
+    engine's quad margin, to 0."""
+    for fn in KERNELS.values():
+        fn.launches = 0
+    K.pred_fetch_fme_vbs.margin_launches = 0
+
+
+def _fetch_bytes_read(mv, refs, sub_mv=None, fme=False, band_row0=0, g_row0=0, grid=None,
+                      quad_margin=None) -> int:
     """Distinct reference bytes the fetch reads for these MVs: the plain
     gather on a grid of byte indices (fills 0 and 128 lie below them); with
-    a band, as the band fetch reads it."""
+    a band, as the band fetch reads it; ``quad_margin``: the quads' FME
+    margin, as the fetch's argument."""
     base = 1000
     idx = torch.arange(refs.numel(), device=refs.device, dtype=torch.int64).reshape(refs.shape) + base
     w = refs.shape[-1]
@@ -322,7 +363,7 @@ def _fetch_bytes_read(mv, refs, sub_mv=None, fme=False, band_row0=0, g_row0=0, g
     if sub_mv is not None:
         qx, qy = M.quad_origins(h, w, BS_, refs.device)
         got.append(gather_predictions(sub_mv.reshape(-1, 3), g, qx.reshape(-1), qy.reshape(-1) + g_row0, BS_ // 2,
-                                      fme=fme, **band).reshape(-1))
+                                      fme=fme, fme_margin=quad_margin, **band).reshape(-1))
     got = torch.cat(got)
     return int(torch.unique(got[got >= base]).numel())
 
@@ -405,6 +446,246 @@ def _hold_window(what: str, flat, sets: dict, timed: str, cyc: float) -> dict:
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "lib_ms": lib_ms, "host_ms": host, "floor_ms": floor_ms}
 
 
+def _fetch_library(refs, mv, sub_mv=None):
+    """One PyTorch call computing the whole-pel ``pred_fetch``'s function (with
+    ``sub_mv``, ``pred_fetch_vbs``'s two planes), for its row's
+    ``library_ms``: an advanced-indexing read of the zero-padded references
+    at every output pixel's (reference, row, column).  The padded
+    references and the index tensors are built here, before any timing, as
+    ``_window_library``'s are; the returned call is what is timed.  It
+    returns the pixels as uint8, the kernel int16."""
+    nref, h, w = refs.shape
+    mvs = [mv.to(torch.int64)] if sub_mv is None else [mv.to(torch.int64), sub_mv.to(torch.int64)]
+    pad = max(int(m[..., :2].abs().max()) for m in mvs) + 1
+    padded = torch.nn.functional.pad(refs, (pad, pad, pad, pad))
+    nbr, nbc, s = h // BS_, w // BS_, BS_ // 2
+    per_px = [mvs[0].reshape(nbr, nbc, 3).repeat_interleave(BS_, 0).repeat_interleave(BS_, 1)]
+    if sub_mv is not None:  # quads in Z order -> the quad grid -> pixels
+        q = mvs[1].reshape(nbr, nbc, 2, 2, 3).permute(0, 2, 1, 3, 4).reshape(2 * nbr, 2 * nbc, 3)
+        per_px.append(q.repeat_interleave(s, 0).repeat_interleave(s, 1))
+    m = torch.stack(per_px)  # (planes, h, w, 3)
+    yy = torch.arange(h, device=refs.device)[:, None] + pad
+    xx = torch.arange(w, device=refs.device)[None, :] + pad
+    ri, yi, xi = m[..., 2], yy + m[..., 1], xx + m[..., 0]
+    return lambda: padded[ri, yi, xi]
+
+
+def _line_ops(n: int, inverse: bool) -> int:
+    """Float64 adds, subtracts and multiplies of one length-n line of the
+    scipy-exact transform, counted by running the plain version's line on a
+    counting scalar (negations are sign flips and not counted)."""
+    count = [0]
+
+    class Op:
+        def _op(self, other):
+            count[0] += 1
+            return self
+
+        __add__ = __radd__ = __sub__ = __rsub__ = __mul__ = __rmul__ = _op
+
+        def __neg__(self):
+            return self
+
+    (T._dct3_line if inverse else T._dct2_line)([Op() for _ in range(n)], T.scipy_plan(n))
+    return count[0]
+
+
+def _dct_phase(dev, cyc: float, fp64_per_ms: float) -> dict:
+    """``[dct-scipy]``: the kernel against its plain version on the card, bit
+    for bit, and both against ``scipy.fftpack`` on the host (the plain
+    version's float64 before rounding, the kernel's rounded result), on 10^6
+    blocks of each size in both directions.  Half of each corpus is random
+    residuals in [-255, 255], half has a sum of n/2 mod n (a half-integer DC:
+    the ties scipy's float64 error decides); the IDCT takes the corpus's
+    coefficients quantized and rescaled at qp 0 (half) and qp 5 (half).
+    Then each mode's time at the compat path's shapes (CIF: 396 blocks of
+    16 x 16, 1584 quads of 8 x 8) against its plain version's, and its
+    bound.  Returns the kernel's row without its launches."""
+    from scipy.fftpack import dct, idct
+
+    from streamoptima_tpu_torch.core.quant import quantize, rescale
+
+    def scipy2(f, a):
+        return f(f(a.astype(np.float64), axis=-2, norm="ortho"), axis=-1, norm="ortho")
+
+    total, chunk, checked = 10**6, 250000, 0
+    errs = {}  # (n, inverse) -> the largest |kernel - plain| read on the card
+    t0 = time.perf_counter()
+    for n in (16, 8):
+        rng = np.random.default_rng(1200 + n)
+        for c0 in range(0, total, chunk):
+            x = rng.integers(-255, 256, (chunk, n, n)).astype(np.int64)
+            if c0 >= total // 2:  # the tie half
+                x[:, 0, 0] -= (x.sum(axis=(1, 2)) - n // 2) % n
+            want = scipy2(dct, x)
+            coef = np.round(want).astype(np.int64)
+            qp = 0 if c0 % (2 * chunk) == 0 else 5
+            t = rescale(quantize(torch.from_numpy(coef), qp), qp).numpy()
+            for inverse, a, ref in ((False, x, want), (True, t, scipy2(idct, t))):
+                a_dev = torch.from_numpy(a).to(dev)
+                got = K.dct_scipy(a_dev, inverse)
+                err = _check_equal(f"[dct-scipy] n={n} {'idct' if inverse else 'dct'}", got,
+                                   K.dct_scipy_plain(a_dev, inverse))
+                errs[n, inverse] = max(errs.get((n, inverse), 0), err)
+                f64 = (T.idct2_scipy_f64 if inverse else T.dct2_scipy_f64)(a_dev).cpu().numpy()
+                _require(np.array_equal(f64.view(np.int64), ref.view(np.int64)),
+                         f"[dct-scipy] n={n} {'idct' if inverse else 'dct'}: the plain version's float64 differs "
+                         "from scipy's")
+                _require(np.array_equal(got.cpu().numpy(), np.round(ref).astype(np.int64)),
+                         f"[dct-scipy] n={n} {'idct' if inverse else 'dct'}: the kernel differs from scipy")
+                checked += chunk
+    check_s = time.perf_counter() - t0
+    rng = np.random.default_rng(12)
+    modes = {}
+    for n, nb in ((16, (CIF_H // 16) * (CIF_W // 16)), (8, 4 * (CIF_H // 16) * (CIF_W // 16))):
+        for inverse in (False, True):
+            a = torch.from_numpy(rng.integers(-255, 256, (nb, n, n)).astype(np.int64)).to(dev)
+            if inverse:
+                a = K.dct_scipy(a)
+            err = max(errs[n, inverse], _check_equal(f"[dct-scipy] ({nb}, {n}, {n}) {'idct' if inverse else 'dct'}",
+                                                     K.dct_scipy(a, inverse), K.dct_scipy_plain(a, inverse)))
+            ms, host = _time_ms(lambda: K.dct_scipy(a, inverse), 200, cyc)
+            plain_ms, _ = _time_ms(lambda: K.dct_scipy_plain(a, inverse), 10, cyc)
+            bound_ms, bound_by = _bound(2 * a.numel() * 8, nb * 2 * n * _line_ops(n, inverse), fp64_per_ms)
+            modes[n, inverse] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                 "bound_by": bound_by, "library_ms": None}
+            print(f"[dct-scipy] {'idct' if inverse else 'dct'} ({nb}, {n}, {n}) int64: {ms:.4f} ms vs plain "
+                  f"{plain_ms:.4f} ms (host enqueue {host:.4f} ms per call); bound {bound_ms:.5f} ms by {bound_by} "
+                  f"({_line_ops(n, inverse)} float64 operations a line)", flush=True)
+    print(f"[dct-scipy] kernel == plain version on the card, and both == scipy.fftpack on the host (the plain "
+          f"version's float64 before rounding, bit for bit): {checked} blocks ({total} of each size, half of them "
+          f"half-integer DC ties; both directions, the IDCT at qp 0 and 5), in {check_s:.1f} s", flush=True)
+    row = {"name": "dct_scipy", "route": "cuda", "source": "streamoptima_tpu_torch/csrc/dct_scipy.cu",
+           "replaces": "streamoptima_tpu/core/transform.py:174", **modes[16, False]}
+    for (n, inverse), m in modes.items():
+        prefix = ("n8_" if n == 8 else "") + ("inverse_" if inverse else "")
+        if prefix:
+            row.update({f"{prefix}{k}": v for k, v in m.items()})
+    return row
+
+
+def _compat_phase(dev) -> dict:
+    """The compat engine's paths, each run on the card with every kernel's
+    launches counted from 0 just before it, and again on the CPU (the plain
+    versions), whose MV file, residual file and decoded YUV it must equal
+    byte for byte; each decode must equal its reconstruction.
+
+    ``[compat]``: ``main.main`` in this process with ``--synthetic --engine
+    compat``, the command line's defaults (CIF, 21 frames, fast ME + VBS +
+    FME, sr 16, qp 5).  ``[compat-vbs-fme]``: the same with ``--frames 8
+    --no-fast-me``, full search with VBS + FME (the search kernel's FME mode
+    with the quads, and the fetch at the quads' own margin for the residual
+    and at the parent's, K18, for the reconstruction and decode).
+    ``[compat-rc-promote]``: through the facade, CIF 8 frames whole-pel at
+    ``rc_flag=2`` on a clip cut to noise at frame 4, ``intra_thresh`` twice
+    the largest inter frame of frames 1-3 of an ``rc_flag=1`` encode of the
+    clip in the same run: frame 4 must be promoted."""
+    out = {}
+    clip = synthetic_clip(CIF_H, CIF_W, CIF_FRAMES)
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+
+        def files(tag: str) -> list:
+            return ["--mv-file", str(d / f"{tag}mv.txt"), "--residual-file", str(d / f"{tag}res.txt"), "--out",
+                    str(d / f"{tag}dec.yuv"), "--recon-out", str(d / f"{tag}rec.yuv")]
+
+        def held(label: str, tag: str, src: np.ndarray) -> float:
+            """The card's files (``g``) == the CPU's (``c``); decode == recon; the mean PSNR against ``src``."""
+            for name in ("mv.txt", "res.txt", "dec.yuv", "rec.yuv"):
+                _require((d / f"g{tag}{name}").read_bytes() == (d / f"c{tag}{name}").read_bytes(),
+                         f"[{label}] the card's {name} differs from the CPU run's")
+            _require((d / f"g{tag}dec.yuv").read_bytes() == (d / f"g{tag}rec.yuv").read_bytes(),
+                     f"[{label}] decoded != recon")
+            rec = np.fromfile(d / f"g{tag}rec.yuv", dtype=np.uint8).reshape(src.shape)
+            err = ((rec.astype(np.float64) - src) ** 2).mean(axis=(1, 2))
+            return float(np.mean(10 * np.log10(255.0 ** 2 / err)))
+
+        argvs = {"compat": ["--synthetic", "--engine", "compat"],
+                 "compat-vbs-fme": ["--synthetic", "--engine", "compat", "--frames", "8", "--no-fast-me"]}
+        for label, argv in argvs.items():
+            chained = []  # the passes of each fast-ME chain, read off engine.fast_chain
+            chain = E.fast_chain
+
+            def recording(*a, **k):
+                gs, passes = chain(*a, **k)
+                chained.append(passes)
+                return gs, passes
+
+            _zero_counts()
+            E.fast_chain = recording
+            try:
+                t0 = time.perf_counter()
+                rc_g = cli_main(argv + files(f"g{label}"))
+                g_s = time.perf_counter() - t0
+            finally:
+                E.fast_chain = chain
+            launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
+            margin = K.pred_fetch_fme_vbs.margin_launches
+            _require(rc_g == 0, f"[{label}] exited {rc_g} on the card")
+            t0 = time.perf_counter()
+            rc_c = cli_main(argv + ["--device", "cpu"] + files(f"c{label}"))
+            c_s = time.perf_counter() - t0
+            _require(rc_c == 0, f"[{label}] exited {rc_c} on the CPU")
+            frames = CIF_FRAMES if label == "compat" else 8
+            psnr = held(label, label, synthetic_clip(CIF_H, CIF_W, frames))
+            n_inter = frames - 1
+            if label == "compat":  # per inter frame: the chain, one confirm, two fetches (K18) and one in decode
+                want = {"rowscan_pass": sum(chained), "window_fetch": n_inter, "pred_fetch_fme_vbs": 3 * n_inter,
+                        "dct_scipy": 4 * frames + 2 * frames}
+                _require(len(chained) == n_inter, f"[{label}] solved {len(chained)} chains")
+            else:
+                want = {"full_search_fme_vbs": n_inter, "pred_fetch_fme_vbs": 3 * n_inter,
+                        "dct_scipy": 4 * frames + 2 * frames}
+            _require(launches == want, f"[{label}] launches {launches}, expected {want}")
+            # the reconstruction's fetch and the decode's take the parent's margin (K18), the residual's its own
+            _require(margin == 2 * n_inter, f"[{label}] {margin} fetches at quad_margin={BS_}, expected "
+                     f"{2 * n_inter}")
+            _require(np.isfinite(psnr) and psnr > MIN_PSNR, f"[{label}] mean PSNR {psnr}")
+            out[label] = {"launches": launches, "margin_launches": margin, "s": g_s}
+            print(f"[{label}] command line {' '.join(argv)} (CIF {frames} frames): exit 0 in {g_s:.2f} s on the "
+                  f"card ({frames / g_s:.2f} frames/s, encode + SSIM + text stream + decode + files), "
+                  f"{c_s:.2f} s on the CPU; mv.txt, res.txt, decoded and reconstructed YUV == the --device cpu "
+                  f"run's, byte for byte; decoded == recon; mean PSNR {psnr:.4f} dB; launches {launches}, "
+                  f"{margin} of pred_fetch_fme_vbs's at quad_margin={BS_} (K18)"
+                  + (f" (rowscan_pass passes per inter frame {chained})" if chained else ""), flush=True)
+
+        # [compat-rc-promote]: the facade, whole-pel, rate control with promotion at a cut to noise
+        label = "compat-rc-promote"
+        cut = np.concatenate([clip[:4], synthetic_clip(CIF_H, CIF_W, 4, seed=7, smooth=False)])
+        base = dict(height=CIF_H, width=CIF_W, frames=8, block_size=16, search_range=16, qp=5, intra_dur=21,
+                    lam=0.015, engine="compat", target_br="3 mbps", frame_rate=30, qp_rate_tables=RC_TABLES)
+        first = CompatCodec(CodecConfig(**base, rc_flag=1), cut, device=dev).encode()
+        thresh = 2 * max(first["residual size per frame"][1:4])
+        cfg = CodecConfig(**base, rc_flag=2, intra_thresh=thresh)
+        for tag, where in (("g", dev), ("c", "cpu")):
+            _zero_counts()
+            t0 = time.perf_counter()
+            codec = VideoCodec(cfg, cut, device=where)
+            pkg = codec.encode()
+            codec.transmit_bitstream(d / f"{tag}{label}mv.txt", d / f"{tag}{label}res.txt")
+            codec.save_reconstructed(d / f"{tag}{label}rec.yuv")
+            dec = VideoCodec(cfg, device=where)
+            dec.decode_bitstream(d / f"{tag}{label}mv.txt", d / f"{tag}{label}res.txt")
+            dec.save_decoded_frames(d / f"{tag}{label}dec.yuv")
+            if tag == "g":
+                g_s = time.perf_counter() - t0
+                launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
+                types = pkg["frame_type_seq"]
+        psnr = held(label, label, cut)
+        _require(types[0] == 0 and types[4] == 0 and types[1:4] == [1, 1, 1], f"[{label}] frame types {types}")
+        promoted = types[1:].count(0)
+        want = {"full_search": 7, "pred_fetch": types.count(1), "dct_scipy": 2 * (7 + 1 + promoted) + 8}
+        _require(launches == want, f"[{label}] launches {launches}, expected {want}")
+        _require(np.isfinite(psnr) and psnr > PROMOTE_MIN_PSNR, f"[{label}] mean PSNR {psnr}")
+        out[label] = {"launches": launches, "s": g_s}
+        print(f"[{label}] facade, CIF 8 frames whole-pel, rc_flag 2, intra_thresh {thresh} (twice the largest of "
+              f"frames 1-3 at rc_flag 1): frame types {types}, row QPs of frame 0 {pkg['Qp_per_row_per_frame'][0]}; "
+              f"encode + text stream + decode {g_s:.2f} s on the card; mv.txt, res.txt, decoded and reconstructed "
+              f"YUV == the CPU run's, byte for byte; decoded == recon; mean PSNR {psnr:.4f} dB; launches {launches}",
+              flush=True)
+    return out
+
+
 def _drift_ramp(h: int, w: int) -> np.ndarray:
     """A reference whose SAD against an all-zero block falls toward the
     bottom-right corner, so every fast-ME step moves its MVP one step that
@@ -447,8 +728,7 @@ def _drive(label: str, extra: dict, clip: np.ndarray, dev, frames: int = FRAMES,
     cfg = _cfg(frames=frames, **extra)
     if mesh:
         _require(where(cfg)["mesh"].devices.shape == (N_SHARDS // N_TILES, N_TILES), f"{label}: mesh shape")
-    for fn in KERNELS.values():
-        fn.launches = 0
+    _zero_counts()
     enc = VideoCodec(cfg, clip, **where(cfg))
     torch.cuda.synchronize()
     pkg = enc.encode(package=False)  # ends in a device-to-host copy of the stats: synchronised
@@ -569,8 +849,7 @@ def _binary_phase(dev, pairs: dict) -> None:
             for f in files:
                 for mesh in (False, True):
                     where = {"mesh": make_mesh(cfg, devices=[dev] * N_SHARDS)} if mesh else {"device": dev}
-                    for fn in KERNELS.values():
-                        fn.launches = 0
+                    _zero_counts()
                     t0 = time.perf_counter()
                     dec = VideoCodec(cfg, **where).decode_bitstream_binary(f)  # ends in a device-to-host copy
                     decodes.append(time.perf_counter() - t0)
@@ -677,8 +956,7 @@ def _cli_phase(clip: np.ndarray, main_run: dict) -> None:
             _require((d / f"{tag}dec.yuv").read_bytes() == (d / f"{tag}rec.yuv").read_bytes(),
                      f"[cli] run {tag.upper()}: decoded != recon")
 
-        for fn in KERNELS.values():
-            fn.launches = 0
+        _zero_counts()
         t0 = time.perf_counter()
         rc_a = cli_main(["--input", str(src), "--height", str(H), "--width", str(W), "--frames", str(FRAMES),
                          "--search-range", str(SR), "--qp", str(QP), "--intra-dur", str(INTRA_DUR), "--no-fast-me",
@@ -706,8 +984,7 @@ def _cli_phase(clip: np.ndarray, main_run: dict) -> None:
             chained.append(passes)
             return gs, passes
 
-        for fn in KERNELS.values():
-            fn.launches = 0
+        _zero_counts()
         E.fast_chain = recording
         try:
             t0 = time.perf_counter()
@@ -761,6 +1038,7 @@ def main() -> None:
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     cyc = max_mhz * 1e3  # SM cycles per ms at the maximum clock
     int_ops_per_ms = n_sm * INT32_LANES_PER_SM * cyc
+    fp64_per_ms = n_sm * FP64_LANES_PER_SM * cyc
     print(f"[device] {smi} | {n_sm} SMs, max SM clock {max_mhz:.0f} MHz | torch {torch.__version__} | "
           f"cuda {torch.version.cuda}", flush=True)
 
@@ -810,8 +1088,13 @@ def main() -> None:
         err_b = max(err_b, _max_err([(got, plain)]))
     ms_b, host_b = _time_ms(lambda: K.pred_fetch(mv_main, ref, BS_), 200, cyc)
     plain_ms_b, _ = _time_ms(lambda: K.pred_fetch_plain(mv_main, ref, BS_), 20, cyc)
+    lib_b = _fetch_library(ref, mv_main)
+    _require(torch.equal(lib_b()[0].to(torch.int16), K.pred_fetch(mv_main, ref, BS_)),
+             "pred_fetch: differs from the library read")
+    lib_ms_b, _ = _time_ms(lib_b, 200, cyc)
     print(f"[kernel] pred_fetch 720p: bit-equal (tolerance 0) on adversarial and search-winner MVs; "
-          f"{ms_b:.4f} ms vs plain {plain_ms_b:.4f} ms (host enqueue {host_b:.4f} ms per call)", flush=True)
+          f"{ms_b:.4f} ms vs plain {plain_ms_b:.4f} ms, library (one indexing read of the references padded "
+          f"beforehand) {lib_ms_b:.4f} ms (host enqueue {host_b:.4f} ms per call)", flush=True)
 
     # FME + VBS: the parity planes of each pair's reference, computed once
     fme_pairs = {k: (c, M.fme_parity_planes(r, wrap_row_pass=True)) for k, (c, r) in pairs.items()}
@@ -849,6 +1132,17 @@ def main() -> None:
     print(f"[kernel] pred_fetch_fme_vbs 720p: bit-equal (tolerance 0) on adversarial (cases A, B, C) and "
           f"search-winner MVs; {ms_d:.4f} ms vs plain {plain_ms_d:.4f} ms (host enqueue {host_d:.4f} ms per call)",
           flush=True)
+    # the compat engine's reconstruction and decode: the quads' FME margin is the parent block's (K18)
+    k18 = {"err": max(_check_equal(f"pred_fetch_fme_vbs quad_margin={BS_} {name}",
+                                   K.pred_fetch_fme_vbs(mv, smv, planes, BS_, quad_margin=BS_),
+                                   K.pred_fetch_fme_vbs_plain(mv, smv, planes, BS_, quad_margin=BS_))
+                      for name, mv, smv in fme_sets)}
+    k18["ms"], _ = _time_ms(lambda: K.pred_fetch_fme_vbs(win["mv"], win["sub_mv"], planes, BS_, quad_margin=BS_),
+                            200, cyc)
+    k18["plain_ms"], _ = _time_ms(lambda: K.pred_fetch_fme_vbs_plain(win["mv"], win["sub_mv"], planes, BS_,
+                                                                     quad_margin=BS_), 20, cyc)
+    print(f"[kernel] pred_fetch_fme_vbs 720p at quad_margin={BS_} (K18): bit-equal (tolerance 0) on the same MVs; "
+          f"{k18['ms']:.4f} ms vs plain {k18['plain_ms']:.4f} ms", flush=True)
 
     # the tool matrix's modes: whole-pel VBS at one and four references, whole-pel at four, FME alone
     cur4 = torch.from_numpy(clip[4]).to(dev)
@@ -857,13 +1151,20 @@ def main() -> None:
               "flat_ties": (torch.full_like(cur4, 77), torch.full_like(ref4, 77))}
     modes = {}  # name -> this run's max error, kernel and plain times
 
-    def hold(name: str, sets: dict, fn, plain, args, reps: int, plain_reps: int, what: str) -> None:
+    def hold(name: str, sets: dict, fn, plain, args, reps: int, plain_reps: int, what: str, library=None) -> None:
+        """``library``: the one PyTorch call computing ``fn(*args)`` (uint8 planes), held and timed beside it."""
         err = max(_check_equal(f"{name} {k}", fn(*v), plain(*v)) for k, v in sets.items())
         ms, host = _time_ms(lambda: fn(*args), reps, cyc)
         plain_ms, _ = _time_ms(lambda: plain(*args), plain_reps, cyc)
-        modes[name] = {"err": err, "ms": ms, "plain_ms": plain_ms}
+        modes[name] = {"err": err, "ms": ms, "plain_ms": plain_ms, "lib_ms": None}
+        if library is not None:
+            got = fn(*args)
+            _require(torch.equal(torch.stack(got if isinstance(got, tuple) else [got]), library().to(torch.int16)),
+                     f"{name}: differs from the library read")
+            modes[name]["lib_ms"], _ = _time_ms(library, reps, cyc)
+        lib = "" if library is None else f", library {modes[name]['lib_ms']:.4f} ms"
         print(f"[kernel] {name} 720p {what}: bit-equal (tolerance 0) on {list(sets)}; {ms:.4f} ms vs plain "
-              f"{plain_ms:.4f} ms (host enqueue {host:.4f} ms per call)", flush=True)
+              f"{plain_ms:.4f} ms{lib} (host enqueue {host:.4f} ms per call)", flush=True)
 
     hold("full_search_vbs", {k: (c, r, SR, BS_) for k, (c, r) in pairs.items()}, K.full_search_vbs,
          K.full_search_vbs_plain, (cur, ref, SR, BS_), 50, 5, f"sr={SR}, one reference")
@@ -883,7 +1184,8 @@ def main() -> None:
                                             BS_),
                             "search_winners": (win_v["mv"], win_v["sub_mv"], ref, BS_)},
          K.pred_fetch_vbs, K.pred_fetch_vbs_plain, (win_v["mv"], win_v["sub_mv"], ref, BS_), 200, 20,
-         "whole-pel with the quad plane, adversarial and search-winner MVs")
+         "whole-pel with the quad plane, adversarial and search-winner MVs",
+         library=_fetch_library(ref, win_v["mv"], win_v["sub_mv"]))
     # [main-nref4]'s decode: the fetch over the four-reference FIFO
     win4 = K.full_search(cur4, ref4, SR, BS_)["mv"]
     adv4 = _adversarial_mvs(rng, nb, 3 * SR)
@@ -891,7 +1193,8 @@ def main() -> None:
     hold("pred_fetch nref=4", {"adversarial": (torch.from_numpy(adv4).to(dev), ref4, BS_),
                                "search_winners": (win4, ref4, BS_)},
          K.pred_fetch, K.pred_fetch_plain, (win4, ref4, BS_), 200, 20,
-         "four references, adversarial MVs over references 0-3 and search-winner MVs")
+         "four references, adversarial MVs over references 0-3 and search-winner MVs",
+         library=_fetch_library(ref4, win4))
     win_f = K.full_search_fme(cur, planes, SR, BS_)
     hold("pred_fetch_fme", {"adversarial_ABC": (torch.from_numpy(adv).to(dev), planes, BS_),
                             "search_winners": (win_f["mv"], planes, BS_)},
@@ -1040,7 +1343,7 @@ def main() -> None:
         err = 0
         for name, (c, p) in sets.items():
             curs = [c[t * h_t:(t + 1) * h_t] for t in range(N_TILES)]
-            gs, npass = fast_chain(engines, curs, [p] * N_TILES, [None] * N_TILES)  # a cold solve of the frame
+            gs, npass = fast_chain([e.chain_tile for e in engines], curs, [p] * N_TILES, [None] * N_TILES)  # a cold solve of the frame
             conv = [g.reshape(S_t, L, 3)[:, 0].contiguous() for g in gs]
             if name == "clip":
                 tiles[fme] = {"curs": curs, "p": p, "gs": gs, "seeds": conv, "passes": npass}
@@ -1096,6 +1399,7 @@ def main() -> None:
                  f"{f.__name__} on the card differs from the CPU port")
     print(f"[transform] dct2_int / idct2_int on the card bit-equal to the CPU port ({nb} blocks, extremes)",
           flush=True)
+    dct_row = _dct_phase(dev, cyc, fp64_per_ms)
 
     small = synthetic_clip(64, 96, 6, seed=3)
     small_cfgs = {"whole-pel": {}, "VBS + FME": VBS_FME, "fast ME": FAST, "fast ME + VBS + FME": FAST_VBS_FME,
@@ -1253,8 +1557,7 @@ def main() -> None:
                         "mesh-rc": (singles["mesh-rc"], mesh_runs["mesh-rc"]["codec"], mesh_runs["mesh-rc"]["pkg"])})
 
     # the dry run: __graft_entry__.dryrun_multichip's six feature sets at 64x64 on an 8-shard mesh of the card
-    for fn in KERNELS.values():
-        fn.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     dry = dryrun_multichip(8, device=dev)
     dry_s = time.perf_counter() - t0
@@ -1269,9 +1572,12 @@ def main() -> None:
 
     _ssim_phase(dev, clip, whole["pkg"]["reconstructed frames"])
     _cli_phase(clip, whole)
+    compat = _compat_phase(dev)
     times = profiling.time_steps(_cfg(), clip, warmup=1, iters=8, device=dev)
     print("[profiling] profiling.time_steps, [main]'s config at 720p (8 synchronised runs a step):\n"
           + profiling.report(times), flush=True)
+    print("[profiling] profile_main_path.profile_compat: [compat]'s encode and decode, timed and profiled:", flush=True)
+    profile_compat(CIF_FRAMES, 5)
 
     # ---- the kernels' line: this run's counts, errors, times and bounds
     px = H * W
@@ -1281,13 +1587,14 @@ def main() -> None:
     def mode_row(name, source, replaces, launches, nbytes, ops):
         m = modes[name]
         return _kernel_row(name, source, replaces, launches, m["err"], m["ms"], m["plain_ms"], nbytes, ops,
-                           int_ops_per_ms)
+                           int_ops_per_ms, library_ms=m["lib_ms"])
 
     def with_mode(row, prefix, nbytes, ops, m):
         """``row`` with another mode's numbers under ``<prefix>_*`` keys."""
         bound_ms, bound_by = _bound(nbytes, ops, int_ops_per_ms)
         row.update({f"{prefix}_max_abs_err": m["err"], f"{prefix}_ms": m["ms"], f"{prefix}_plain_ms": m["plain_ms"],
-                    f"{prefix}_bound_ms": bound_ms, f"{prefix}_bound_by": bound_by, f"{prefix}_library_ms": None})
+                    f"{prefix}_bound_ms": bound_ms, f"{prefix}_bound_by": bound_by,
+                    f"{prefix}_library_ms": m.get("lib_ms")})
         return row
 
     kernels = [
@@ -1305,7 +1612,8 @@ def main() -> None:
         _kernel_row("full_search_fme_vbs", "full_search_fme.cu", 621, vf["launches"]["full_search_fme_vbs"], err_c,
                     ms_c, plain_ms_c, px + planes.numel() + out_v, _search_ops(H, W, 1, True, dev), int_ops_per_ms),
         with_mode(_kernel_row("pred_fetch", "pred_fetch.cu", 1020, whole["launches"]["pred_fetch"], err_b, ms_b,
-                              plain_ms_b, nb * 12 + _fetch_bytes_read(mv_main, ref) + 2 * px, 0, int_ops_per_ms),
+                              plain_ms_b, nb * 12 + _fetch_bytes_read(mv_main, ref) + 2 * px, 0, int_ops_per_ms,
+                              library_ms=lib_ms_b),
                   "nref4", nb * 12 + _fetch_bytes_read(win4, ref4) + 2 * px, 0, modes["pred_fetch nref=4"]),
         mode_row("pred_fetch_vbs", "pred_fetch.cu", 1020, tools["main-vbs"]["launches"]["pred_fetch_vbs"],
                  nb * 5 * 12 + _fetch_bytes_read(win_v["mv"], ref, win_v["sub_mv"]) + 4 * px, 0),
@@ -1315,6 +1623,14 @@ def main() -> None:
                     plain_ms_d, nb * 5 * 12 + _fetch_bytes_read(win["mv"], planes, win["sub_mv"], fme=True) + 4 * px, 0,
                     int_ops_per_ms),
     ]
+    # the compat engine's quad margin (K18) on the same MVs: launches counted by the wrapper in [compat] (the
+    # reconstruction's and the decode's fetches), bytes as that margin reads them
+    with_mode(kernels[-1], "k18", nb * 5 * 12 + _fetch_bytes_read(win["mv"], planes, win["sub_mv"], fme=True,
+                                                                  quad_margin=BS_) + 4 * px, 0,
+              {"err": k18["err"], "ms": k18["ms"], "plain_ms": k18["plain_ms"]})
+    kernels[-1]["k18_launches"] = compat["compat"]["margin_launches"]
+    dct_row["launches"] = compat["compat"]["launches"]["dct_scipy"]
+    kernels.append(dct_row)
     # the two fast-ME kernels: the FME mode's numbers, the whole-pel mode's under whole_pel_* keys
     rows = {}
     for fme, label in ((True, "main-fast-vbs-fme"), (False, "main-fast")):

@@ -1,7 +1,10 @@
 """StreamOptima on PyTorch + CUDA (NVIDIA Hopper).
 
 A port of the ``streamoptima_tpu`` codec (a simplified H.264-style, luma-only
-block codec) that runs everything the JAX package's native engine runs:
+block codec) that runs everything the JAX package runs, both engines
+included: the native one (``TorchCodec``) and the one bit-exact with the
+NumPy reference (``engine="compat"``: ``compat_engine.CompatCodec``, its
+scipy-exact float64 DCT and every reference quirk):
 
 - I/P frames with intra modes 0 and 1; full-search or fast motion
   estimation, whole-pel or half-pel (FME), with or without variable block
@@ -18,7 +21,8 @@ block codec) that runs everything the JAX package's native engine runs:
   (``io.video``), ``profiling`` and ``viz``.
 
 Plain code is PyTorch.  The kernels (the whole-pel and half-pel searches,
-the prediction fetch, the fast-ME chain pass and its window gather) are
+the prediction fetch, the fast-ME chain pass and its window gather, the
+compat engine's scipy-exact DCT) are
 hand-written CUDA C++ for ``sm_90a`` under ``csrc/``, built with ``nvcc``
 at first use (``_build.py``).  Tensors on the CPU take each kernel's plain
 PyTorch version instead, which is what the CPU tests hold against the JAX

@@ -105,7 +105,7 @@ def library() -> ctypes.CDLL:
     lib.so_full_search_fme.restype = i
     lib.so_full_search_fme_vbs.argtypes = [p, p, i, i, i, i, i, *band, p, p, p, p, p, p, p]
     lib.so_full_search_fme_vbs.restype = i
-    lib.so_pred_fetch.argtypes = [p, p, p, i, i, i, i, i, *band, p, p, p]
+    lib.so_pred_fetch.argtypes = [p, p, p, i, i, i, i, i, *band, i, p, p, p]  # ..., quad_margin, ...
     lib.so_pred_fetch.restype = i
     lib.so_window_fetch.argtypes = [p, p, p, i, i, i, i, i, i, p, p]
     lib.so_window_fetch.restype = i
@@ -113,4 +113,6 @@ def library() -> ctypes.CDLL:
     lib.so_rowscan_pass.restype = i
     lib.so_rowscan_pass_smem.argtypes = [i, i, i]  # nref, bs, fme
     lib.so_rowscan_pass_smem.restype = i
+    lib.so_dct_scipy.argtypes = [p, p, i, i, i, p]  # in, out, nb, n, inverse, stream
+    lib.so_dct_scipy.restype = i
     return lib

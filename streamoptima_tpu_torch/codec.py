@@ -23,6 +23,11 @@ the mesh's devices, with the same package and streams::
     mesh = make_mesh(cfg, devices=["cuda:0"] * 6)   # or ["cpu"] * 8
     codec = VideoCodec(cfg, y_frames, mesh=mesh)
 
+With ``cfg.engine == "compat"`` the facade runs ``compat_engine.CompatCodec``,
+the engine bit-exact with the NumPy reference, on ``device``: the same
+package keys and text bitstream, no mesh and no binary-container decode
+(the JAX facade's refusals).
+
 The mesh runs every tool set a device runs but the parallel modes: rate
 control, scene-change promotion, two-pass and ROI maps included.  A mesh
 decodes a stream whose GOPs are not the mesh's (a GOP opening off
@@ -47,6 +52,7 @@ import torch
 from streamoptima_tpu_torch import binstream as BIN
 from streamoptima_tpu_torch import bitstream as BS
 from streamoptima_tpu_torch import metrics, viz
+from streamoptima_tpu_torch.compat_engine import CompatCodec
 from streamoptima_tpu_torch.config import CodecConfig
 from streamoptima_tpu_torch.io.video import VideoManager
 from streamoptima_tpu_torch.engine import TorchCodec, frame_arrays_of
@@ -54,12 +60,15 @@ from streamoptima_tpu_torch.parallel import ShardedCodec
 
 
 class VideoCodec:
-    """Encode/decode facade over ``TorchCodec`` on one ``device``, or over
-    ``ShardedCodec`` on a ``mesh``, with file-level APIs."""
+    """Encode/decode facade over ``TorchCodec`` (or, for ``engine="compat"``,
+    ``CompatCodec``) on one ``device``, or over ``ShardedCodec`` on a
+    ``mesh``, with file-level APIs."""
 
     def __init__(self, cfg: CodecConfig, y_frames=None, *, device=None, mesh=None):
         if (device is None) == (mesh is None):
             raise TypeError("VideoCodec runs on one device or on a mesh: give exactly one of device= and mesh=")
+        if cfg.compat and mesh is not None:
+            raise ValueError("multi-device encoding requires engine='jax'")
         self.cfg = cfg
         self.mesh = mesh
         self.device = torch.device(device) if mesh is None else mesh.devices[0, 0]
@@ -67,11 +76,15 @@ class VideoCodec:
             self._enc = ShardedCodec(cfg, mesh, y_frames) if y_frames is not None else None
             self._dec_mesh = self._enc or ShardedCodec(cfg, mesh)
         else:
-            self._enc = TorchCodec(cfg, y_frames, device=device) if y_frames is not None else None
+            self._enc = self._engine(cfg, y_frames) if y_frames is not None else None
             self._dec_mesh = None
-        self._dec = TorchCodec(cfg, device=self.device)
+        self._dec = self._engine(cfg)
         self._pkg = None
         self._decoded = None
+
+    def _engine(self, cfg: CodecConfig, y_frames=None):
+        """The one-device engine of ``cfg`` on the codec's device."""
+        return (CompatCodec if cfg.compat else TorchCodec)(cfg, y_frames, device=self.device)
 
     # ----------------------------------------------------------- encoding
     def encode(self, compute_ssim: bool = True, **kw) -> dict:
@@ -142,7 +155,7 @@ class VideoCodec:
         fts, mvs, qps, res = read()
         after = None if self.cfg.roi_qp_map is None else np.asarray(self.cfg.roi_qp_map)
         if (before is None) != (after is None) or (before is not None and not np.array_equal(before, after)):
-            self._dec = TorchCodec(self.cfg, device=self.device)
+            self._dec = self._engine(self.cfg)
             if self._dec_mesh is not None:
                 self._dec_mesh = ShardedCodec(self.cfg, self.mesh)
         return fts, res, qps, mvs
@@ -156,7 +169,10 @@ class VideoCodec:
         return self.decode(*self.parse_bitstream(mv_file, residual_file))
 
     def decode_bitstream_binary(self, path) -> np.ndarray:
-        """File-level decode of the binary container."""
+        """File-level decode of the binary container (the native engine's:
+        the compat engine replicates the reference, which has none)."""
+        if self.cfg.compat:
+            raise ValueError("the binary container requires engine='jax'")
         return self.decode(*self._read(lambda: BIN.read_binary(path, self.cfg)))
 
     def _finish(self, frames) -> np.ndarray:

@@ -8,7 +8,8 @@ keyword arguments builds either package's ``CodecConfig``.  Field names map
 Left out are the JAX engine's TPU-only tuning knobs (``me_search``, the
 ``fast_me_*`` knobs, ``winner_fetch``, ``encode_drain``, ``mesh_devices``):
 they select among bit-identical TPU programs and have no meaning here.
-``engine`` stays, so that ``engine="compat"`` is refused by name.
+``engine`` picks the engine: "jax" (the native engine, ``TorchCodec``) or
+"compat" (the reference-exact engine, ``compat_engine.CompatCodec``).
 """
 from __future__ import annotations
 
@@ -53,8 +54,8 @@ class CodecConfig:
     qp_rate_tables: Sequence[Sequence[float]] | None = None
     intra_thresh: int | None = None
     parallel_mode: int = 0
-    # "jax": the native engine this package ports; "compat": the host
-    # reference engine, which is not ported and is refused by name
+    # "jax": the native engine; "compat": the engine bit-exact with the
+    # NumPy reference (compat_engine.CompatCodec)
     engine: str = "jax"
     # text formatting: coefficient values serialized as np.int64(v) (what the
     # reference emits under numpy>=2).  None => True iff compat.
@@ -151,6 +152,17 @@ class CodecConfig:
 
     @property
     def intra_canvas(self) -> tuple[int, int]:
-        """Intra search canvas: the frame's own dims (the native engine's;
-        the compat engine's 288x352 reference canvas is not ported)."""
+        """Intra search canvas. The reference hardcodes a 288x352 all-128
+        canvas (Encoder.py:1248, :1165) - frames smaller than CIF search into
+        the 128 padding beyond the frame edge, and frames larger than CIF
+        cannot be intra-coded at all by the reference.  Compat replicates the
+        CIF canvas; the native engine uses the frame dims."""
+        if self.compat:
+            if self.height > 288 or self.width > 352:
+                raise ValueError(
+                    "compat engine replicates the reference's hardcoded "
+                    "288x352 intra canvas (Encoder.py:1248) and cannot intra-"
+                    "code larger frames; use engine='jax'"
+                )
+            return (288, 352)
         return (self.height, self.width)

@@ -14,7 +14,9 @@
                             replaces me_pallas.pred_fetch_compact).
 ``pred_fetch_vbs``       -- the same with the quad plane.
 ``pred_fetch_fme``       -- the same kernel in its FME mode, cases A, B and C.
-``pred_fetch_fme_vbs``   -- the FME mode with the quad plane.
+``pred_fetch_fme_vbs``   -- the FME mode with the quad plane (the quads'
+                            FME margin: their own size, or the parent
+                            block's for the compat engine's quirk K18).
 ``window_fetch``         -- the fast-ME region gather at any origin
                             (csrc/window_fetch.cu; replaces
                             me_pallas.window_fetch with window_prep).
@@ -22,6 +24,9 @@
                             or FME, of the frame or a mesh tile's rows
                             (csrc/rowscan_pass.cu; replaces
                             me_pallas.rowscan_pass with pass_prep).
+``dct_scipy``            -- the compat engine's scipy-exact 2D DCT-II or its
+                            inverse (csrc/dct_scipy.cu; no TPU kernel: the
+                            JAX compat engine calls scipy on the host).
 
 The searches and fetches also take a band of the frame in place of the
 whole frame (a mesh tile's, ``parallel/mesh.py``; me_pallas's ``read_row0``,
@@ -45,6 +50,7 @@ from streamoptima_tpu_torch.core import me as M
 from streamoptima_tpu_torch.core.fastme import rowscan_pass_plain, window_fetch_plain
 from streamoptima_tpu_torch.core.blocks import unblockify, unquads_px
 from streamoptima_tpu_torch.core.pred import gather_predictions
+from streamoptima_tpu_torch.core.transform import dct2_scipy, idct2_scipy
 
 #: shared memory one block may use on Hopper (bytes)
 _SMEM_LIMIT = 232448
@@ -363,10 +369,11 @@ def _check_fetch(mv: torch.Tensor, refs: torch.Tensor, bs: int, band_row0: int, 
 
 
 def _launch_fetch(what: str, mv: torch.Tensor, sub_mv, planes: torch.Tensor, bs: int, fme: bool, h: int,
-                  band: tuple):
+                  band: tuple, quad_margin: int | None = None):
     """Allocate the (h, w) prediction plane(s) and launch the ``pred_fetch``
     kernel; the quad plane is fetched when ``sub_mv`` is given.  ``band`` is
-    (band_row0, g_row0, H)."""
+    (band_row0, g_row0, H); ``quad_margin``: the quads' FME margin (default
+    their size)."""
     from streamoptima_tpu_torch._build import library
 
     bandh, w = planes.shape[-2:]
@@ -376,7 +383,8 @@ def _launch_fetch(what: str, mv: torch.Tensor, sub_mv, planes: torch.Tensor, bs:
     with torch.cuda.device(dev):
         rc = library().so_pred_fetch(mv.data_ptr(), None if sub_mv is None else sub_mv.data_ptr(),
                                      planes.data_ptr(), planes.shape[0], h, w, bs, int(fme), bandh, *band,
-                                     pred.data_ptr(), None if pred_q is None else pred_q.data_ptr(), _stream(dev))
+                                     bs // 2 if quad_margin is None else quad_margin, pred.data_ptr(),
+                                     None if pred_q is None else pred_q.data_ptr(), _stream(dev))
     _launch_check(rc, what)
     return pred if pred_q is None else (pred, pred_q)
 
@@ -404,12 +412,12 @@ pred_fetch.launches = 0
 
 
 def _quad_plane(sub_mv: torch.Tensor, grid: torch.Tensor, h: int, w: int, bs: int, fme: bool, g_row0: int,
-                grid_dims: tuple, origin_row: int) -> torch.Tensor:
+                grid_dims: tuple, origin_row: int, fme_margin: int | None = None) -> torch.Tensor:
     """Each quad's prediction at its own position: (h, w) int16."""
     s = bs // 2
     qx, qy = M.quad_origins(h, w, bs, grid.device)
     quads = gather_predictions(sub_mv.reshape(-1, 3), grid, qx.reshape(-1), qy.reshape(-1) + g_row0, s, fme=fme,
-                               grid_dims=grid_dims, origin_row=origin_row)
+                               grid_dims=grid_dims, origin_row=origin_row, fme_margin=fme_margin)
     return unquads_px(quads.reshape(-1, 4, s, s), h, w).to(torch.int16)
 
 
@@ -468,14 +476,15 @@ def pred_fetch_fme_plain(mv: torch.Tensor, planes: torch.Tensor, bs: int, *, ban
 
 
 def pred_fetch_fme_vbs_plain(mv: torch.Tensor, sub_mv: torch.Tensor, planes: torch.Tensor, bs: int, *,
-                             band_row0: int = 0, g_row0: int = 0, grid=None) -> tuple[torch.Tensor, torch.Tensor]:
+                             band_row0: int = 0, g_row0: int = 0, grid=None,
+                             quad_margin: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the ``pred_fetch`` kernel's FME mode with
     the quad plane (any device)."""
     w = planes.shape[-1]
     h = mv.shape[0] // (w // bs) * bs
     g, dims, origin = _fme_fetch_args(planes, band_row0, g_row0, grid)
     return (pred_fetch_fme_plain(mv, planes, bs, band_row0=band_row0, g_row0=g_row0, grid=grid),
-            _quad_plane(sub_mv, g, h, w, bs, True, g_row0, dims, origin))
+            _quad_plane(sub_mv, g, h, w, bs, True, g_row0, dims, origin, quad_margin))
 
 
 def _check_planes4(planes: torch.Tensor) -> None:
@@ -508,15 +517,18 @@ pred_fetch_fme.launches = 0
 
 
 def pred_fetch_fme_vbs(mv: torch.Tensor, sub_mv: torch.Tensor, planes: torch.Tensor, bs: int, *,
-                       band_row0: int = 0, g_row0: int = 0, grid=None) -> tuple[torch.Tensor, torch.Tensor]:
+                       band_row0: int = 0, g_row0: int = 0, grid=None,
+                       quad_margin: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Half-pel prediction planes for given block and quad MVs.
 
     mv: (nb, 3), sub_mv: (nb, 4, 3) int32 [dx, dy, ref] on the half-pel grid
     (quads in Z order); planes: (nref, 4, bandh, w) uint8 parity planes of
     the frames or of a band of them.  Returns (pred_full, pred_quads), both
     (h, w) int16 with each (sub)block's prediction at its own position: case
-    A, B or C as in ``pred_fetch_fme``, per block and per quad.  Reference
-    indices must lie in [0, nref).
+    A, B or C as in ``pred_fetch_fme``, per block and per quad; the quads'
+    margin check is ``0 <= p + bs < D - quad_margin`` (default bs / 2, the
+    quad's own size; the compat engine's reconstruction passes bs, quirk
+    K18).  Reference indices must lie in [0, nref).
     """
     _check_planes4(planes)
     if bs % 2:
@@ -524,13 +536,18 @@ def pred_fetch_fme_vbs(mv: torch.Tensor, sub_mv: torch.Tensor, planes: torch.Ten
     h, w, H = _check_fetch(mv, planes, bs, band_row0, g_row0, grid)
     _check_mv(sub_mv, "sub_mv", (mv.shape[0], 4, 3), planes.device)
     if planes.device.type == "cpu":
-        return pred_fetch_fme_vbs_plain(mv, sub_mv, planes, bs, band_row0=band_row0, g_row0=g_row0, grid=(H, w))
-    out = _launch_fetch("pred_fetch_fme_vbs", mv, sub_mv, planes, bs, True, h, (band_row0, g_row0, H))
+        return pred_fetch_fme_vbs_plain(mv, sub_mv, planes, bs, band_row0=band_row0, g_row0=g_row0, grid=(H, w),
+                                        quad_margin=quad_margin)
+    out = _launch_fetch("pred_fetch_fme_vbs", mv, sub_mv, planes, bs, True, h, (band_row0, g_row0, H), quad_margin)
     pred_fetch_fme_vbs.launches += 1
+    if quad_margin is not None and quad_margin != bs // 2:
+        pred_fetch_fme_vbs.margin_launches += 1
     return out
 
 
 pred_fetch_fme_vbs.launches = 0
+#: of those, the launches at a quad margin other than the quads' own size (the compat engine's K18)
+pred_fetch_fme_vbs.margin_launches = 0
 
 
 # ------------------------------------------------------------ window fetch
@@ -631,3 +648,45 @@ def rowscan_pass(cur: torch.Tensor, planes: torch.Tensor, seeds: torch.Tensor, b
 
 
 rowscan_pass.launches = 0
+
+
+# ----------------------------------------------------- scipy-exact DCT
+def dct_scipy_plain(blocks: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the ``dct_scipy`` kernel (any device)."""
+    return (idct2_scipy if inverse else dct2_scipy)(blocks)
+
+
+def dct_scipy(blocks: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """The compat engine's 2D DCT-II (``inverse``: its inverse, a DCT-III)
+    of (nb, n, n) int64 blocks, n in {8, 16}: scipy.fftpack's orthonormal
+    transform along axis -2 then axis -1, rounded half to even, bit for bit.
+    Returns (nb, n, n) int64.  The plain version is ``dct_scipy_plain``
+    (``transform.dct2_scipy`` / ``idct2_scipy``, any power of two n); the
+    kernel replays its float64 operations in their order.  An empty batch
+    launches nothing.
+    """
+    if blocks.dtype != torch.int64 or blocks.dim() != 3 or not blocks.is_contiguous():
+        raise ValueError(f"dct_scipy takes contiguous (nb, n, n) int64 blocks, got {blocks.dtype} "
+                         f"{tuple(blocks.shape)}")
+    nb, n = blocks.shape[0], blocks.shape[-1]
+    if blocks.shape[1] != n:
+        raise ValueError(f"blocks must be square, got {tuple(blocks.shape)}")
+    if blocks.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"dct_scipy runs on cpu or cuda tensors, not {blocks.device}")
+    if blocks.device.type == "cpu":
+        return dct_scipy_plain(blocks, inverse)
+    if n not in (8, 16):
+        raise ValueError(f"the dct_scipy kernel takes 8 x 8 and 16 x 16 blocks, got {n} x {n}")
+    out = torch.empty_like(blocks)
+    if nb == 0:
+        return out
+    from streamoptima_tpu_torch._build import library
+
+    with torch.cuda.device(blocks.device):
+        rc = library().so_dct_scipy(blocks.data_ptr(), out.data_ptr(), nb, n, int(inverse), _stream(blocks.device))
+    _launch_check(rc, "dct_scipy")
+    dct_scipy.launches += 1
+    return out
+
+
+dct_scipy.launches = 0

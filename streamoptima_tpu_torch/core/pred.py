@@ -14,10 +14,13 @@ C. the primary bounds fail: the contiguous stride-1 window of the grid,
    under FME, where the reference ignores the half-pel stride here.
 
 Validity (strict, the reference's off-by-one): 0 <= px < W - n and
-0 <= py < H - n; FME margin: 0 <= px + 2n < W - n (same for y).  The margin
-is the (sub)block's own size n, on the residual path and the decode path
-alike (the native engine's K18 fix), so decode predicts exactly what the
-encoder's residual was computed against.
+0 <= py < H - n; FME margin: 0 <= px + 2n < W - m (same for y).  The
+margin's subtrahend m is ``fme_margin``, by default the (sub)block's own
+size n: the native engine uses n on the residual path and the decode path
+alike (its K18 fix), so decode predicts exactly what the encoder's residual
+was computed against.  The compat engine keeps the reference's quirk K18:
+its reconstruction and decode pass the parent block's size for the VBS
+quads (Encoder.py:910, decoder.py:185), its residual path n.
 """
 from __future__ import annotations
 
@@ -25,13 +28,15 @@ import torch
 
 
 def gather_predictions(mvs: torch.Tensor, grid: torch.Tensor, bx: torch.Tensor, by: torch.Tensor, n: int,
-                       fme: bool = False, grid_dims: tuple | None = None, origin_row: int = 0) -> torch.Tensor:
+                       fme: bool = False, grid_dims: tuple | None = None, origin_row: int = 0,
+                       fme_margin: int | None = None) -> torch.Tensor:
     """Predicted (sub)blocks for chosen MVs.
 
     mvs: (nb, 3) int [dx, dy, ref]; grid: (nref, H, W) reference grids (the
     frames, or the (2h-1, 2w-1) half-pel grids under ``fme``); bx, by: (nb,)
     (sub)block top-left pixel coordinates (not doubled); n: the (sub)block
-    size.  Returns (nb, n, n) int32.
+    size; ``fme_margin``: the FME margin's subtrahend (default n).  Returns
+    (nb, n, n) int32.
 
     Band form (the JAX twin's, for mesh tiles): ``grid`` may be a band of
     whole rows of the reference grid.  ``grid_dims`` is the whole grid's
@@ -60,7 +65,8 @@ def gather_predictions(mvs: torch.Tensor, grid: torch.Tensor, bx: torch.Tensor, 
     if not fme:
         return g1
     valid1 = (px >= 0) & (px < W - n) & (py >= 0) & (py < H - n)
-    valid2 = (px + 2 * n >= 0) & (px + 2 * n < W - n) & (py + 2 * n >= 0) & (py + 2 * n < H - n)
+    m = n if fme_margin is None else fme_margin
+    valid2 = (px + 2 * n >= 0) & (px + 2 * n < W - m) & (py + 2 * n >= 0) & (py + 2 * n < H - m)
     case_ab = torch.where(valid2[:, None, None], window(2), 128)
     return torch.where(valid1[:, None, None], case_ab, g1)
 

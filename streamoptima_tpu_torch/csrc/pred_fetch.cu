@@ -13,6 +13,10 @@
 //   for the (sub)block at (x0, y0) of size n:
 //     A. primary bounds and margin hold: grid pixel (py + 2i, px + 2j);
 //     B. primary bounds hold, margin fails: 128;
+//   the margin is 0 <= p + 2n < D - m on each axis (D the grid's extent),
+//   with m = n for full blocks and m = quad_margin for quads: n (the native
+//   engine's N10 fix) or the parent block's size (quirk K18, the compat
+//   engine's reconstruction and decode);
 //     C. primary bounds fail: grid pixel (py + i, px + j), zero off the grid.
 // Grid pixel (Y, X) is parity plane (Y & 1, X & 1) at (Y >> 1, X >> 1); the
 // zero row and column the planes are padded with are not grid pixels.  The
@@ -115,10 +119,12 @@ template <int BSC>
 __global__ void __launch_bounds__(kSegs * kRows)
     pred_fetch_kernel(const int32_t* __restrict__ mv, const int32_t* __restrict__ smv,
                       const uint8_t* __restrict__ refs, int nref, int h, int w, int bs_arg, int fme, int bandh,
-                      int band_row0, int g_row0, int H, int16_t* __restrict__ pred, int16_t* __restrict__ pred_q) {
+                      int band_row0, int g_row0, int H, int quad_margin, int16_t* __restrict__ pred,
+                      int16_t* __restrict__ pred_q) {
     const int bs = BSC ? BSC : bs_arg;
     const bool quad = blockIdx.z != 0;
     const int n = quad ? bs / 2 : bs;  // the (sub)block's size
+    const int margin = quad ? quad_margin : n;  // the FME margin's subtrahend
     const int nseg = (n + 7) >> 3;     // segments of one of its rows
     const int per = quad ? 2 * nseg : nseg;  // segments across a block row
     const int nbc = w / bs;
@@ -157,7 +163,7 @@ __global__ void __launch_bounds__(kSegs * kRows)
             const long long px = 2LL * x0 + dx, py = 2LL * gy0 + dy;
             const uint8_t* planes = refs + (size_t)r * 4 * bandh * w;
             if (px >= 0 && px < W2 - n && py >= 0 && py < H2 - n) {
-                if (px + 2 * n < W2 - n && py + 2 * n < H2 - n) {
+                if (px + 2 * n < W2 - margin && py + 2 * n < H2 - margin) {
                     // case A: grid row py + 2ii, columns px + 2j: one parity plane's consecutive bytes
                     const int Yb = band_row((int)py + 2 * ii, 2 * org, 2 * bandh - 1);
                     const uint8_t* row = planes + ((size_t)((Yb & 1) * 2 + ((int)px & 1)) * bandh + (Yb >> 1)) * w;
@@ -191,8 +197,8 @@ __global__ void __launch_bounds__(kSegs * kRows)
 }  // namespace
 
 extern "C" int so_pred_fetch(const void* mv, const void* smv, const void* refs, int nref, int h, int w, int bs,
-                             int fme, int bandh, int band_row0, int g_row0, int H, void* pred, void* pred_q,
-                             void* stream) {
+                             int fme, int bandh, int band_row0, int g_row0, int H, int quad_margin, void* pred,
+                             void* pred_q, void* stream) {
     // segments across a frame row: per block, ceil(bs / 8) of the full plane, 2 ceil(bs / 16) of the quads'
     const int segs = (w / bs) * ((bs + 7) / 8 > 2 * ((bs / 2 + 7) / 8) ? (bs + 7) / 8 : 2 * ((bs / 2 + 7) / 8));
     dim3 block(kSegs, kRows);
@@ -200,6 +206,6 @@ extern "C" int so_pred_fetch(const void* mv, const void* smv, const void* refs, 
     auto kernel = bs == 16 ? pred_fetch_kernel<16> : pred_fetch_kernel<0>;
     kernel<<<grid, block, 0, (cudaStream_t)stream>>>((const int32_t*)mv, (const int32_t*)smv, (const uint8_t*)refs,
                                                      nref, h, w, bs, fme, bandh, band_row0, g_row0, H,
-                                                     (int16_t*)pred, (int16_t*)pred_q);
+                                                     quad_margin, (int16_t*)pred, (int16_t*)pred_q);
     return (int)cudaGetLastError();
 }

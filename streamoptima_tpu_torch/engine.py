@@ -44,8 +44,8 @@ On the CPU every kernel takes its plain PyTorch version.  Every value it
 produces is bit-identical to the JAX engine's on the same input and config
 (MVs, split flags, coefficients, sizes, reconstructions).
 
-``engine='compat'`` (the host reference engine) raises ``ValueError``: it
-is not ported, and there is no fallback.
+``engine='compat'`` raises ``ValueError`` here: that engine is
+``compat_engine.CompatCodec``, which the facade picks for it.
 
 A ``TorchCodec`` built with ``rows`` codes one mesh tile: a band of whole
 block rows of the frame (``parallel/mesh.py``).  Its steps take the
@@ -53,6 +53,8 @@ reference band around the tile, or under fast ME the whole reference frames,
 and every bound is evaluated at frame rows.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -76,9 +78,9 @@ STATE_KEYS = ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "recon")
 
 
 def check_slice(cfg: CodecConfig) -> None:
-    """Refuse what the port does not run: ``engine='compat'``."""
+    """Refuse what this engine does not run: ``engine='compat'`` (``compat_engine.CompatCodec``'s)."""
     if cfg.compat:
-        raise ValueError("engine='compat' is the host reference engine; TorchCodec ports engine='jax'")
+        raise ValueError("engine='compat' runs on compat_engine.CompatCodec; TorchCodec is engine='jax'")
 
 
 def row_qps_of(cfg: CodecConfig) -> tuple[np.ndarray, np.ndarray]:
@@ -112,6 +114,7 @@ class TorchCodec:
         self.sbs = cfg.sub_block_size
         self.nbr, self.nbc = self.h // self.bs, cfg.blocks_per_row
         self.nb = self.nbr * self.nbc
+        self.chain_tile = ChainTile(self.device, self.g_row0, self.nbr, (self.H, self.w), self.bs, self.fme)
         rows_blk = slice(self.g_row0 // self.bs, self.g_row0 // self.bs + self.nbr)
         #: the frame's per-row QPs of each frame type, on the host (two-pass falls back to them)
         self.row_qps_np = row_qps_of(cfg)
@@ -288,7 +291,7 @@ class TorchCodec:
         ``fast_chain`` on this one tile, then the confirm pass at the
         converged MVPs, which re-derives the same MVs.  planes: the parity
         planes (nref, 4, H, w) under FME, else the references."""
-        (g,), passes = fast_chain([self], [cur], [planes], [g0])
+        (g,), passes = fast_chain([self.chain_tile], [cur], [planes], [g0])
         self.fast_me_passes.append(passes)
         out = self._confirm(cur_blocks, planes, g)
         out["g_next"] = g
@@ -481,11 +484,23 @@ def fifo_push(refs: list, frame: torch.Tensor, nref: int) -> None:
     refs.append(frame)
 
 
-def fast_chain(engines: list, curs: list, planes: list, g0s: list) -> tuple[list, int]:
+class ChainTile(NamedTuple):
+    """What ``fast_chain`` reads of one tile: its device, the frame row it
+    starts at, its block rows, the whole frame's (H, W), the block size and
+    whether the chain runs on the half-pel grid."""
+    device: torch.device
+    g_row0: int
+    nbr: int
+    frame: tuple[int, int]
+    bs: int
+    fme: bool
+
+
+def fast_chain(tiles: list, curs: list, planes: list, g0s: list) -> tuple[list, int]:
     """Solve one frame's fast-ME MVP chain over its tiles, top to bottom
     (``JaxCodec._fast_search_rowscan``; on a mesh ``_fast_tile_rowscan``).
 
-    ``engines``: the frame's tiles (one ``TorchCodec`` for the whole frame),
+    ``tiles``: the frame's tiles' ``ChainTile`` (one for the whole frame),
     each with its rows of the frame in ``curs``, the whole frame's
     ``planes`` on its device and the previous frame's converged MVPs or None
     in ``g0s``.  Each pass launches ``rowscan_pass`` once per tile: every
@@ -501,18 +516,19 @@ def fast_chain(engines: list, curs: list, planes: list, g0s: list) -> tuple[list
     a unique fixpoint the MVs are the same.)  At most the frame's block rows
     + 2 passes, the JAX bound.  Returns (each tile's (nb_t, 3) converged
     MVPs, the passes)."""
-    e0 = engines[0]
-    bs, fme, nbc = e0.bs, e0.fme, e0.nbc
-    zeros = [torch.zeros((1, 3), dtype=torch.int32, device=e.device) for e in engines]
+    e0 = tiles[0]
+    bs, fme, (fh, fw) = e0.bs, e0.fme, e0.frame
+    nbc = fw // bs
+    zeros = [torch.zeros((1, 3), dtype=torch.int32, device=e.device) for e in tiles]
     seeds = [z.expand(e.nbr, 3).contiguous() if g is None else g.reshape(e.nbr, nbc, 3)[:, 0].contiguous()
-             for e, z, g in zip(engines, zeros, g0s)]
+             for e, z, g in zip(tiles, zeros, g0s)]
     passes, changed = 0, True
-    while changed and passes <= e0.cfg.block_rows + 1:
-        mvs = [K.rowscan_pass(c, p, s, bs, fme, g_row0=e.g_row0, grid=(e.H, e.w))
-               for e, c, p, s in zip(engines, curs, planes, seeds)]
+    while changed and passes <= fh // bs + 1:
+        mvs = [K.rowscan_pass(c, p, s, bs, fme, g_row0=e.g_row0, grid=e.frame)
+               for e, c, p, s in zip(tiles, curs, planes, seeds)]
         passes += 1
         nxt = [torch.cat([z if t == 0 else mvs[t - 1][-1, -1:].to(e.device), m[:-1, -1]])
-               for t, (e, z, m) in enumerate(zip(engines, zeros, mvs))]
+               for t, (e, z, m) in enumerate(zip(tiles, zeros, mvs))]
         changed = bool(torch.stack([(a != b).any().to(e0.device) for a, b in zip(nxt, seeds)]).any())
         seeds = nxt
     # each block's MVP: the MV before it in raster order, a tile's first the converged seed

@@ -15,11 +15,13 @@ CPU only when asked (``--device cpu``).
 Use --synthetic to run without an input file (deterministic test clip).
 ``--mesh`` shards over every visible card (``parallel.make_mesh``), so it
 refuses an indexed ``--device cuda:N``; with ``--device cpu`` it shards over
-an 8-device CPU mesh.  ``--engine`` is accepted so that the JAX command
-line's arguments parse: ``compat`` (the JAX package's host reference
-engine) is not ported and is refused.  The exit
-code is 0 only if the text stream's decode (and with ``--binary`` the
-container's) equals the encoder's reconstructions.
+an 8-device CPU mesh.  ``--engine compat`` runs the engine that is
+bit-exact with the NumPy reference (``compat_engine.CompatCodec``, up to
+CIF); it has no binary container and no mesh, so it refuses ``--binary``
+and ``--mesh``.  The exit code is 0 only if the text stream's decode (and
+with ``--binary`` the container's) equals the encoder's reconstructions.
+
+    python -m streamoptima_tpu_torch --synthetic --engine compat
 """
 from __future__ import annotations
 
@@ -33,7 +35,6 @@ import torch
 
 from streamoptima_tpu_torch.codec import VideoCodec
 from streamoptima_tpu_torch.config import CodecConfig
-from streamoptima_tpu_torch.engine import check_slice
 from streamoptima_tpu_torch.io.video import VideoManager
 
 
@@ -60,8 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--two-pass", action="store_true")
     p.add_argument("--intra-thresh", type=int, default=70000)
     p.add_argument("--engine", default="jax", choices=("jax", "compat"),
-                   help="accepted for compatibility with the JAX command line only: jax (the native engine, "
-                        "which this package ports) changes nothing, compat is refused")
+                   help="jax: the native engine; compat: bit-exact with the NumPy reference (up to CIF, no "
+                        "--binary, no --mesh)")
     p.add_argument("--mesh", action="store_true",
                    help="multi-device encode over every visible card, so --device must be cuda, not cuda:N "
                         "(with --device cpu: 8 CPU devices)")
@@ -98,10 +99,10 @@ def main(argv=None) -> int:
         qp_rate_tables=None, intra_thresh=args.intra_thresh,
         two_pass=False, engine=args.engine,
     )
-    try:
-        check_slice(cfg)
-    except ValueError as e:
-        raise SystemExit(f"streamoptima_tpu_torch: --engine {args.engine}: {e}") from None
+    if args.binary and cfg.compat:
+        raise SystemExit("--binary requires --engine jax (the compat oracle has no binary format)")
+    if args.mesh and cfg.compat:
+        raise SystemExit("--mesh requires --engine jax (multi-device encoding is the native engine's)")
     if args.two_pass and not args.rc_flag:
         raise SystemExit("--two-pass requires --rc-flag and --target-br")
 

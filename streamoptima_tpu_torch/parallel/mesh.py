@@ -246,7 +246,7 @@ class ShardedCodec:
         planes = [e._planes(bands, False) for e, (bands, _) in zip(engines, refs)]
         mvps = [None] * self.ntile
         if self.fast:
-            mvps, passes = fast_chain(engines, curs, planes, self._g_carry[d])
+            mvps, passes = fast_chain([e.chain_tile for e in engines], curs, planes, self._g_carry[d])
             self.fast_me_passes.append(passes)
             self._g_carry[d] = mvps
         return [e._inter_step(c, p, band_row0=b0, qps=q, mvp=g)

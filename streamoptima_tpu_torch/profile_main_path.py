@@ -2,6 +2,7 @@
 
     python3 -m streamoptima_tpu_torch.profile_main_path [--frames 16] [--reps 20] [--vbs] [--fme] [--nref N]
                                                          [--fast] [--mesh SHARDS] [--rc] [--two-pass]
+    python3 -m streamoptima_tpu_torch.profile_main_path --compat [--frames 21] [--reps 5]
 
 Runs the ``chip_smoke.py`` configuration (720p IPPP, bs=16, sr=8, qp=4,
 intra_dur=8, one reference, whole-pel full search) with the tools the flags
@@ -32,6 +33,12 @@ runs: ``--mesh 6`` is ``[mesh]``, ``--mesh 6 --vbs --fme`` ``[mesh-vbs-fme]``,
 ``--mesh 6 --fast --vbs --fme`` ``[mesh-fast-vbs-fme]`` (it also prints the
 mesh's passes per inter frame).
 
+``--compat`` times and profiles the reference-exact engine instead
+(``compat_engine.CompatCodec``, ``chip_smoke.py``'s ``[compat]``): the
+command line's defaults with ``--engine compat`` (CIF, fast ME + VBS + FME,
+sr 16, qp 5) on its synthetic clip, the encode and the device decode of its
+package (``profile_compat``).
+
 ``--rc`` adds per-row rate control at ``benchmarks/sweep.py``'s settings
 (``720p_rc_row_qp``: its tables, 8 mbps, 30 fps), ``--two-pass`` two-pass
 rate control on top (``720p_two_pass``); the decode reads the encode's row
@@ -50,6 +57,7 @@ import numpy as np
 import torch
 
 from streamoptima_tpu_torch import CodecConfig, synthetic_clip
+from streamoptima_tpu_torch.compat_engine import CompatCodec
 from streamoptima_tpu_torch.engine import TorchCodec, frame_arrays_of
 
 
@@ -68,7 +76,7 @@ def _wall_ms(fn, reps: int) -> tuple[float, float, float]:
 
 #: the names of the kernels in csrc/, as the profiler lists them
 _OWN_KERNELS = ("full_search_kernel", "full_search_fme_kernel", "pred_fetch_kernel", "window_fetch_kernel",
-                "rowscan_pass_kernel")
+                "rowscan_pass_kernel", "dct_scipy_kernel")
 
 
 def _device_ms(e) -> float:
@@ -94,6 +102,34 @@ def _profile(name: str, fn, median_ms: float) -> None:
         print(f"   {_device_ms(e):9.4f} ms  x{e.count:5d}  {e.key[:110]}")
 
 
+def _run_steps(steps) -> None:
+    """Time each (name, fn, reps) step without the profiler, then profile it."""
+    medians = {}
+    for name, fn, reps in steps:
+        med, q1, q3 = _wall_ms(fn, reps)
+        medians[name] = med
+        print(f"{name}: median {med:.4f} ms, quartiles {q1:.4f} / {q3:.4f} ms over {reps} runs (no profiler)")
+    for name, fn, _ in steps:
+        _profile(name, fn, medians[name])
+
+
+def profile_compat(frames: int = 21, reps: int = 5) -> None:
+    """The compat engine at the command line's defaults with ``--engine
+    compat`` (CIF, fast ME + VBS + FME, sr 16, qp 5, one GOP of 21 frames),
+    ``frames`` frames of its synthetic clip: the encode (without SSIM) and
+    the device decode of its package."""
+    cfg = CodecConfig(height=288, width=352, frames=frames, block_size=16, search_range=16, qp=5, intra_dur=21,
+                      lam=0.015, vbs_enable=True, fme_enable=True, fast_me=True, intra_thresh=70000,
+                      engine="compat")
+    print(f"[config] compat engine, CIF, {frames} frames, sr=16, fast ME + VBS + half-pel FME, qp 5")
+    codec = CompatCodec(cfg, synthetic_clip(288, 352, frames), device=torch.device("cuda"))
+    pkg = codec.encode()
+    lists = (pkg["frame_type_seq"], pkg["approx residual"], pkg["Qp_per_row_per_frame"], pkg["MVS per Frame"])
+    print(f"[fast ME] rowscan_pass passes per inter frame of the encode: {pkg['fast_me_passes']}")
+    _run_steps(((f"compat encode, {frames} frames", lambda: codec.encode(), reps),
+                (f"compat device decode, {frames} frames", lambda: codec.decode(*lists), reps)))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=16)
@@ -105,12 +141,17 @@ def main() -> None:
     ap.add_argument("--mesh", type=int, default=0, help="encode and decode on a mesh of this many shards of the card")
     ap.add_argument("--rc", action="store_true", help="per-row rate control at benchmarks/sweep.py's settings")
     ap.add_argument("--two-pass", action="store_true", help="two-pass rate control (implies --rc)")
+    ap.add_argument("--compat", action="store_true",
+                    help="the compat engine at the command line's defaults (CIF) instead; --frames defaults to 21")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path: no CUDA card (torch.cuda.is_available() is False)")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"[device] {smi} | torch {torch.__version__} | cuda {torch.version.cuda}")
+    if args.compat:
+        profile_compat(args.frames if args.frames != ap.get_default("frames") else 21, args.reps)
+        return
 
     n = args.frames
     rc = {}
@@ -155,13 +196,7 @@ def main() -> None:
                   f"{sc.encode(package=False)['fast_me_passes']}")
         steps = ((f"mesh encode, {n} frames", lambda: sc.encode(package=False), max(args.reps // 2, 1)),
                  (f"mesh device decode, {n} frames", lambda: sc.decode(fts, res, qps, mvs), max(args.reps // 2, 1)))
-    medians = {}
-    for name, fn, reps in steps:
-        med, q1, q3 = _wall_ms(fn, reps)
-        medians[name] = med
-        print(f"{name}: median {med:.4f} ms, quartiles {q1:.4f} / {q3:.4f} ms over {reps} runs (no profiler)")
-    for name, fn, _ in steps:
-        _profile(name, fn, medians[name])
+    _run_steps(steps)
 
 
 if __name__ == "__main__":

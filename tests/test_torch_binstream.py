@@ -139,7 +139,7 @@ def test_binary_loud_failures(tmp_path):
         _codec(dataclasses.replace(cfg)).decode_bitstream_binary(tmp_path / "bad.sob")
     with pytest.raises(ValueError, match="cfg is"):
         _codec(_cfg(height=96, width=64, frames=3)).decode_bitstream_binary(p)
-    with pytest.raises(ValueError, match="engine='jax'"):  # the port refuses the compat engine at construction
+    with pytest.raises(ValueError, match="engine='jax'"):  # the binary container is the native engine's
         _codec(_cfg(frames=3, engine="compat")).decode_bitstream_binary(p)
     with pytest.raises(ValueError, match="frames"):
         _codec(_cfg(frames=5)).decode_bitstream_binary(p)

@@ -7,8 +7,9 @@ the same argv and the same 4:2:0 input (seeded chroma, so the colour
 pipeline reads real data), each in its own directory, write byte-equal
 ``mv.txt``, ``res.txt``, decoded and reconstructed YUV files, binary
 container and overlay clip.  ``--mesh`` on the CPU (8 devices) writes the
-bytes one device writes.  The refusals (``--engine compat``, ``--two-pass``
-without ``--rc-flag``, and the default ``--device cuda`` without a card)
+bytes one device writes.  The refusals (``--engine compat`` with
+``--binary``, ``--two-pass`` without ``--rc-flag``, and the default
+``--device cuda`` without a card)
 exit non-zero before anything is encoded.  Twins of
 ``tests/test_cli_facade.py::test_viz_helpers`` and the overlay half of
 ``test_facade_roundtrip``, and of ``tests/test_profiling.py``.
@@ -86,7 +87,7 @@ def _no_encode(*a, **k):
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--engine", "compat", "--device", "cpu"], "engine='compat'"),
+    (["--engine", "compat", "--binary", "x.sob", "--device", "cpu"], "--binary requires --engine jax"),
     (["--two-pass", "--device", "cpu"], "--two-pass requires --rc-flag"),
     ([], "no CUDA card"),
     (["--mesh", "--device", "cuda:1"], "it takes --device cuda, not cuda:1"),

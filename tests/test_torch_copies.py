@@ -63,8 +63,7 @@ def test_config_matches_jax_package(kw):
     for name in ("lam", "sub_block_size", "blocks_per_row", "block_rows", "n_blocks", "target_bitrate",
                  "bitrate_per_row", "rc_active", "bitstream_numpy_repr", "compat"):
         assert getattr(t, name) == getattr(j, name), name
-    if not t.compat:  # the compat engine's 288x352 intra canvas is not ported: the port refuses compat
-        assert t.intra_canvas == j.intra_canvas
+    assert t.intra_canvas == j.intra_canvas  # under compat the reference's 288x352 canvas
 
 
 @pytest.mark.parametrize("kw", [

@@ -165,7 +165,7 @@ def test_unported_features_raise_by_name(kw, feature):
 
 def test_two_pass_and_compat_refused():
     """Two-pass runs on one device and on the mesh, with the same row QPs;
-    every engine refuses ``engine='compat'``."""
+    ``TorchCodec`` and the mesh refuse ``engine='compat'`` (``CompatCodec``'s)."""
     cfg = _cfg(8, rc_flag=1, target_br="1 mbps", qp_rate_tables=[[1.0] * 12] * 2, two_pass=True)
     clip = synthetic_clip(H, W, FRAMES)
     one = TorchCodec(cfg, clip, device="cpu").encode()
@@ -199,7 +199,8 @@ def test_port_runs_without_importing_jax(tmp_path):
     encode -> text bitstream -> decode, whole-pel and VBS + FME, full search
     and fast ME, VBS alone with two references and intra mode 1, fast ME
     with FME alone under parallel mode 2, rate control with promotion,
-    two-pass and an ROI map, and VBS + FME, fast ME and rate control with
+    two-pass and an ROI map, the compat engine with VBS + FME, and VBS +
+    FME, fast ME and rate control with
     promotion, two-pass and an ROI map on a (2, 2) CPU mesh
     (``streamoptima_tpu_torch.parallel``) with the binary container, imports
     the dry run, ``profiling`` and ``viz``, runs the command line once
@@ -226,6 +227,12 @@ def test_port_runs_without_importing_jax(tmp_path):
             dec = VideoCodec(cfg, device="cpu").decode_bitstream(r"{tmp_path / 'mv.txt'}",
                                                                  r"{tmp_path / 'res.txt'}")
             assert np.array_equal(dec, pkg["reconstructed frames"])
+        ccfg = CodecConfig(height=32, width=48, frames=3, search_range=4, qp=4, intra_dur=2, engine="compat", **vf)
+        v = VideoCodec(ccfg, synthetic_clip(32, 48, 3), device="cpu")
+        pkg = v.encode()
+        v.transmit_bitstream(r"{tmp_path / 'mv.txt'}", r"{tmp_path / 'res.txt'}")
+        dec = VideoCodec(ccfg, device="cpu").decode_bitstream(r"{tmp_path / 'mv.txt'}", r"{tmp_path / 'res.txt'}")
+        assert np.array_equal(dec, pkg["reconstructed frames"])
         from streamoptima_tpu_torch.parallel import make_mesh
         from streamoptima_tpu_torch.parallel.dryrun import dryrun_multichip
         for extra in (vf, {{"fast_me": True, **vf}}, rc):

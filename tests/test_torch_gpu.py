@@ -1144,3 +1144,106 @@ def test_device_ssim_matches_host_at_720p(cuda, allow_tf32, monkeypatch):
     got = metrics.ssim_frames(clip[:2], noisy, device=cuda)
     host = [metrics.ssim(a, b) for a, b in zip(clip[:2], noisy)]
     np.testing.assert_allclose(got, host, rtol=0, atol=1e-6)
+
+
+# ------------------------------------------ the compat engine: dct_scipy, K18
+def _dct_cases(rng, n: int, nb: int) -> dict:
+    """Residual blocks (random, half-integer DC ties, the extremes) and the
+    coefficients the IDCT takes (random in the codec's range)."""
+    x = rng.integers(-255, 256, (nb, n, n)).astype(np.int64)
+    ties = x.copy()
+    ties[:, 0, 0] -= (ties.sum(axis=(1, 2)) - n // 2) % n
+    x[0], x[-1] = 255, -255  # one block: -255 alone
+    return {"dct": (x, ties), "idct": (rng.integers(-8192, 8193, (nb, n, n)).astype(np.int64),
+                                       (np.round(rng.standard_normal((nb, n, n)) * 64) * 2 ** (rng.integers(
+                                           0, 8, (nb, 1, 1)))).astype(np.int64))}
+
+
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("nb", [1, 7, 396, 1584])
+def test_dct_scipy_kernel_matches_plain(cuda, n, nb):
+    """Both directions, bit for bit with the plain version on the card (the
+    same float64 operations in the same order), one launch each; the CPU's
+    plain version agrees (CUDA's float64 adds and multiplies round as the
+    CPU's)."""
+    rng = np.random.default_rng(n * nb)
+    for direction, sets in _dct_cases(rng, n, nb).items():
+        inverse = direction == "idct"
+        for a in sets:
+            t = torch.from_numpy(a).to(cuda)
+            n0 = K.dct_scipy.launches
+            got = K.dct_scipy(t, inverse)
+            torch.cuda.synchronize()
+            assert K.dct_scipy.launches == n0 + 1
+            assert torch.equal(got, K.dct_scipy_plain(t, inverse)), direction
+            assert torch.equal(got.cpu(), K.dct_scipy_plain(torch.from_numpy(a), inverse)), direction
+
+
+def test_dct_scipy_kernel_refuses_other_sizes(cuda):
+    with pytest.raises(ValueError, match="8 x 8 and 16 x 16"):
+        K.dct_scipy(torch.zeros((3, 4, 4), dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="int64"):
+        K.dct_scipy(torch.zeros((3, 8, 8), dtype=torch.int32, device=cuda))
+    n0 = K.dct_scipy.launches
+    assert K.dct_scipy(torch.zeros((0, 16, 16), dtype=torch.int64, device=cuda)).shape == (0, 16, 16)
+    assert K.dct_scipy.launches == n0
+
+
+@pytest.mark.parametrize("margin", [None, 8, 16])
+def test_fme_quad_fetch_margin_matches_plain(cuda, margin):
+    """Kernel 3's quad margin (K18: the compat reconstruction passes the
+    parent block's size) against the plain version, MVs on both sides of
+    every case boundary; the wrapper counts a launch at a margin other than
+    the quads' own size apart."""
+    rng = np.random.default_rng(18)
+    h, w, nb = 64, 96, 24
+    planes = M.fme_parity_planes(torch.from_numpy(rng.integers(0, 256, (2, h, w), dtype=np.uint8)).to(cuda),
+                                 wrap_row_pass=True)
+    mv = torch.from_numpy(np.stack([rng.integers(-40, 41, nb), rng.integers(-40, 41, nb), rng.integers(0, 2, nb)],
+                                   1).astype(np.int32)).to(cuda)
+    smv = np.stack([rng.integers(-40, 41, (nb, 4)), rng.integers(-40, 41, (nb, 4)), rng.integers(0, 2, (nb, 4))],
+                   -1).astype(np.int32)
+    smv = torch.from_numpy(smv).to(cuda)
+    n0, m0 = K.pred_fetch_fme_vbs.launches, K.pred_fetch_fme_vbs.margin_launches
+    got = K.pred_fetch_fme_vbs(mv, smv, planes, 16, quad_margin=margin)
+    assert K.pred_fetch_fme_vbs.launches == n0 + 1
+    assert K.pred_fetch_fme_vbs.margin_launches == m0 + (margin == 16)
+    want = K.pred_fetch_fme_vbs_plain(mv, smv, planes, 16, quad_margin=margin)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+COMPAT = {
+    "whole_pel": dict(search_range=4),
+    "vbs_fme": dict(search_range=4, vbs_enable=True, fme_enable=True),
+    "fast_vbs_fme": dict(search_range=16, fast_me=True, vbs_enable=True, fme_enable=True),
+    "rc2_promote": dict(search_range=4, rc_flag=2, target_br="60 kbps", qp_rate_tables=RC_TABLES, intra_thresh=300),
+    "pm1": dict(search_range=4, parallel_mode=1),
+    "pm2_fast_vbs": dict(search_range=16, parallel_mode=2, fast_me=True, vbs_enable=True),
+    "pm3_nref2_fme": dict(search_range=4, parallel_mode=3, n_ref_frames=2, fme_enable=True),
+}
+
+
+@pytest.mark.parametrize("name", list(COMPAT))
+def test_compat_on_card_matches_cpu_and_never_calls_a_plain_version(cuda, name, monkeypatch):
+    """CompatCodec on the card against the CPU port (held to the JAX
+    package's CompatCodec by tests/test_torch_compat.py), every ``*_plain``
+    patched to raise: the package (PSNR and MAE exactly) and the decode."""
+    from streamoptima_tpu_torch.compat_engine import CompatCodec
+
+    cfg = CodecConfig(height=64, width=96, frames=6, qp=4, intra_dur=3, lam=0.015, engine="compat", **COMPAT[name])
+    clip = synthetic_clip(64, 96, 6, seed=7)
+    b = CompatCodec(cfg, clip, device="cpu").encode()
+    _refuse_plain(monkeypatch)
+    codec = CompatCodec(cfg, clip, device=cuda)
+    n0 = K.dct_scipy.launches
+    a = codec.encode()
+    assert K.dct_scipy.launches > n0
+    for k in ("frame_type_seq", "Qp_per_row_per_frame", "residual size per frame", "PSNR per frame",
+              "MAE per Frame", "MVS per Frame", "fast_me_passes"):
+        assert a.get(k) == b.get(k), k
+    np.testing.assert_array_equal(a["reconstructed frames"], b["reconstructed frames"])
+    for fa, fb in zip(a["approx residual"], b["approx residual"]):
+        for (sa, qa), (sb, qb) in zip(fa, fb):
+            assert sa == sb and np.array_equal(np.stack(qa) if sa else qa, np.stack(qb) if sb else qb)
+    dec = codec.decode(a["frame_type_seq"], a["approx residual"], a["Qp_per_row_per_frame"], a["MVS per Frame"])
+    np.testing.assert_array_equal(torch.stack(dec).cpu().numpy(), b["reconstructed frames"])
