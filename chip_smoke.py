@@ -6,8 +6,10 @@ Builds the port's CUDA kernels from ``streamoptima_tpu_torch/csrc``, holds
 each kernel, in each of its modes, against its plain PyTorch version on the
 card at the 720p shapes, then drives the paths below through the
 ``VideoCodec`` facade, each encode -> text bitstream -> decode, bit-exact,
-with every inter frame going through the path's kernels and each kernel's
-launch count equal to what the path must make (every other kernel: none).
+with every inter frame going through the path's kernels, every intra
+frame's reconstruction through ``intra_recon`` (one launch per intra frame
+and tile in each encode pass and each decode), and each kernel's launch
+count equal to what the path must make (every other kernel: none).
 All are 720p, bs=16, qp=4, intra_dur=8, lam=0.015 on
 ``synthetic_clip(720, 1280, 16)``:
 
@@ -121,7 +123,13 @@ exactly its kernels (``dct_scipy`` four times a frame in encode, twice in
 decode, under VBS).  The kernel phase's ``[dct-scipy]`` holds the
 ``dct_scipy`` kernel to its plain version on the card and both to
 ``scipy.fftpack`` on the host, on 10^6 blocks of each size and direction,
-half of them half-integer DC ties; ``[profiling]`` ends with
+half of them half-integer DC ties; ``[intra-recon]`` holds the
+``intra_recon`` kernel (mode-0 intra reconstruction, one launch a frame) to
+its plain version on the card on the first intra frames of
+``[main-fast-vbs-fme]`` and ``[main]``, on random residuals, splits and
+MVs (out-of-range ones too) at sr 8 and 16, on intra mode 1's transposed
+call and on a 240-row tile, and times it on the two real frames, the
+mode-1 call and the tile; ``[profiling]`` ends with
 ``profile_main_path.profile_compat`` (``[compat]``'s encode and decode,
 timed and profiled).
 
@@ -163,7 +171,13 @@ read of the zero-padded planes (references), which are padded and indexed
 before the timing as the TPU kernel's ``window_prep`` pads once a frame (the
 plain versions pad on every call); no single PyTorch call computes any of
 the other functions (none reproduces scipy's rounding), and theirs is null.
-``dct_scipy``'s row (CIF's (396, 16, 16) forward) carries the inverse and
+``intra_recon``'s row is ``[main-fast-vbs-fme]``'s first intra frame (sr
+16, VBS) with its launches on that path; ``[main]``'s (sr 8, no VBS), the
+mode-1 call and the tile are under ``sr8_*``, ``intra1_*`` and ``tile_*``
+keys; each mode's bound is its bytes (int32 residuals, MVs, flags and
+sub-MVs read once, the uint8 frame written once), and ``step_us`` and
+``bound_step_us`` divide the time and the bound by the column steps of its
+chain.  ``dct_scipy``'s row (CIF's (396, 16, 16) forward) carries the inverse and
 the 8 x 8 quads' numbers under ``inverse_*``, ``n8_*`` and ``n8_inverse_*``
 keys, and ``pred_fetch_fme_vbs``'s the compat engine's K18 mode under
 ``k18_*`` keys (its launches: the wrapper's count of launches at a
@@ -246,7 +260,7 @@ TOOLS = {
 #: every kernel wrapper, by name: each path's launch counts cover them all
 KERNELS = {name: getattr(K, name) for name in (
     "full_search", "full_search_vbs", "full_search_fme", "full_search_fme_vbs", "pred_fetch", "pred_fetch_vbs",
-    "pred_fetch_fme", "pred_fetch_fme_vbs", "rowscan_pass", "window_fetch", "dct_scipy")}
+    "pred_fetch_fme", "pred_fetch_fme_vbs", "rowscan_pass", "window_fetch", "dct_scipy", "intra_recon")}
 FP64_LANES_PER_SM = 64  # Hopper: one float64 add or multiply per lane and cycle (an FMA counts two in data sheets)
 CIF_H, CIF_W, CIF_FRAMES = 288, 352, 21  # the command line's defaults, which the compat paths run
 #: rate control as ``benchmarks/sweep.py:136-159`` runs it: ~5.9k bits a row at 8 mbps, 30 fps, 45 rows
@@ -564,6 +578,97 @@ def _dct_phase(dev, cyc: float, fp64_per_ms: float) -> dict:
     return row
 
 
+def _intra_args(cfg: CodecConfig, frame: np.ndarray, dev) -> tuple:
+    """The arguments ``cfg``'s intra step passes ``intra_recon`` for
+    ``frame`` (the dequantized residuals, MVs, split flags and sub-MVs of an
+    encode), read off the wrapper."""
+    got = []
+    real = K.intra_recon
+
+    def capture(*a, **kw):
+        got.append((a, kw))
+        K.intra_recon = real  # the wrapper counts its launch on its module's name
+        return real(*a, **kw)
+
+    K.intra_recon = capture
+    try:
+        TorchCodec(cfg, device=dev)._intra_step(torch.from_numpy(frame).to(dev))
+    finally:
+        K.intra_recon = real
+    _require(len(got) == 1, f"an intra step called intra_recon {len(got)} times")
+    return got[0]
+
+
+def _random_intra(rng, h: int, w: int, sr: int, dev) -> tuple:
+    """Random intra_recon inputs of an (h, w) frame at bs 16 with VBS:
+    residuals in +-4080, random splits, MVs in [-sr, 0] and, for one block
+    and one quad in eight, out of range (a damaged stream's)."""
+    nb = (h // BS_) * (w // BS_)
+    mv = rng.integers(-sr, 1, nb)
+    smv = rng.integers(-sr, 1, (nb, 4))
+    mv = np.where(rng.random(nb) < 0.125, rng.integers(-3 * sr, 3 * sr + 1, nb), mv)
+    smv = np.where(rng.random((nb, 4)) < 0.125, rng.integers(-3 * sr, 3 * sr + 1, (nb, 4)), smv)
+    mv[:2], smv[0, :2] = (2**31 - 1, -(2**31)), (-(2**31), 2**31 - 1)
+    a = (rng.integers(-4080, 4081, (nb, BS_, BS_)), mv, h, w, BS_, sr, rng.integers(-4080, 4081, (nb, 4, 8, 8)),
+         rng.random(nb) < 0.5, smv)
+    return tuple(torch.from_numpy(np.asarray(x, dtype=np.int32 if x.dtype != bool else bool)).to(dev)
+                 if isinstance(x, np.ndarray) else x for x in a)
+
+
+def _intra_bytes(args: tuple, kw: dict) -> int:
+    """Bytes ``intra_recon`` must move on these inputs: its int32 residuals,
+    MVs, split flags and sub-MVs read once and the uint8 frame written once."""
+    nb, h, w = args[1].shape[0], args[2], args[3]
+    vbs = len(args) > 6 and args[6] is not None
+    return nb * BS_ * BS_ * 4 * (2 if vbs else 1) + nb * 4 + (nb * (1 + 16) if vbs else 0) + h * w
+
+
+def _intra_phase(dev, clip: np.ndarray, cyc: float) -> dict:
+    """``[intra-recon]``: the kernel against its plain version on the card,
+    exactly, at 720p on the inputs of ``[main-fast-vbs-fme]``'s and
+    ``[main]``'s first intra frames (sr 16 with VBS, sr 8 without), on random
+    residuals, splits and MVs (out-of-range ones included) at sr 8 and 16,
+    on intra mode 1's transposed call (sr 16, 80 block rows of 45 columns)
+    and on a 240-row tile; then the kernel's and the plain version's times
+    on the real inputs, the mode-1 call and the tile, and their bounds by
+    bytes (the chain's per-column step beside them).  Returns the kernel's
+    row without its launches."""
+    rng = np.random.default_rng(14)
+    sets = {"fast-vbs-fme frame 0": _intra_args(_cfg(**FAST_VBS_FME), clip[0], dev),
+            "main frame 0": _intra_args(_cfg(), clip[0], dev)}
+    for sr in (8, 16):
+        sets[f"random sr={sr}"] = (_random_intra(rng, H, W, sr, dev), {})
+    t = _random_intra(rng, W, H, 16, dev)  # the transposed frame's 80 block rows of 45 blocks
+    sets["intra mode 1"] = (t[:2] + (H, W) + t[4:], {"transpose": True})
+    sets["tile"] = (_random_intra(rng, H // N_TILES, W, 16, dev), {})
+    err = 0
+    for name, (a, kw) in sets.items():
+        err = max(err, _check_equal(f"[intra-recon] {name}", K.intra_recon(*a, **kw), K.intra_recon_plain(*a, **kw)))
+    modes = {}
+    for key, name in (("", "fast-vbs-fme frame 0"), ("sr8_", "main frame 0"), ("intra1_", "intra mode 1"),
+                      ("tile_", "tile")):
+        a, kw = sets[name]
+        ms, host = _time_ms(lambda: K.intra_recon(*a, **kw), 200, cyc)
+        plain_ms, _ = _time_ms(lambda: K.intra_recon_plain(*a, **kw), 2, cyc)
+        nbytes = _intra_bytes(a, kw)
+        nbc = (a[2] if kw.get("transpose") else a[3]) // BS_
+        bound_ms = nbytes / HBM_BYTES_PER_MS
+        modes[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                      "library_ms": None, "step_us": 1e3 * ms / nbc, "bound_step_us": 1e3 * bound_ms / nbc}
+        print(f"[intra-recon] {name} ({a[2]}x{a[3]}, sr={a[5]}, VBS {len(a) > 6 and a[6] is not None}"
+              f"{', transposed' if kw.get('transpose') else ''}): {ms:.4f} ms ({modes[key]['step_us']:.3f} us a "
+              f"column step, {nbc} steps) vs plain {plain_ms:.4f} ms (host enqueue {host:.4f} ms per call); bound "
+              f"{bound_ms:.5f} ms by bytes ({nbytes} bytes; {modes[key]['bound_step_us']:.4f} us a step)", flush=True)
+    print(f"[intra-recon] kernel == plain version on the card, bit for bit (tolerance 0), on {list(sets)}",
+          flush=True)
+    row = {"name": "intra_recon", "route": "cuda", "source": "streamoptima_tpu_torch/csrc/intra_recon.cu",
+           "replaces": "streamoptima_tpu/core/intra.py:343", **modes[""]}
+    for key, m in modes.items():
+        if key:
+            row.update({f"{key}{k}": v for k, v in m.items()})
+    return row
+
+
 def _compat_phase(dev) -> dict:
     """The compat engine's paths, each run on the card with every kernel's
     launches counted from 0 just before it, and again on the CPU (the plain
@@ -631,11 +736,11 @@ def _compat_phase(dev) -> dict:
             n_inter = frames - 1
             if label == "compat":  # per inter frame: the chain, one confirm, two fetches (K18) and one in decode
                 want = {"rowscan_pass": sum(chained), "window_fetch": n_inter, "pred_fetch_fme_vbs": 3 * n_inter,
-                        "dct_scipy": 4 * frames + 2 * frames}
+                        "dct_scipy": 4 * frames + 2 * frames, "intra_recon": 2}
                 _require(len(chained) == n_inter, f"[{label}] solved {len(chained)} chains")
             else:
                 want = {"full_search_fme_vbs": n_inter, "pred_fetch_fme_vbs": 3 * n_inter,
-                        "dct_scipy": 4 * frames + 2 * frames}
+                        "dct_scipy": 4 * frames + 2 * frames, "intra_recon": 2}  # frame 0, encoded and decoded
             _require(launches == want, f"[{label}] launches {launches}, expected {want}")
             # the reconstruction's fetch and the decode's take the parent's margin (K18), the residual's its own
             _require(margin == 2 * n_inter, f"[{label}] {margin} fetches at quad_margin={BS_}, expected "
@@ -674,7 +779,8 @@ def _compat_phase(dev) -> dict:
         psnr = held(label, label, cut)
         _require(types[0] == 0 and types[4] == 0 and types[1:4] == [1, 1, 1], f"[{label}] frame types {types}")
         promoted = types[1:].count(0)
-        want = {"full_search": 7, "pred_fetch": types.count(1), "dct_scipy": 2 * (7 + 1 + promoted) + 8}
+        want = {"full_search": 7, "pred_fetch": types.count(1), "dct_scipy": 2 * (7 + 1 + promoted) + 8,
+                "intra_recon": 2 * types.count(0)}
         _require(launches == want, f"[{label}] launches {launches}, expected {want}")
         _require(np.isfinite(psnr) and psnr > PROMOTE_MIN_PSNR, f"[{label}] mean PSNR {psnr}")
         out[label] = {"launches": launches, "s": g_s}
@@ -771,6 +877,9 @@ def _drive(label: str, extra: dict, clip: np.ndarray, dev, frames: int = FRAMES,
     print(f"[{label}] mean PSNR {psnr.mean():.4f} dB, mean SSIM {np.mean(pkg['SSIM per frame']):.5f} "
           f"({pkg['timing']['ssim_s']:.4f} s on the device, besides the encode), bits "
           f"{sum(pkg['residual size per frame'])}", flush=True)
+    # every intra frame is one intra_recon launch per tile in the encode (in each pass of two-pass) and in the decode
+    n_intra = types.count(0)
+    expected.setdefault("intra_recon", (N_TILES if mesh else 1) * n_intra * (3 if extra.get("two_pass") else 2))
     passes = pkg.get("fast_me_passes")
     if passes is not None:  # parallel mode 2 runs no chain; every other fast-ME path one or more passes a frame
         chain = extra.get("parallel_mode") != 2
@@ -857,7 +966,8 @@ def _binary_phase(dev, pairs: dict) -> None:
                     _require(np.array_equal(dec, pkg["reconstructed frames"]),
                              f"[binary] {label}: the decode of {f.name} on {'the mesh' if mesh else 'one device'} "
                              "differs from the reconstructions")
-                    want = {"pred_fetch": n_inter * (N_TILES if mesh else 1)}
+                    want = {"pred_fetch": n_inter * (N_TILES if mesh else 1),
+                            "intra_recon": pkg["frame_type_seq"].count(0) * (N_TILES if mesh else 1)}
                     _require(launches == want, f"[binary] {label}: decode launches {launches}, expected {want}")
             print(f"[binary] {label}: 720p {cfg.frames} frames, SOTPB1 {files[0].stat().st_size} bytes written in "
                   f"{write_s[0]:.3f} s (one device) and {write_s[1]:.3f} s (mesh), byte-equal; decode_bitstream_binary "
@@ -873,8 +983,9 @@ def _dryrun_launches(summary: dict) -> dict:
     its winners' fetch follows each search but for the whole-pel kernel,
     which keeps their pixels.  Fast ME (never with two-pass there) runs its
     chain's passes and one confirm read and one fetch per inter step.  The
-    decode fetches once per inter frame.  On the mesh each is once per
-    tile."""
+    decode fetches once per inter frame.  Each intra frame is one
+    reconstruction in each encode (per pass under two-pass) and in the
+    decode.  On the mesh each is once per tile."""
     out: dict = {}
 
     def add(name: str, n: int) -> None:
@@ -897,6 +1008,9 @@ def _dryrun_launches(summary: dict) -> dict:
             if suffix:
                 add("pred_fetch" + suffix, (1 + ntile) * steps)
         add("pred_fetch" + suffix, ntile * inter)
+        # intra frames: reconstructed in each encode (in both passes of two-pass) and in the mesh decode
+        intra = types.count(0)
+        add("intra_recon", (1 + ntile) * intra * (2 if cfg.two_pass else 1) + ntile * intra)
     return out
 
 
@@ -963,7 +1077,8 @@ def _cli_phase(clip: np.ndarray, main_run: dict) -> None:
                          "--no-fme", "--no-vbs"] + outputs("a"))
         a_s = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
-        want = {"full_search": main_run["launches"]["full_search"], "pred_fetch": 2 * main_run["n_inter"]}
+        want = {"full_search": main_run["launches"]["full_search"], "pred_fetch": 2 * main_run["n_inter"],
+                "intra_recon": 3 * (FRAMES // INTRA_DUR)}  # the encode's intra frames, then each decode's
         _require(rc_a == 0, f"[cli] run A exited {rc_a}")
         closed("a")
         _require((d / "arec.yuv").read_bytes() == main_run["pkg"]["reconstructed frames"].tobytes(),
@@ -996,8 +1111,9 @@ def _cli_phase(clip: np.ndarray, main_run: dict) -> None:
         _require(rc_b == 0, f"[cli] run B exited {rc_b}")
         closed("b")
         _require(len(chained) == n_steps, f"[cli] run B solved {len(chained)} fast-ME chains, expected {n_steps}")
+        # intra_recon: rc.measure_qp_tables' 12 x 2 intra steps, one intra frame in each pass and each decode
         want = {"rowscan_pass": sum(chained), "window_fetch": n_steps,
-                "pred_fetch_fme_vbs": n_steps + 2 * (n_b - 1)}
+                "pred_fetch_fme_vbs": n_steps + 2 * (n_b - 1), "intra_recon": 12 * 2 + 2 + 2}
         _require(launches == want, f"[cli] run B's launches {launches}, expected {want}")
         t0 = time.perf_counter()
         rc_ref = cli_main(argv_b + ["--vbs-overlay", str(d / "cov.yuv"), "--device", "cpu"] + outputs("c"))
@@ -1400,6 +1516,7 @@ def main() -> None:
     print(f"[transform] dct2_int / idct2_int on the card bit-equal to the CPU port ({nb} blocks, extremes)",
           flush=True)
     dct_row = _dct_phase(dev, cyc, fp64_per_ms)
+    intra_row = _intra_phase(dev, clip, cyc)
 
     small = synthetic_clip(64, 96, 6, seed=3)
     small_cfgs = {"whole-pel": {}, "VBS + FME": VBS_FME, "fast ME": FAST, "fast ME + VBS + FME": FAST_VBS_FME,
@@ -1631,6 +1748,9 @@ def main() -> None:
     kernels[-1]["k18_launches"] = compat["compat"]["margin_launches"]
     dct_row["launches"] = compat["compat"]["launches"]["dct_scipy"]
     kernels.append(dct_row)
+    # the intra reconstruction: its launches on [main-fast-vbs-fme], whose first intra frame the row times
+    intra_row["launches"] = fast["main-fast-vbs-fme"]["launches"]["intra_recon"]
+    kernels.append(intra_row)
     # the two fast-ME kernels: the FME mode's numbers, the whole-pel mode's under whole_pel_* keys
     rows = {}
     for fme, label in ((True, "main-fast-vbs-fme"), (False, "main-fast")):

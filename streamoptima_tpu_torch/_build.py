@@ -115,4 +115,6 @@ def library() -> ctypes.CDLL:
     lib.so_rowscan_pass_smem.restype = i
     lib.so_dct_scipy.argtypes = [p, p, i, i, i, p]  # in, out, nb, n, inverse, stream
     lib.so_dct_scipy.restype = i
+    lib.so_intra_recon.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p]  # rf, rq, split, mv, smv, nbr, nbc, bs, sr, ...
+    lib.so_intra_recon.restype = i
     return lib

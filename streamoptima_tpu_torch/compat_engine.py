@@ -33,7 +33,8 @@ Every search, fetch and transform is a kernel launch on a CUDA device
 (``core/kernels.py``): the full searches (``full_search``, or with VBS or
 FME the MVs-only searches and the ``pred_fetch`` kernel in the matching
 mode), fast ME's chain (``engine.fast_chain``: ``rowscan_pass``) and confirm
-(``window_fetch``), and ``dct_scipy``.  On the CPU each takes its plain
+(``window_fetch``), ``dct_scipy``, and each intra frame's reconstruction
+(``intra_recon``, one launch a frame).  On the CPU each takes its plain
 PyTorch version.  The package and the decoder's inputs are the JAX
 engine's list forms, which ``bitstream.write_bitstream`` serializes.
 """
@@ -281,9 +282,7 @@ class CompatCodec:
         """reconstruct_frame_intra (Encoder.py:1350-1417) == decode_frame_intra
         (decoder.py:330-432), mode 0."""
         rf, rq = self._dequant(qf, qq, qps)
-        frame = I.intra_reconstruct_mode0(rf, mv, self.h, self.w, self.bs, self.cfg.search_range,
-                                          residual_quads=rq, split=split, sub_mv=sub_mv)
-        return wrap_uint8(frame)
+        return K.intra_recon(rf, mv, self.h, self.w, self.bs, self.cfg.search_range, rq, split, sub_mv)
 
     # -------------------------------------------------------------- encode
     def encode(self) -> dict:

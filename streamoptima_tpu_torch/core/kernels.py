@@ -27,6 +27,10 @@
 ``dct_scipy``            -- the compat engine's scipy-exact 2D DCT-II or its
                             inverse (csrc/dct_scipy.cu; no TPU kernel: the
                             JAX compat engine calls scipy on the host).
+``intra_recon``          -- mode-0 intra reconstruction of a frame, or of its
+                            transpose for intra mode 1 (csrc/intra_recon.cu;
+                            no TPU kernel: the JAX engine runs one lax.scan
+                            over block columns, core/intra.py:343).
 
 The searches and fetches also take a band of the frame in place of the
 whole frame (a mesh tile's, ``parallel/mesh.py``; me_pallas's ``read_row0``,
@@ -46,10 +50,11 @@ from __future__ import annotations
 
 import torch
 
+from streamoptima_tpu_torch.core import intra as I
 from streamoptima_tpu_torch.core import me as M
 from streamoptima_tpu_torch.core.fastme import rowscan_pass_plain, window_fetch_plain
 from streamoptima_tpu_torch.core.blocks import unblockify, unquads_px
-from streamoptima_tpu_torch.core.pred import gather_predictions
+from streamoptima_tpu_torch.core.pred import gather_predictions, wrap_uint8
 from streamoptima_tpu_torch.core.transform import dct2_scipy, idct2_scipy
 
 #: shared memory one block may use on Hopper (bytes)
@@ -690,3 +695,80 @@ def dct_scipy(blocks: torch.Tensor, inverse: bool = False) -> torch.Tensor:
 
 
 dct_scipy.launches = 0
+
+
+# ----------------------------------------------------- intra reconstruction
+def intra_recon_plain(residual_full: torch.Tensor, mv: torch.Tensor, h: int, w: int, bs: int, sr: int,
+                      residual_quads=None, split=None, sub_mv=None, transpose: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the ``intra_recon`` kernel (any device)."""
+    if not transpose:
+        return wrap_uint8(I.intra_reconstruct_mode0(residual_full, mv, h, w, bs, sr, residual_quads=residual_quads,
+                                                    split=split, sub_mv=sub_mv))
+    rq = None if residual_quads is None else residual_quads.transpose(-1, -2)
+    return wrap_uint8(I.intra_reconstruct_mode0(residual_full.transpose(-1, -2), mv, w, h, bs, sr, residual_quads=rq,
+                                                split=split, sub_mv=sub_mv)).T.contiguous()
+
+
+def intra_recon(residual_full: torch.Tensor, mv: torch.Tensor, h: int, w: int, bs: int, sr: int,
+                residual_quads=None, split=None, sub_mv=None, transpose: bool = False) -> torch.Tensor:
+    """Mode-0 intra reconstruction of an (h, w) frame, wrapped to uint8.
+
+    residual_full: (nb, bs, bs) int32 or int64 dequantized residuals; mv:
+    (nb,) int32; under VBS also residual_quads (nb, 4, s, s), split (nb,)
+    bool and sub_mv (nb, 4) int32 (without ``residual_quads`` the flags and
+    sub-MVs go unread).  ``transpose`` (intra mode 1): mode 0 on the
+    transposed frame, whose raster order numbers the blocks; the residuals
+    lie as in the frame (each block, and each quad, the transpose of the
+    transposed frame's), and the result is the frame.  Returns (h, w)
+    uint8: ``wrap_uint8`` of ``intra.intra_reconstruct_mode0``, which is the
+    plain version (``intra_recon_plain``).  The kernel takes bs <= 32 (even
+    under VBS) and sr + bs <= 256; int64 residuals are cast to int32 on the
+    device (mod 2^32, which the final wrap mod 256 does not see), and MVs
+    and flags of any stride are made contiguous.
+    """
+    hh, ww = (w, h) if transpose else (h, w)
+    if h % bs or w % bs:
+        raise ValueError(f"frame {h}x{w} is not a multiple of block size {bs}")
+    nbr, nbc = hh // bs, ww // bs
+    nb = nbr * nbc
+    dev = residual_full.device
+    vbs = residual_quads is not None
+    ints = (torch.int32, torch.int64)
+    want = {"residual_full": (residual_full, (nb, bs, bs), ints), "mv": (mv, (nb,), (torch.int32,))}
+    if vbs:
+        s = bs // 2
+        want.update(residual_quads=(residual_quads, (nb, 4, s, s), ints), split=(split, (nb,), (torch.bool,)),
+                    sub_mv=(sub_mv, (nb, 4), (torch.int32,)))
+    for name, (t, shape, dtypes) in want.items():
+        if not isinstance(t, torch.Tensor) or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be a {shape} tensor, got {None if t is None else tuple(t.shape)}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} and residual_full must be on one device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"intra_recon runs on cpu or cuda tensors, not {dev}")
+    if dev.type == "cpu":
+        return intra_recon_plain(residual_full, mv, h, w, bs, sr, residual_quads, split, sub_mv, transpose)
+    if not 1 <= bs <= 32 or sr < 0 or sr + bs > 256 or (vbs and bs % 2):
+        raise ValueError(f"the intra_recon kernel takes 1 <= bs <= 32 (even under VBS) and sr + bs <= 256, got "
+                         f"bs={bs}, sr={sr}")
+    out = torch.empty((h, w), dtype=torch.uint8, device=dev)
+    if nb == 0:
+        return out
+    from streamoptima_tpu_torch._build import library
+
+    rf, mv = residual_full.to(torch.int32).contiguous(), mv.contiguous()
+    rq_p = split_p = smv_p = None  # without VBS the kernel reads no quads, flags or sub-MVs
+    if vbs:
+        rq, split, sub_mv = residual_quads.to(torch.int32).contiguous(), split.contiguous(), sub_mv.contiguous()
+        rq_p, split_p, smv_p = rq.data_ptr(), split.data_ptr(), sub_mv.data_ptr()
+    with torch.cuda.device(dev):
+        rc = library().so_intra_recon(rf.data_ptr(), rq_p, split_p, mv.data_ptr(), smv_p, nbr, nbc, bs, sr,
+                                      int(transpose), out.data_ptr(), _stream(dev))
+    _launch_check(rc, "intra_recon")
+    intra_recon.launches += 1
+    return out
+
+
+intra_recon.launches = 0

@@ -14,7 +14,9 @@ FME each reference's four parity planes are computed once per frame and
 serve the search and the fetch.  The winners' pixels (and decode's, from the
 transmitted MVs) come from the ``pred_fetch`` kernel in the matching mode:
 ``pred_fetch``, ``pred_fetch_vbs``, ``pred_fetch_fme`` or
-``pred_fetch_fme_vbs``, block and quad planes in one launch.
+``pred_fetch_fme_vbs``, block and quad planes in one launch.  Every intra
+frame, in encode and decode and in either intra mode, is reconstructed by
+one launch of the ``intra_recon`` kernel (the sequential column scan).
 
 Fast ME (``fast_me``: a 3x3 search around the previous block's MV, chained
 in raster order) solves the chain per block row (``fast_chain``): the
@@ -223,16 +225,10 @@ class TorchCodec:
 
     def _recon_intra(self, mv, split, sub_mv, qtc_full, qtc_quads, qps=None) -> torch.Tensor:
         rf, rq = self._dequant(qtc_full, qtc_quads, self.qps_by_type[0] if qps is None else qps)
-        # without VBS rq is None, and the split flags and sub-MVs go unread
-        sr = self.cfg.search_range
-        if self.cfg.intra_mode == 1:  # mode 0 on the transposed frame (jax_engine.py:699-704)
-            rq = None if rq is None else rq.transpose(-1, -2)
-            frame = I.intra_reconstruct_mode0(rf.transpose(-1, -2), mv, self.w, self.h, self.bs, sr,
-                                              residual_quads=rq, split=split, sub_mv=sub_mv).T.contiguous()
-        else:
-            frame = I.intra_reconstruct_mode0(rf, mv, self.h, self.w, self.bs, sr, residual_quads=rq, split=split,
-                                              sub_mv=sub_mv)
-        return wrap_uint8(frame)
+        # without VBS rq is None, and the split flags and sub-MVs go unread; intra mode 1 is mode 0 on the
+        # transposed frame (jax_engine.py:699-704)
+        return K.intra_recon(rf, mv, self.h, self.w, self.bs, self.cfg.search_range, rq, split, sub_mv,
+                             transpose=self.cfg.intra_mode == 1)
 
     def _outputs(self, mv, sub_mv, sel, recon, row_bits=None) -> dict:
         split, qtc_full, qtc_quads, lens, mae = sel

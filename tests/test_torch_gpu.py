@@ -1247,3 +1247,129 @@ def test_compat_on_card_matches_cpu_and_never_calls_a_plain_version(cuda, name, 
             assert sa == sb and np.array_equal(np.stack(qa) if sa else qa, np.stack(qb) if sb else qb)
     dec = codec.decode(a["frame_type_seq"], a["approx residual"], a["Qp_per_row_per_frame"], a["MVS per Frame"])
     np.testing.assert_array_equal(torch.stack(dec).cpu().numpy(), b["reconstructed frames"])
+
+
+# ------------------------------------------------ intra reconstruction (csrc/intra_recon.cu)
+def _intra_case(cuda, rng, nbr, nbc, bs, sr, vbs, dtype=np.int32):
+    """Random intra_recon inputs: residuals in +-4080, random splits, MVs in
+    [-sr, 0] and, for about a third, out of range (int32 extremes too)."""
+    nb, s = nbr * nbc, bs // 2
+    mv = np.where(rng.random(nb) < 0.3, rng.integers(-sr - 9, 10, nb), rng.integers(-sr, 1, nb))
+    smv = np.where(rng.random((nb, 4)) < 0.3, rng.integers(-sr - 9, 10, (nb, 4)), rng.integers(-sr, 1, (nb, 4)))
+    mv[0], smv[0, 0] = 2**31 - 1, -(2**31)
+    out = [torch.from_numpy(rng.integers(-4080, 4081, (nb, bs, bs)).astype(dtype)).to(cuda),
+           torch.from_numpy(mv.astype(np.int32)).to(cuda)]
+    if vbs:
+        out += [torch.from_numpy(rng.integers(-4080, 4081, (nb, 4, s, s)).astype(dtype)).to(cuda),
+                torch.from_numpy(rng.random(nb) < 0.5).to(cuda), torch.from_numpy(smv.astype(np.int32)).to(cuda)]
+    return out
+
+
+def _intra_equal(cuda, a, h, w, bs, sr, transpose=False):
+    n0 = K.intra_recon.launches
+    got = K.intra_recon(a[0], a[1], h, w, bs, sr, *a[2:], transpose=transpose)
+    torch.cuda.synchronize()
+    assert K.intra_recon.launches == n0 + 1
+    assert got.dtype == torch.uint8 and got.shape == (h, w) and got.device.type == "cuda"
+    assert torch.equal(got, K.intra_recon_plain(a[0], a[1], h, w, bs, sr, *a[2:], transpose=transpose))
+
+
+@pytest.mark.parametrize("vbs", [False, True], ids=["full", "vbs"])
+@pytest.mark.parametrize("bs,sr", [(bs, sr) for bs in (8, 16) for sr in (1, bs // 2, bs - 1, bs, bs + 1, 2 * bs + 3)]
+                         + [(16, 127), (8, 127)])
+def test_intra_recon_kernel_matches_plain(cuda, bs, sr, vbs):
+    """Both layouts (intra mode 0, and mode 1's transposed call), corrupt MVs included."""
+    rng = np.random.default_rng(bs * 1000 + sr * 2 + vbs)
+    _intra_equal(cuda, _intra_case(cuda, rng, 3, 5, bs, sr, vbs), 3 * bs, 5 * bs, bs, sr)
+    _intra_equal(cuda, _intra_case(cuda, rng, 5, 3, bs, sr, vbs), 3 * bs, 5 * bs, bs, sr, transpose=True)
+
+
+@pytest.mark.parametrize("vbs", [False, True], ids=["full", "vbs"])
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("nbr,nbc", [(1, 9), (6, 1), (1, 1), (2, 90)], ids=["one_row", "one_column", "one_block",
+                                                                            "wider_than_the_ring"])
+def test_intra_recon_kernel_matches_plain_at_edge_shapes(cuda, nbr, nbc, bs, vbs):
+    rng = np.random.default_rng(nbr * 100 + nbc + bs)
+    for sr in (bs // 2, bs + 1, 127):
+        _intra_equal(cuda, _intra_case(cuda, rng, nbr, nbc, bs, sr, vbs), nbr * bs, nbc * bs, bs, sr)
+        _intra_equal(cuda, _intra_case(cuda, rng, nbc, nbr, bs, sr, vbs), nbr * bs, nbc * bs, bs, sr, True)
+
+
+@pytest.mark.parametrize("bs,vbs", [(4, True), (6, True), (5, False), (12, True), (32, True), (32, False)])
+def test_intra_recon_kernel_matches_plain_at_other_block_sizes(cuda, bs, vbs):
+    rng = np.random.default_rng(bs)
+    for sr in (1, bs, 2 * bs + 1, 256 - bs):
+        _intra_equal(cuda, _intra_case(cuda, rng, 3, 7, bs, sr, vbs), 3 * bs, 7 * bs, bs, sr)
+
+
+@pytest.mark.parametrize("sr", [8, 16])
+def test_intra_recon_kernel_takes_int64_residuals(cuda, sr):
+    """The compat engine's int64 residuals, some beyond int32: the kernel's
+    int32 cast does not change the wrapped frame."""
+    rng = np.random.default_rng(sr)
+    a = _intra_case(cuda, rng, 4, 6, 16, sr, True, np.int64)
+    a[0] = a[0] + torch.from_numpy(rng.integers(-3, 4, tuple(a[0].shape)) * 2**32).to(cuda)
+    _intra_equal(cuda, a, 64, 96, 16, sr)
+
+
+@pytest.mark.parametrize("transpose", [False, True], ids=["mode0", "mode1"])
+def test_intra_recon_kernel_matches_plain_at_720p(cuda, transpose):
+    rng = np.random.default_rng(720 + transpose)
+    nbr, nbc = (80, 45) if transpose else (45, 80)
+    _intra_equal(cuda, _intra_case(cuda, rng, nbr, nbc, 16, 16, True), 720, 1280, 16, 16, transpose)
+
+
+def test_intra_recon_kernel_refuses_what_it_does_not_take(cuda):
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=cuda)
+
+    n0 = K.intra_recon.launches
+    with pytest.raises(ValueError, match="sr \\+ bs <= 256"):
+        K.intra_recon(z(4, 16, 16), z(4), 32, 32, 16, 241)
+    with pytest.raises(ValueError, match="even under VBS"):
+        K.intra_recon(z(4, 5, 5), z(4), 10, 10, 5, 4, z(4, 4, 2, 2), torch.zeros(4, dtype=torch.bool, device=cuda),
+                      z(4, 4))
+    with pytest.raises(ValueError, match="bs=48"):
+        K.intra_recon(z(1, 48, 48), z(1), 48, 48, 48, 4)
+    assert K.intra_recon.launches == n0
+
+
+INTRA_ENGINES = {
+    "fast_vbs_fme_sr16": dict(search_range=16, fast_me=True, vbs_enable=True, fme_enable=True),
+    "intra1_vbs_sr16": dict(search_range=16, vbs_enable=True, intra_mode=1),
+    "compat_vbs_fme_sr16": dict(search_range=16, vbs_enable=True, fme_enable=True, engine="compat"),
+}
+
+
+@pytest.mark.parametrize("name", list(INTRA_ENGINES))
+def test_intra_recon_on_card_engines_match_cpu(cuda, name, monkeypatch):
+    """An sr = 16 encode and decode on the card, every ``*_plain`` patched
+    to raise, equal the CPU port bit for bit; each intra frame is one
+    ``intra_recon`` launch in the encode and one in the decode."""
+    from streamoptima_tpu_torch.compat_engine import CompatCodec
+    from streamoptima_tpu_torch.engine import frame_arrays_of
+
+    cfg = CodecConfig(height=64, width=96, frames=7, qp=4, intra_dur=3, lam=0.015, **INTRA_ENGINES[name])
+    clip = synthetic_clip(64, 96, 7, seed=11)
+    compat = cfg.engine == "compat"
+    codec_cls = CompatCodec if compat else TorchCodec
+    b = codec_cls(cfg, clip, device="cpu")
+    bp = b.encode() if compat else b.encode(package=False)
+    _refuse_plain(monkeypatch)
+    codec = codec_cls(cfg, clip, device=cuda)
+    n0 = K.intra_recon.launches
+    a = codec.encode() if compat else codec.encode(package=False)
+    fts = a["frame_type_seq"]
+    assert fts == bp["frame_type_seq"] and K.intra_recon.launches - n0 == fts.count(0) == 3
+    np.testing.assert_array_equal(a["reconstructed frames"], bp["reconstructed frames"])
+    if compat:
+        assert a["MVS per Frame"] == bp["MVS per Frame"]
+        dec = codec.decode(fts, a["approx residual"], a["Qp_per_row_per_frame"], a["MVS per Frame"])
+    else:
+        for fa, fb in zip(a["per_frame"], bp["per_frame"]):
+            for k in ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "size", "recon"):
+                assert torch.equal(fa[k].cpu(), fb[k]), k
+        pairs = [frame_arrays_of(o, ft) for o, ft in zip(a["per_frame"], fts)]
+        dec = codec.decode(fts, [r for _, r in pairs], [[]] * len(fts), [m for m, _ in pairs])
+    assert K.intra_recon.launches - n0 == 2 * fts.count(0)
+    np.testing.assert_array_equal(torch.stack(dec).cpu().numpy(), bp["reconstructed frames"])
