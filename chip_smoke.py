@@ -129,7 +129,15 @@ its plain version on the card on the first intra frames of
 ``[main-fast-vbs-fme]`` and ``[main]``, on random residuals, splits and
 MVs (out-of-range ones too) at sr 8 and 16, on intra mode 1's transposed
 call and on a 240-row tile, and times it on the two real frames, the
-mode-1 call and the tile; ``[profiling]`` ends with
+mode-1 call and the tile.  ``[transform-select]``, ``[residual-recon]`` and
+``[intra-search]`` hold the three residual-coding kernels to their plain
+versions on the card on the arguments that ``[main]``'s,
+``[main-fast-vbs-fme]``'s and ``[main-intra1]``'s intra and inter steps pass
+them (read off the wrappers while the steps run; the fast path's inter call
+also as decode makes it, int16) and on extremes (±255 checkerboards, zero
+blocks and blocks without a valid candidate at QPs 0, 4 and 11; flat,
+checkerboard and noise frames in both intra modes and on a wider canvas),
+and time each; ``[profiling]`` ends with
 ``profile_main_path.profile_compat`` (``[compat]``'s encode and decode,
 timed and profiled).
 
@@ -177,7 +185,19 @@ mode-1 call and the tile are under ``sr8_*``, ``intra1_*`` and ``tile_*``
 keys; each mode's bound is its bytes (int32 residuals, MVs, flags and
 sub-MVs read once, the uint8 frame written once), and ``step_us`` and
 ``bound_step_us`` divide the time and the bound by the column steps of its
-chain.  ``dct_scipy``'s row (CIF's (396, 16, 16) forward) carries the inverse and
+chain.  The three residual-coding rows are ``[main-fast-vbs-fme]``'s (sr 16, VBS)
+with their launches on that path: ``transform_select`` its inter step's
+call (``intra_*``: its intra step's, ``main_*``: ``[main]``'s inter step,
+``intra1_*``: ``[main-intra1]``'s intra step), ``residual_recon`` its decode
+call (``encode_*``: the inter step's, ``intra_*``: the intra step's,
+``main_*``: ``[main]``'s inter step), ``intra_search`` its intra frame
+(``sr8_*``: ``[main]``'s, ``intra1_*``: mode 1's).  Their bounds are the
+larger of the bytes (inputs read once, outputs written once; the recon's
+inter call reads the variant each block uses) and the integer operations
+(the transforms' multiply-adds, the search's abs-diffs of the sr + 1
+distinct shifts) over the integer rate; their library time is null (no
+PyTorch call computes these functions).
+``dct_scipy``'s row (CIF's (396, 16, 16) forward) carries the inverse and
 the 8 x 8 quads' numbers under ``inverse_*``, ``n8_*`` and ``n8_inverse_*``
 keys, and ``pred_fetch_fme_vbs``'s the compat engine's K18 mode under
 ``k18_*`` keys (its launches: the wrapper's count of launches at a
@@ -260,7 +280,10 @@ TOOLS = {
 #: every kernel wrapper, by name: each path's launch counts cover them all
 KERNELS = {name: getattr(K, name) for name in (
     "full_search", "full_search_vbs", "full_search_fme", "full_search_fme_vbs", "pred_fetch", "pred_fetch_vbs",
-    "pred_fetch_fme", "pred_fetch_fme_vbs", "rowscan_pass", "window_fetch", "dct_scipy", "intra_recon")}
+    "pred_fetch_fme", "pred_fetch_fme_vbs", "rowscan_pass", "window_fetch", "dct_scipy", "intra_recon",
+    "transform_select", "residual_recon", "intra_search")}
+#: the wrappers a frame step's residual coding calls, whose real arguments the kernel phase reads off a step
+STEP_WRAPPERS = ("intra_search", "transform_select", "residual_recon", "intra_recon")
 FP64_LANES_PER_SM = 64  # Hopper: one float64 add or multiply per lane and cycle (an FMA counts two in data sheets)
 CIF_H, CIF_W, CIF_FRAMES = 288, 352, 21  # the command line's defaults, which the compat paths run
 #: rate control as ``benchmarks/sweep.py:136-159`` runs it: ~5.9k bits a row at 8 mbps, 30 fps, 45 rows
@@ -382,17 +405,23 @@ def _fetch_bytes_read(mv, refs, sub_mv=None, fme=False, band_row0=0, g_row0=0, g
     return int(torch.unique(got[got >= base]).numel())
 
 
+def _leaves(x, path: str = "") -> list:
+    """A result's tensors (a tensor, or tuples and dicts of them, nested; None kept) with their paths."""
+    if isinstance(x, dict):
+        return [leaf for k in sorted(x) for leaf in _leaves(x[k], f"{path}.{k}")]
+    if isinstance(x, (tuple, list)):
+        return [leaf for i, v in enumerate(x) for leaf in _leaves(v, f"{path}[{i}]")]
+    return [(path, x)]
+
+
 def _check_equal(what: str, got, plain) -> int:
-    """Require a kernel's result (a dict, a tuple or a tensor) to equal its
-    plain version's; returns the largest absolute difference (0)."""
+    """Require a kernel's result (a tensor, or tuples and dicts of them) to
+    equal its plain version's; returns the largest absolute difference (0)."""
     torch.cuda.synchronize()
-    if isinstance(plain, dict):
-        _require(set(got) == set(plain), f"{what}: keys {sorted(got)} differ from {sorted(plain)}")
-        pairs = [(got[k], plain[k]) for k in plain]
-    elif isinstance(plain, tuple):
-        pairs = list(zip(got, plain))
-    else:
-        pairs = [(got, plain)]
+    a, b = _leaves(got), _leaves(plain)
+    _require([p for p, _ in a] == [p for p, _ in b] and all((x is None) == (y is None) for (_, x), (_, y) in zip(a, b)),
+             f"{what}: the outputs {[p for p, _ in a]} differ in structure from {[p for p, _ in b]}")
+    pairs = [(x, y) for (_, x), (_, y) in zip(a, b) if x is not None]
     for x, y in pairs:
         _require(torch.equal(x, y), f"{what}: differs from the plain version")
     return _max_err(pairs)
@@ -578,25 +607,35 @@ def _dct_phase(dev, cyc: float, fp64_per_ms: float) -> dict:
     return row
 
 
-def _intra_args(cfg: CodecConfig, frame: np.ndarray, dev) -> tuple:
-    """The arguments ``cfg``'s intra step passes ``intra_recon`` for
-    ``frame`` (the dequantized residuals, MVs, split flags and sub-MVs of an
-    encode), read off the wrapper."""
-    got = []
-    real = K.intra_recon
+def _step_calls(cfg: CodecConfig, clip: np.ndarray, dev) -> dict:
+    """The arguments ``cfg``'s intra step (the clip's frame 0) and inter step
+    (frame 1 against frame 0) pass each wrapper of ``STEP_WRAPPERS``, read
+    off the wrappers while the steps run on the card: {(step, wrapper):
+    (args, kwargs)}, step "intra" or "inter"."""
+    got, real, step = {}, {n: getattr(K, n) for n in STEP_WRAPPERS}, ["intra"]
 
-    def capture(*a, **kw):
-        got.append((a, kw))
-        K.intra_recon = real  # the wrapper counts its launch on its module's name
-        return real(*a, **kw)
+    def capturing(name):
+        def capture(*a, **kw):
+            got[step[0], name] = (a, kw)
+            setattr(K, name, real[name])  # the wrapper counts its launch on its module's name
+            try:
+                return real[name](*a, **kw)
+            finally:
+                setattr(K, name, capture)
+        return capture
 
-    K.intra_recon = capture
+    for name in STEP_WRAPPERS:
+        setattr(K, name, capturing(name))
     try:
-        TorchCodec(cfg, device=dev)._intra_step(torch.from_numpy(frame).to(dev))
+        codec = TorchCodec(cfg, device=dev)
+        f0, f1 = (torch.from_numpy(f).to(dev) for f in clip[:2])
+        codec._intra_step(f0)
+        step[0] = "inter"
+        codec._inter_step(f1, codec._planes([f0], False))
     finally:
-        K.intra_recon = real
-    _require(len(got) == 1, f"an intra step called intra_recon {len(got)} times")
-    return got[0]
+        for name in STEP_WRAPPERS:
+            setattr(K, name, real[name])
+    return got
 
 
 def _random_intra(rng, h: int, w: int, sr: int, dev) -> tuple:
@@ -623,7 +662,7 @@ def _intra_bytes(args: tuple, kw: dict) -> int:
     return nb * BS_ * BS_ * 4 * (2 if vbs else 1) + nb * 4 + (nb * (1 + 16) if vbs else 0) + h * w
 
 
-def _intra_phase(dev, clip: np.ndarray, cyc: float) -> dict:
+def _intra_phase(dev, calls: dict, cyc: float) -> dict:
     """``[intra-recon]``: the kernel against its plain version on the card,
     exactly, at 720p on the inputs of ``[main-fast-vbs-fme]``'s and
     ``[main]``'s first intra frames (sr 16 with VBS, sr 8 without), on random
@@ -631,11 +670,12 @@ def _intra_phase(dev, clip: np.ndarray, cyc: float) -> dict:
     on intra mode 1's transposed call (sr 16, 80 block rows of 45 columns)
     and on a 240-row tile; then the kernel's and the plain version's times
     on the real inputs, the mode-1 call and the tile, and their bounds by
-    bytes (the chain's per-column step beside them).  Returns the kernel's
-    row without its launches."""
+    bytes (the chain's per-column step beside them).  ``calls``: each
+    config's ``_step_calls``.  Returns the kernel's row without its
+    launches."""
     rng = np.random.default_rng(14)
-    sets = {"fast-vbs-fme frame 0": _intra_args(_cfg(**FAST_VBS_FME), clip[0], dev),
-            "main frame 0": _intra_args(_cfg(), clip[0], dev)}
+    sets = {"fast-vbs-fme frame 0": calls["main-fast-vbs-fme"]["intra", "intra_recon"],
+            "main frame 0": calls["main"]["intra", "intra_recon"]}
     for sr in (8, 16):
         sets[f"random sr={sr}"] = (_random_intra(rng, H, W, sr, dev), {})
     t = _random_intra(rng, W, H, 16, dev)  # the transposed frame's 80 block rows of 45 blocks
@@ -667,6 +707,149 @@ def _intra_phase(dev, clip: np.ndarray, cyc: float) -> dict:
         if key:
             row.update({f"{key}{k}": v for k, v in m.items()})
     return row
+
+
+def _hold_timed(name: str, source: str, replaces: str, sets: dict, timed: dict, cost, cyc: float,
+                int_ops_per_ms: float) -> dict:
+    """One residual-coding kernel against its plain version on the card,
+    exactly, on every input set (name -> (args, kwargs)); then for each
+    (row key prefix, set name) of ``timed`` the kernel's CUDA-event time
+    behind the spin kernel, the plain version's, and the bound from
+    ``cost(args, kwargs)`` -> (bytes, operations).  Returns the kernel's row
+    without its launches: the first timed set's numbers, the others' under
+    their prefixes."""
+    fn, plain = KERNELS[name], getattr(K, f"{name}_plain")
+    tag = name.replace("_", "-")
+    err = max(_check_equal(f"[{tag}] {label}", fn(*a, **kw), plain(*a, **kw)) for label, (a, kw) in sets.items())
+    modes = {}
+    for key, label in timed.items():
+        a, kw = sets[label]
+        ms, host = _time_ms(lambda: fn(*a, **kw), 200, cyc)
+        plain_ms, _ = _time_ms(lambda: plain(*a, **kw), 3, cyc)
+        nbytes, ops = cost(a, kw)
+        bound_ms, bound_by = _bound(nbytes, ops, int_ops_per_ms)
+        modes[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": None}
+        print(f"[{tag}] {label}: {ms:.4f} ms vs plain {plain_ms:.4f} ms (host enqueue {host:.4f} ms per call); "
+              f"bound {bound_ms:.5f} ms by {bound_by} ({nbytes} bytes, {ops} operations)", flush=True)
+    print(f"[{tag}] kernel == plain version on the card, bit for bit (tolerance 0), on {list(sets)}: max_abs_err "
+          f"{err}", flush=True)
+    row = {"name": name, "route": "cuda", "source": f"streamoptima_tpu_torch/csrc/{source}", "replaces": replaces,
+           **modes[next(iter(timed))]}
+    for key, m in list(modes.items())[1:]:
+        row.update({f"{key}{k}": v for k, v in m.items()})
+    return row
+
+
+def _select_cost(a: tuple, kw: dict) -> tuple[int, int]:
+    """``transform_select``'s bytes (its inputs read once, its outputs
+    written once, the quad planes zeros without VBS) and operations (the
+    int64 multiply-adds of both passes of each DCT)."""
+    res, nb, bs = a[0], a[0].shape[0], a[0].shape[-1]
+    vbs = kw["vbs_enable"]
+    n_in = res.numel() * 4 + nb * 8 + (nb if kw.get("ok_full") is not None else 0)
+    if vbs:
+        n_in += a[1].numel() * 4 + nb * 16 + nb + (4 * nb if kw.get("ok_quads") is not None else 0)
+    return n_in + nb * (1 + 8) + 2 * res.numel() * 4, res.numel() * 2 * (bs + (bs // 2 if vbs else 0))
+
+
+def _recon_cost(a: tuple, kw: dict) -> tuple[int, int]:
+    """``residual_recon``'s bytes and multiply-adds on these inputs: an
+    intra call reads both variants and writes int32 residuals; an inter
+    call reads the coefficients and prediction pixels of the variant each
+    block uses (split flags, quads), the flags, and writes the frame."""
+    qf, qq, qps = a[:3]
+    nb, bs = qf.shape[0], qf.shape[-1]
+    px, cb = bs * bs, qf.element_size()
+    pred = a[3] if len(a) > 3 else None
+    if pred is None:
+        nvar = 1 if qq is None else 2
+        return nvar * nb * px * (cb + 4) + nb * 4, nb * px * 2 * (bs + (0 if qq is None else bs // 2))
+    nsplit = int(a[5].sum()) if qq is not None else 0
+    flags = sum(t.numel() for t in a[5:8] if t is not None)
+    ops = (nb - nsplit) * px * 2 * bs + nsplit * px * 2 * (bs // 2)
+    return nb * px * (cb + 2) + nb * 4 + flags + pred.numel(), ops
+
+
+def _search_cost(a: tuple, kw: dict) -> tuple[int, int]:
+    """``intra_search``'s bytes (the frame read once; MVs, SADs and the int32
+    residuals written once) and operations (an abs-diff a pixel for each of
+    the sr + 1 distinct shifts)."""
+    cur, bs, sr, _, vbs = a
+    nb = cur.numel() // (bs * bs)
+    return cur.numel() + nb * (8 + (32 if vbs else 0)) + nb * bs * bs * 4 * (2 if vbs else 1), nb * (sr + 1) * bs * bs
+
+
+def _residual_phases(dev, calls: dict, cyc: float, int_ops_per_ms: float) -> dict:
+    """``[transform-select]``, ``[residual-recon]`` and ``[intra-search]``:
+    each kernel against its plain version on the card, exactly, at 720p on
+    the arguments ``[main]``'s, ``[main-fast-vbs-fme]``'s and
+    ``[main-intra1]``'s intra and inter steps pass it (``calls``), and on
+    extremes: ±255 checkerboards, zero blocks and blocks without a valid
+    candidate at QPs 0, 4 and 11 (the select); the same coefficients,
+    int16 as decode passes them, with the ok masks (the recon); flat (every
+    shift ties), checkerboard and noise frames in both intra modes, on the
+    frame's canvas and a wider one (the search).  Then each kernel's time,
+    its plain version's and its bound.  Returns {kernel: row without its
+    launches}."""
+    rng = np.random.default_rng(15)
+    nb, s = (H // BS_) * (W // BS_), BS_ // 2
+    # the select at the extremes: VBS, an inter frame
+    res = rng.integers(-255, 256, (nb, BS_, BS_)) * (rng.random((nb, 1, 1)) < rng.random((nb, BS_, BS_)))
+    i, j = np.indices((BS_, BS_))
+    for k, p in enumerate((1, 2, 4)):
+        res[3 * k::97] = np.where(((i // p) + (j // p)) % 2 == 0, 255, -255)
+    res[5::53] = 0
+    quads = res.reshape(nb, 2, s, 2, s).swapaxes(2, 3).reshape(nb, 4, s, s).copy()
+    quads[1::3] = rng.integers(-255, 256, quads[1::3].shape)
+    ok, sub_ok = rng.random(nb) < 0.9, rng.random((nb, 4)) < 0.9
+    sad = np.where(ok, rng.integers(0, 255 * BS_ * BS_ + 1, nb), 2**31 - 1)
+    sub_sad = np.where(sub_ok, rng.integers(0, 255 * s * s + 1, (nb, 4)), 2**31 - 1)
+    dv = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in (
+        ("res", res.astype(np.int32)), ("quads", quads.astype(np.int32)), ("sad", sad.astype(np.int32)),
+        ("sub_sad", sub_sad.astype(np.int32)), ("ok", ok), ("sub_ok", sub_ok),
+        ("qps", rng.integers(0, 13, nb).astype(np.int32)), ("elig", rng.random(nb) < 0.8))}
+    sel = {f"{label} {st}": calls[label][st, "transform_select"] for label in calls for st in ("intra", "inter")}
+    for qp in (0, 4, 11):
+        sel[f"extremes qp {qp}"] = ((dv["res"], dv["quads"], dv["sad"], dv["sub_sad"], 1, dv["qps"]),
+                                    dict(qp_nominal=qp, lam=0.015, vbs_enable=True, vbs_eligible=dv["elig"], bs=BS_,
+                                         sbs=s, ok_full=dv["ok"], ok_quads=dv["sub_ok"]))
+    rows = {"transform_select": _hold_timed(
+        "transform_select", "transform_select.cu", "streamoptima_tpu/core/rd.py:27", sel,
+        {"": "main-fast-vbs-fme inter", "intra_": "main-fast-vbs-fme intra", "main_": "main inter",
+         "intra1_": "main-intra1 intra"}, _select_cost, cyc, int_ops_per_ms)}
+
+    # the recon: the steps' calls, the fast path's inter call as decode makes it (int16, the unused half zero),
+    # and the extremes' coefficients
+    rec = {f"{label} {st}": calls[label][st, "residual_recon"] for label in calls for st in ("intra", "inter")}
+    a, kw = calls["main-fast-vbs-fme"]["inter", "residual_recon"]
+    sp = a[5]
+    rec["main-fast-vbs-fme decode"] = ((torch.where(sp[:, None, None], 0, a[0]).to(torch.int16),
+                                        torch.where(sp[:, None, None, None], a[1], 0).to(torch.int16)) + a[2:], kw)
+    _, qf, qq, _, _ = K.transform_select(*sel["extremes qp 0"][0], **sel["extremes qp 0"][1])
+    planes = torch.from_numpy(rng.integers(0, 256, (2, H, W)).astype(np.int16)).to(dev)
+    rec["extremes"] = ((qf.to(torch.int16), qq.to(torch.int16), dv["qps"], planes[0], planes[1],
+                        dv["elig"], dv["ok"], dv["sub_ok"]), {})
+    rows["residual_recon"] = _hold_timed(
+        "residual_recon", "residual_recon.cu", "streamoptima_tpu/jax_engine.py:658", rec,
+        {"": "main-fast-vbs-fme decode", "encode_": "main-fast-vbs-fme inter", "intra_": "main-fast-vbs-fme intra",
+         "main_": "main inter"}, _recon_cost, cyc, int_ops_per_ms)
+
+    # the search: the steps' calls and the extreme frames, both modes, the frame's canvas and a wider one
+    srch = {f"{label} frame 0": calls[label]["intra", "intra_search"] for label in calls}
+    frames = {"flat": np.full((H, W), 128, np.uint8), "checker": np.where(np.indices((H, W)).sum(0) % 2, 255, 0),
+              "noise": rng.integers(0, 256, (H, W))}
+    for kind, f in frames.items():
+        f = torch.from_numpy(f.astype(np.uint8)).to(dev)
+        for transpose in (False, True):
+            canvas = H if transpose else W
+            srch[f"{kind} mode {int(transpose)}"] = ((f, BS_, 16, canvas, True), {"transpose": transpose})
+        srch[f"{kind} canvas +64"] = ((f, BS_, 16, W + 64, True), {"transpose": False})
+    rows["intra_search"] = _hold_timed(
+        "intra_search", "intra_search.cu", "streamoptima_tpu/core/intra.py:46", srch,
+        {"": "main-fast-vbs-fme frame 0", "sr8_": "main frame 0", "intra1_": "main-intra1 frame 0"}, _search_cost,
+        cyc, int_ops_per_ms)
+    return rows
 
 
 def _compat_phase(dev) -> dict:
@@ -736,11 +919,11 @@ def _compat_phase(dev) -> dict:
             n_inter = frames - 1
             if label == "compat":  # per inter frame: the chain, one confirm, two fetches (K18) and one in decode
                 want = {"rowscan_pass": sum(chained), "window_fetch": n_inter, "pred_fetch_fme_vbs": 3 * n_inter,
-                        "dct_scipy": 4 * frames + 2 * frames, "intra_recon": 2}
+                        "dct_scipy": 4 * frames + 2 * frames, "intra_recon": 2, "intra_search": 1}
                 _require(len(chained) == n_inter, f"[{label}] solved {len(chained)} chains")
             else:
-                want = {"full_search_fme_vbs": n_inter, "pred_fetch_fme_vbs": 3 * n_inter,
-                        "dct_scipy": 4 * frames + 2 * frames, "intra_recon": 2}  # frame 0, encoded and decoded
+                want = {"full_search_fme_vbs": n_inter, "pred_fetch_fme_vbs": 3 * n_inter,  # frame 0 searched once,
+                        "dct_scipy": 4 * frames + 2 * frames, "intra_recon": 2, "intra_search": 1}  # rebuilt twice
             _require(launches == want, f"[{label}] launches {launches}, expected {want}")
             # the reconstruction's fetch and the decode's take the parent's margin (K18), the residual's its own
             _require(margin == 2 * n_inter, f"[{label}] {margin} fetches at quad_margin={BS_}, expected "
@@ -780,7 +963,7 @@ def _compat_phase(dev) -> dict:
         _require(types[0] == 0 and types[4] == 0 and types[1:4] == [1, 1, 1], f"[{label}] frame types {types}")
         promoted = types[1:].count(0)
         want = {"full_search": 7, "pred_fetch": types.count(1), "dct_scipy": 2 * (7 + 1 + promoted) + 8,
-                "intra_recon": 2 * types.count(0)}
+                "intra_recon": 2 * types.count(0), "intra_search": types.count(0)}
         _require(launches == want, f"[{label}] launches {launches}, expected {want}")
         _require(np.isfinite(psnr) and psnr > PROMOTE_MIN_PSNR, f"[{label}] mean PSNR {psnr}")
         out[label] = {"launches": launches, "s": g_s}
@@ -877,9 +1060,17 @@ def _drive(label: str, extra: dict, clip: np.ndarray, dev, frames: int = FRAMES,
     print(f"[{label}] mean PSNR {psnr.mean():.4f} dB, mean SSIM {np.mean(pkg['SSIM per frame']):.5f} "
           f"({pkg['timing']['ssim_s']:.4f} s on the device, besides the encode), bits "
           f"{sum(pkg['residual size per frame'])}", flush=True)
-    # every intra frame is one intra_recon launch per tile in the encode (in each pass of two-pass) and in the decode
-    n_intra = types.count(0)
-    expected.setdefault("intra_recon", (N_TILES if mesh else 1) * n_intra * (3 if extra.get("two_pass") else 2))
+    # every intra frame is one intra_recon launch per tile in the encode (in each pass of two-pass) and in the
+    # decode, and one intra_search in the encode; every frame step of the encode (a promoted frame's inter step
+    # and its intra step) one transform_select and one residual_recon, every decoded frame one residual_recon
+    n_intra, tiles = types.count(0), N_TILES if mesh else 1
+    enc_passes = 2 if extra.get("two_pass") else 1
+    promoted = n_intra - (0 if extra.get("parallel_mode") == 1 else len(range(0, frames, INTRA_DUR)))
+    steps = enc_passes * frames + promoted
+    expected.setdefault("intra_recon", tiles * n_intra * (enc_passes + 1))
+    expected.setdefault("intra_search", tiles * n_intra * enc_passes)
+    expected.setdefault("transform_select", tiles * steps)
+    expected.setdefault("residual_recon", tiles * (steps + frames))
     passes = pkg.get("fast_me_passes")
     if passes is not None:  # parallel mode 2 runs no chain; every other fast-ME path one or more passes a frame
         chain = extra.get("parallel_mode") != 2
@@ -967,7 +1158,8 @@ def _binary_phase(dev, pairs: dict) -> None:
                              f"[binary] {label}: the decode of {f.name} on {'the mesh' if mesh else 'one device'} "
                              "differs from the reconstructions")
                     want = {"pred_fetch": n_inter * (N_TILES if mesh else 1),
-                            "intra_recon": pkg["frame_type_seq"].count(0) * (N_TILES if mesh else 1)}
+                            "intra_recon": pkg["frame_type_seq"].count(0) * (N_TILES if mesh else 1),
+                            "residual_recon": cfg.frames * (N_TILES if mesh else 1)}
                     _require(launches == want, f"[binary] {label}: decode launches {launches}, expected {want}")
             print(f"[binary] {label}: 720p {cfg.frames} frames, SOTPB1 {files[0].stat().st_size} bytes written in "
                   f"{write_s[0]:.3f} s (one device) and {write_s[1]:.3f} s (mesh), byte-equal; decode_bitstream_binary "
@@ -983,9 +1175,11 @@ def _dryrun_launches(summary: dict) -> dict:
     its winners' fetch follows each search but for the whole-pel kernel,
     which keeps their pixels.  Fast ME (never with two-pass there) runs its
     chain's passes and one confirm read and one fetch per inter step.  The
-    decode fetches once per inter frame.  Each intra frame is one
-    reconstruction in each encode (per pass under two-pass) and in the
-    decode.  On the mesh each is once per tile."""
+    decode fetches once per inter frame.  Each intra frame is one search
+    and one reconstruction in each encode (per pass under two-pass) and one
+    reconstruction in the decode; each frame step of an encode is one
+    select and one dequantization, each decoded frame one.  On the mesh each
+    is once per tile."""
     out: dict = {}
 
     def add(name: str, n: int) -> None:
@@ -1008,9 +1202,15 @@ def _dryrun_launches(summary: dict) -> dict:
             if suffix:
                 add("pred_fetch" + suffix, (1 + ntile) * steps)
         add("pred_fetch" + suffix, ntile * inter)
-        # intra frames: reconstructed in each encode (in both passes of two-pass) and in the mesh decode
+        # intra frames: searched and reconstructed in each encode (in both passes of two-pass), reconstructed in
+        # the mesh decode; every encode step (``steps`` inter, the intra frames) one select and one recon, every
+        # decoded frame one recon
         intra = types.count(0)
         add("intra_recon", (1 + ntile) * intra * (2 if cfg.two_pass else 1) + ntile * intra)
+        add("intra_search", (1 + ntile) * intra * (2 if cfg.two_pass else 1))
+        enc_steps = steps + intra * (2 if cfg.two_pass else 1)
+        add("transform_select", (1 + ntile) * enc_steps)
+        add("residual_recon", (1 + ntile) * enc_steps + ntile * len(types))
     return out
 
 
@@ -1077,8 +1277,10 @@ def _cli_phase(clip: np.ndarray, main_run: dict) -> None:
                          "--no-fme", "--no-vbs"] + outputs("a"))
         a_s = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
+        # the encode's intra frames, then each decode's; the encode's frame steps, then each decode's frames
         want = {"full_search": main_run["launches"]["full_search"], "pred_fetch": 2 * main_run["n_inter"],
-                "intra_recon": 3 * (FRAMES // INTRA_DUR)}  # the encode's intra frames, then each decode's
+                "intra_recon": 3 * (FRAMES // INTRA_DUR), "intra_search": FRAMES // INTRA_DUR,
+                "transform_select": FRAMES, "residual_recon": 3 * FRAMES}
         _require(rc_a == 0, f"[cli] run A exited {rc_a}")
         closed("a")
         _require((d / "arec.yuv").read_bytes() == main_run["pkg"]["reconstructed frames"].tobytes(),
@@ -1111,9 +1313,12 @@ def _cli_phase(clip: np.ndarray, main_run: dict) -> None:
         _require(rc_b == 0, f"[cli] run B exited {rc_b}")
         closed("b")
         _require(len(chained) == n_steps, f"[cli] run B solved {len(chained)} fast-ME chains, expected {n_steps}")
-        # intra_recon: rc.measure_qp_tables' 12 x 2 intra steps, one intra frame in each pass and each decode
+        # intra_recon: rc.measure_qp_tables' 12 x 2 intra steps, one intra frame in each pass and each decode;
+        # the select: the tables' 12 x 2 intra and 12 x 2 inter steps and the two passes' frames, and the recon
+        # those and each decode's frames
         want = {"rowscan_pass": sum(chained), "window_fetch": n_steps,
-                "pred_fetch_fme_vbs": n_steps + 2 * (n_b - 1), "intra_recon": 12 * 2 + 2 + 2}
+                "pred_fetch_fme_vbs": n_steps + 2 * (n_b - 1), "intra_recon": 12 * 2 + 2 + 2,
+                "intra_search": 12 * 2 + 2, "transform_select": 48 + 2 * n_b, "residual_recon": 48 + 4 * n_b}
         _require(launches == want, f"[cli] run B's launches {launches}, expected {want}")
         t0 = time.perf_counter()
         rc_ref = cli_main(argv_b + ["--vbs-overlay", str(d / "cov.yuv"), "--device", "cpu"] + outputs("c"))
@@ -1516,7 +1721,11 @@ def main() -> None:
     print(f"[transform] dct2_int / idct2_int on the card bit-equal to the CPU port ({nb} blocks, extremes)",
           flush=True)
     dct_row = _dct_phase(dev, cyc, fp64_per_ms)
-    intra_row = _intra_phase(dev, clip, cyc)
+    # the arguments each config's intra and inter steps pass the residual-coding wrappers, read off them
+    calls = {label: _step_calls(_cfg(**extra), clip, dev) for label, extra in (
+        ("main", {}), ("main-fast-vbs-fme", FAST_VBS_FME), ("main-intra1", TOOLS["main-intra1"]))}
+    intra_row = _intra_phase(dev, calls, cyc)
+    residual_rows = _residual_phases(dev, calls, cyc, int_ops_per_ms)
 
     small = synthetic_clip(64, 96, 6, seed=3)
     small_cfgs = {"whole-pel": {}, "VBS + FME": VBS_FME, "fast ME": FAST, "fast ME + VBS + FME": FAST_VBS_FME,
@@ -1748,9 +1957,13 @@ def main() -> None:
     kernels[-1]["k18_launches"] = compat["compat"]["margin_launches"]
     dct_row["launches"] = compat["compat"]["launches"]["dct_scipy"]
     kernels.append(dct_row)
-    # the intra reconstruction: its launches on [main-fast-vbs-fme], whose first intra frame the row times
+    # the intra reconstruction and the residual coding: their launches on [main-fast-vbs-fme], whose frames
+    # the rows time
     intra_row["launches"] = fast["main-fast-vbs-fme"]["launches"]["intra_recon"]
     kernels.append(intra_row)
+    for name, row in residual_rows.items():
+        row["launches"] = fast["main-fast-vbs-fme"]["launches"][name]
+        kernels.append(row)
     # the two fast-ME kernels: the FME mode's numbers, the whole-pel mode's under whole_pel_* keys
     rows = {}
     for fme, label in ((True, "main-fast-vbs-fme"), (False, "main-fast")):

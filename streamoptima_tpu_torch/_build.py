@@ -117,4 +117,15 @@ def library() -> ctypes.CDLL:
     lib.so_dct_scipy.restype = i
     lib.so_intra_recon.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p]  # rf, rq, split, mv, smv, nbr, nbc, bs, sr, ...
     lib.so_intra_recon.restype = i
+    f = ctypes.c_float
+    # res_full, res_quads, sad_full, sad_quads, ok_full, ok_quads, qps, eligible, a_full, a_quad, scan_full,
+    # scan_quad, nb, n, qp_nominal, lam, frame_type, split, qtc_full, qtc_quads, lens, mae, stream
+    lib.so_transform_select.argtypes = [*[p] * 12, i, i, i, f, i, p, p, p, p, p, p]
+    lib.so_transform_select.restype = i
+    # qf, qq, wide, qps, a_full, a_quad, nb, nbc, n, rf_out, rq_out, pred, pred_q, split, ok, sub_ok, out, stream
+    lib.so_residual_recon.argtypes = [p, p, i, p, p, p, i, i, i, *[p] * 9]
+    lib.so_residual_recon.restype = i
+    # frame, h, w, transpose, bs, sr, canvas_w, vbs, mv, sad, sub_mv, sub_sad, res_full, res_quads, stream
+    lib.so_intra_search.argtypes = [p, i, i, i, i, i, i, i, *[p] * 7]
+    lib.so_intra_search.restype = i
     return lib

@@ -16,7 +16,9 @@ binary container (format SOTPB1) through ``binstream.write_binary``, both
 with the array-form interchange and byte-identical to the JAX package's
 files.
 
-With ``mesh=`` in place of ``device=`` (``parallel.make_mesh``), encode and
+``device`` defaults to ``"cuda"``; the CPU runs only when asked for
+(``device="cpu"``).  With ``mesh=`` in place of ``device=``
+(``parallel.make_mesh``), encode and
 decode go through ``parallel.ShardedCodec``, GOP- and row-tile-sharded over
 the mesh's devices, with the same package and streams::
 
@@ -65,8 +67,10 @@ class VideoCodec:
     ``mesh``, with file-level APIs."""
 
     def __init__(self, cfg: CodecConfig, y_frames=None, *, device=None, mesh=None):
-        if (device is None) == (mesh is None):
-            raise TypeError("VideoCodec runs on one device or on a mesh: give exactly one of device= and mesh=")
+        if device is not None and mesh is not None:
+            raise TypeError("VideoCodec runs on one device or on a mesh: give at most one of device= and mesh=")
+        if mesh is None and device is None:
+            device = "cuda"
         if cfg.compat and mesh is not None:
             raise ValueError("multi-device encoding requires engine='jax'")
         self.cfg = cfg

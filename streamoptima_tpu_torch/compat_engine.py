@@ -33,8 +33,9 @@ Every search, fetch and transform is a kernel launch on a CUDA device
 (``core/kernels.py``): the full searches (``full_search``, or with VBS or
 FME the MVs-only searches and the ``pred_fetch`` kernel in the matching
 mode), fast ME's chain (``engine.fast_chain``: ``rowscan_pass``) and confirm
-(``window_fetch``), ``dct_scipy``, and each intra frame's reconstruction
-(``intra_recon``, one launch a frame).  On the CPU each takes its plain
+(``window_fetch``), ``dct_scipy``, and each intra frame's search and
+residuals (``intra_search``) and reconstruction (``intra_recon``), one
+launch each a frame.  On the CPU each takes its plain
 PyTorch version.  The package and the decoder's inputs are the JAX
 engine's list forms, which ``bitstream.write_bitstream`` serializes.
 """
@@ -47,7 +48,6 @@ from streamoptima_tpu_torch import engine as E
 from streamoptima_tpu_torch import rc
 from streamoptima_tpu_torch.config import CodecConfig
 from streamoptima_tpu_torch.core import fastme as FM
-from streamoptima_tpu_torch.core import intra as I
 from streamoptima_tpu_torch.core import kernels as K
 from streamoptima_tpu_torch.core.blocks import blockify, merge_quads, quads_px, split_quads, unblockify
 from streamoptima_tpu_torch.core.me import block_origins, fme_parity_planes
@@ -60,7 +60,7 @@ from streamoptima_tpu_torch.engine import fifo_push, mvs_to_list, pack_stream, r
 class CompatCodec:
     """Encoder/decoder bit-exact with the NumPy reference, on an explicit ``device``."""
 
-    def __init__(self, cfg: CodecConfig, y_frames=None, *, device):
+    def __init__(self, cfg: CodecConfig, y_frames=None, *, device="cuda"):
         if not cfg.compat:
             raise ValueError("CompatCodec requires engine='compat'")
         if cfg.intra_mode != 0:
@@ -264,11 +264,8 @@ class CompatCodec:
         """One intra frame (complete_intra_flow, Encoder.py:1582-1642) on the
         reference's canvas (K12)."""
         cfg, bs, s = self.cfg, self.bs, self.sbs
-        work = cur.to(torch.int32)
-        srch = I.intra_search_mode0(work, bs, cfg.search_range, cfg.intra_canvas[1], self.vbs)
+        srch, res_full, res_quads = K.intra_search(cur, bs, cfg.search_range, cfg.intra_canvas[1], self.vbs)
         sub_mv = srch["sub_mv"].reshape(self.nb, 4) if self.vbs else None
-        res_full, res_quads = I.intra_residuals_mode0(work, srch["mv"], bs, cfg.search_range,
-                                                      srch["sub_mv"] if self.vbs else None)
         mae_q = srch["sub_sad"].reshape(self.nb, 4).to(torch.float64) / (s * s) if self.vbs else None
         out = self._code(res_full.to(torch.int64), None if res_quads is None else res_quads.to(torch.int64),
                          srch["sad"].reshape(-1).to(torch.float64) / (bs * bs), mae_q, 0)

@@ -31,6 +31,19 @@
                             transpose for intra mode 1 (csrc/intra_recon.cu;
                             no TPU kernel: the JAX engine runs one lax.scan
                             over block columns, core/intra.py:343).
+``transform_select``     -- a frame step's DCT, RD split, quantization and
+                            coded lengths (csrc/transform_select.cu; no TPU
+                            kernel: XLA fuses rd.transform_and_select into
+                            the jitted step).
+``residual_recon``       -- rescale and IDCT of a frame's coefficients, and
+                            for an inter frame the prediction added and
+                            wrapped to uint8 (csrc/residual_recon.cu; no TPU
+                            kernel: the JAX engine's _dequant / _recon_inter
+                            in the jit).
+``intra_search``         -- mode-0 intra search and residuals of a frame, or
+                            of its transpose (csrc/intra_search.cu; no TPU
+                            kernel: intra_search_mode0 and
+                            intra_residuals_mode0 in the jit).
 
 The searches and fetches also take a band of the frame in place of the
 whole frame (a mesh tile's, ``parallel/mesh.py``; me_pallas's ``read_row0``,
@@ -48,14 +61,20 @@ plain integer attribute, ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from streamoptima_tpu_torch.core import intra as I
 from streamoptima_tpu_torch.core import me as M
+from streamoptima_tpu_torch.core import rd
 from streamoptima_tpu_torch.core.fastme import rowscan_pass_plain, window_fetch_plain
-from streamoptima_tpu_torch.core.blocks import unblockify, unquads_px
+from streamoptima_tpu_torch.core.blocks import blockify, merge_quads, quads_px, unblockify, unquads_px
 from streamoptima_tpu_torch.core.pred import gather_predictions, wrap_uint8
-from streamoptima_tpu_torch.core.transform import dct2_scipy, idct2_scipy
+from streamoptima_tpu_torch.core.quant import qp_minus_1, rescale
+from streamoptima_tpu_torch.core.transform import dct2_scipy, dct_matrix_fixed, idct2_int, idct2_scipy
+from streamoptima_tpu_torch.core.zigzag import diag_scan_indices
 
 #: shared memory one block may use on Hopper (bytes)
 _SMEM_LIMIT = 232448
@@ -772,3 +791,273 @@ def intra_recon(residual_full: torch.Tensor, mv: torch.Tensor, h: int, w: int, b
 
 
 intra_recon.launches = 0
+
+
+# ------------------------------------------------ residual coding: shared checks and tables
+#: block sizes the transform kernels take (the transform's int32 bounds hold up to 16; the MAE divisions are exact)
+_TRANSFORM_SIZES = (4, 8, 16)
+
+
+def _check_tensors(what: str, want: dict, device) -> None:
+    """``want``: name -> (tensor, shape, dtypes); each must be a contiguous
+    tensor of that shape and one of those dtypes on ``device``."""
+    for name, (t, shape, dtypes) in want.items():
+        if not isinstance(t, torch.Tensor) or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what}: {name} must be a {tuple(shape)} tensor, got "
+                             f"{None if t is None else tuple(t.shape)}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{what}: {name} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, not {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda tensors, not {device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _table(kind: str, n: int, device: torch.device) -> torch.Tensor:
+    """An int32 table the transform kernels read, on ``device``: the n x n
+    fixed-point DCT matrix ("dct") or the diagonal scan's flat indices ("scan")."""
+    a = dct_matrix_fixed(n) if kind == "dct" else diag_scan_indices(n)
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+_I32, _BOOL = (torch.int32,), (torch.bool,)
+
+
+# ------------------------------------------------ transform, RD split, quantization
+def transform_select_plain(res_full, res_quads, sad_full, sad_quads, frame_type: int, qps_blocks, *, qp_nominal: int,
+                           lam, vbs_enable: bool, vbs_eligible, bs: int, sbs: int, ok_full=None, ok_quads=None):
+    """Plain PyTorch version of the ``transform_select`` kernel (any device):
+    ``rd.transform_and_select``."""
+    return rd.transform_and_select(res_full, res_quads, sad_full, sad_quads, frame_type, qps_blocks,
+                                   qp_nominal=qp_nominal, lam=lam, vbs_enable=vbs_enable, vbs_eligible=vbs_eligible,
+                                   bs=bs, sbs=sbs, ok_full=ok_full, ok_quads=ok_quads)
+
+
+def transform_select(res_full, res_quads, sad_full, sad_quads, frame_type: int, qps_blocks, *, qp_nominal: int, lam,
+                     vbs_enable: bool, vbs_eligible, bs: int, sbs: int, ok_full=None, ok_quads=None):
+    """A frame step's residual coding: ``rd.transform_and_select``'s
+    arguments and results (its docstring), in one launch.
+
+    res_full: (nb, bs, bs) int32; sad_full, qps_blocks: (nb,) int32; ok_full
+    (nb,) bool or None; under ``vbs_enable`` also res_quads (nb, 4, s, s)
+    and sad_quads (nb, 4) int32, vbs_eligible (nb,) bool and ok_quads (nb,
+    4) bool or None (s = bs / 2 = ``sbs``), which are unread otherwise.  All
+    contiguous, on one device.  Returns (split (nb,) bool, qtc_full (nb, bs,
+    bs) int32, qtc_quads (nb, 4, s, s) int32, zeros without VBS, lens (nb,)
+    int32, mae (nb,) float32).  The kernel takes bs in {4, 8, 16} and
+    ``lam`` as the float32 PyTorch rounds it to; the QPs must lie in [0, 12].
+    Each SAD is at most 255 n^2 (n the block's or quad's size) wherever its
+    ok flag is True or not given, as the searches make them: every MAE and
+    their sums are then exact in float32, in any order of summation.
+    """
+    if not isinstance(res_full, torch.Tensor) or res_full.dim() != 3:
+        raise ValueError("transform_select: res_full must be an (nb, bs, bs) tensor")
+    nb, s = res_full.shape[0], bs // 2
+    want = {"res_full": (res_full, (nb, bs, bs), _I32), "sad_full": (sad_full, (nb,), _I32),
+            "qps_blocks": (qps_blocks, (nb,), _I32)}
+    if ok_full is not None:
+        want["ok_full"] = (ok_full, (nb,), _BOOL)
+    if vbs_enable:
+        if sbs != s:
+            raise ValueError(f"transform_select: sbs={sbs} is not bs / 2 = {s}")
+        want.update(res_quads=(res_quads, (nb, 4, s, s), _I32), sad_quads=(sad_quads, (nb, 4), _I32),
+                    vbs_eligible=(vbs_eligible, (nb,), _BOOL))
+        if ok_quads is not None:
+            want["ok_quads"] = (ok_quads, (nb, 4), _BOOL)
+    dev = res_full.device
+    _check_tensors("transform_select", want, dev)
+    if dev.type == "cpu":
+        return transform_select_plain(res_full, res_quads, sad_full, sad_quads, frame_type, qps_blocks,
+                                      qp_nominal=qp_nominal, lam=lam, vbs_enable=vbs_enable,
+                                      vbs_eligible=vbs_eligible, bs=bs, sbs=sbs, ok_full=ok_full, ok_quads=ok_quads)
+    if bs not in _TRANSFORM_SIZES:
+        raise ValueError(f"the transform_select kernel takes bs in {_TRANSFORM_SIZES}, got {bs}")
+    if vbs_enable and (lam is None or not 0 <= int(qp_nominal) <= 12):
+        raise ValueError(f"transform_select under VBS needs lam and a nominal QP in [0, 12], got {lam}, {qp_nominal}")
+    from streamoptima_tpu_torch._build import library
+
+    split = torch.empty((nb,), dtype=torch.bool, device=dev)
+    qtc_full = torch.empty((nb, bs, bs), dtype=torch.int32, device=dev)
+    qtc_quads = torch.empty((nb, 4, s, s), dtype=torch.int32, device=dev)
+    lens = torch.empty((nb,), dtype=torch.int32, device=dev)
+    mae = torch.empty((nb,), dtype=torch.float32, device=dev)
+    if nb == 0:
+        return split, qtc_full, qtc_quads, lens, mae
+    quads = (res_quads, sad_quads, ok_quads, vbs_eligible, _table("dct", s, dev), _table("scan", s, dev)) \
+        if vbs_enable else (None,) * 6
+    rq, sq, okq, elig, aq, scq = map(_ptr, quads)
+    with torch.cuda.device(dev):
+        rc = library().so_transform_select(res_full.data_ptr(), rq, sad_full.data_ptr(), sq, _ptr(ok_full), okq,
+                                           qps_blocks.data_ptr(), elig, _table("dct", bs, dev).data_ptr(), aq,
+                                           _table("scan", bs, dev).data_ptr(), scq, nb, bs, int(qp_nominal),
+                                           float(lam) if vbs_enable else 0.0, int(frame_type), split.data_ptr(),
+                                           qtc_full.data_ptr(), qtc_quads.data_ptr(), lens.data_ptr(), mae.data_ptr(),
+                                           _stream(dev))
+    _launch_check(rc, "transform_select")
+    transform_select.launches += 1
+    return split, qtc_full, qtc_quads, lens, mae
+
+
+transform_select.launches = 0
+
+
+# ------------------------------------------------ dequantization and reconstruction
+def residual_recon_plain(qtc_full, qtc_quads, qps, pred=None, pred_quads=None, split=None, ok=None, sub_ok=None):
+    """Plain PyTorch version of the ``residual_recon`` kernel (any device)."""
+    rf = idct2_int(rescale(qtc_full.to(torch.int32), qps))
+    rq = None if qtc_quads is None else idct2_int(rescale(qtc_quads.to(torch.int32), qp_minus_1(qps)[:, None]))
+    if pred is None:
+        return rf, rq
+    h, w = pred.shape
+    bs = qtc_full.shape[-1]
+    pf = blockify(pred, bs).to(torch.int32)
+    if ok is not None:
+        pf = torch.where(ok[:, None, None], pf, 128)
+    blocks = wrap_uint8(pf + rf)
+    if rq is not None:
+        pq = quads_px(pred_quads, bs).to(torch.int32)
+        if sub_ok is not None:
+            pq = torch.where(sub_ok[:, :, None, None], pq, 128)
+        blocks = torch.where(split[:, None, None], merge_quads(wrap_uint8(pq + rq)), blocks)
+    return unblockify(blocks, h, w)
+
+
+def residual_recon(qtc_full, qtc_quads, qps, pred=None, pred_quads=None, split=None, ok=None, sub_ok=None):
+    """Dequantize a frame's coefficients, and for an inter frame reconstruct it.
+
+    qtc_full: (nb, bs, bs) and, with VBS, qtc_quads (nb, 4, s, s), both
+    int16 or both int32 (None without VBS); qps: (nb,) int32 block QPs (the
+    quads take QP - 1, floored at 0).  Without ``pred`` (intra frames)
+    returns (rf (nb, bs, bs), rq (nb, 4, s, s) or None), int32:
+    ``idct2_int(rescale(...))``.  With ``pred``, the (h, w) int16 prediction
+    plane of the blocks in raster order (and with VBS ``pred_quads``, the
+    quads' plane, and ``split`` (nb,) bool): returns the (h, w) uint8
+    reconstruction, each pixel (pred + residual) mod 256 from the quads
+    where split; ``ok`` (nb,) and ``sub_ok`` (nb, 4) bool, if given, put 128
+    in place of the prediction where False.  All contiguous, on one device.
+    The kernel takes bs in {4, 8, 16}; the QPs must lie in [0, 12].
+    """
+    if not isinstance(qtc_full, torch.Tensor) or qtc_full.dim() != 3:
+        raise ValueError("residual_recon: qtc_full must be an (nb, bs, bs) tensor")
+    nb, bs = qtc_full.shape[0], qtc_full.shape[-1]
+    s = bs // 2
+    coef = (torch.int16, torch.int32)
+    want = {"qtc_full": (qtc_full, (nb, bs, bs), coef), "qps": (qps, (nb,), _I32)}
+    vbs = qtc_quads is not None
+    if vbs:
+        want["qtc_quads"] = (qtc_quads, (nb, 4, s, s), (qtc_full.dtype,))
+    if pred is not None:
+        h, w = pred.shape if pred.dim() == 2 else (0, 0)
+        if h % bs or w % bs or (h // bs) * (w // bs) != nb:
+            raise ValueError(f"residual_recon: a {tuple(pred.shape)} prediction plane does not hold {nb} blocks of "
+                             f"{bs}")
+        want["pred"] = (pred, (h, w), (torch.int16,))
+        if ok is not None:
+            want["ok"] = (ok, (nb,), _BOOL)
+        if vbs:
+            want.update(pred_quads=(pred_quads, (h, w), (torch.int16,)), split=(split, (nb,), _BOOL))
+            if sub_ok is not None:
+                want["sub_ok"] = (sub_ok, (nb, 4), _BOOL)
+    dev = qtc_full.device
+    _check_tensors("residual_recon", want, dev)
+    if dev.type == "cpu":
+        return residual_recon_plain(qtc_full, qtc_quads, qps, pred, pred_quads, split, ok, sub_ok)
+    if bs not in _TRANSFORM_SIZES:
+        raise ValueError(f"the residual_recon kernel takes bs in {_TRANSFORM_SIZES}, got {bs}")
+    from streamoptima_tpu_torch._build import library
+
+    rf = rq = out = None
+    if pred is None:
+        rf = torch.empty((nb, bs, bs), dtype=torch.int32, device=dev)
+        rq = torch.empty((nb, 4, s, s), dtype=torch.int32, device=dev) if vbs else None
+        nbc = 1
+    else:
+        out = torch.empty(pred.shape, dtype=torch.uint8, device=dev)
+        nbc = pred.shape[1] // bs
+    if nb:
+        inter_q = (pred_quads, split, sub_ok) if pred is not None and vbs else (None,) * 3
+        with torch.cuda.device(dev):
+            rc = library().so_residual_recon(qtc_full.data_ptr(), _ptr(qtc_quads), int(qtc_full.dtype == torch.int32),
+                                             qps.data_ptr(), _table("dct", bs, dev).data_ptr(),
+                                             _ptr(_table("dct", s, dev)) if vbs else None, nb, nbc, bs, _ptr(rf),
+                                             _ptr(rq), _ptr(pred), *map(_ptr, inter_q[:2]),
+                                             _ptr(ok) if pred is not None else None, _ptr(inter_q[2]), _ptr(out),
+                                             _stream(dev))
+        _launch_check(rc, "residual_recon")
+        residual_recon.launches += 1
+    return (rf, rq) if pred is None else out
+
+
+residual_recon.launches = 0
+
+
+# ------------------------------------------------ intra search
+def intra_search_plain(cur: torch.Tensor, bs: int, sr: int, canvas_w: int, vbs: bool, transpose: bool = False):
+    """Plain PyTorch version of the ``intra_search`` kernel (any device)."""
+    work = cur.to(torch.int32)
+    if transpose:
+        work = work.T
+    s = I.intra_search_mode0(work, bs, sr, canvas_w, vbs)
+    rf, rq = I.intra_residuals_mode0(work, s["mv"], bs, sr, s["sub_mv"] if vbs else None)
+    if transpose:  # each block (and quad) as the frame holds it
+        rf = rf.transpose(-1, -2)
+        rq = None if rq is None else rq.transpose(-1, -2)
+    return s, rf.contiguous(), None if rq is None else rq.contiguous()
+
+
+def intra_search(cur: torch.Tensor, bs: int, sr: int, canvas_w: int, vbs: bool, transpose: bool = False):
+    """Mode-0 intra search and residuals of the (h, w) uint8 frame ``cur``,
+    or with ``transpose`` (intra mode 1) of its transpose.
+
+    Returns (search, res_full, res_quads): ``intra.intra_search_mode0``'s
+    dict on the searched frame (mv, sad (nbr, nbc) int32; with ``vbs``
+    sub_mv, sub_sad (nbr, nbc, 4)), and ``intra.intra_residuals_mode0``'s
+    (nb, bs, bs) and (nb, 4, s, s) int32 residuals at its MVs (None without
+    ``vbs``); under ``transpose`` the blocks are numbered in the transposed
+    frame's raster order and each residual block and quad is transposed,
+    as the frame holds it.  ``canvas_w`` bounds the shifts (the searched
+    frame's width, or the compat engine's canvas).  The kernel takes bs <= 32
+    (even with ``vbs``) and 0 <= sr <= 127.  The plain version is
+    ``intra_search_plain``.
+    """
+    if not isinstance(cur, torch.Tensor) or cur.dim() != 2:
+        raise ValueError("intra_search: cur must be an (h, w) tensor")
+    h, w = cur.shape
+    _check_tensors("intra_search", {"cur": (cur, (h, w), (torch.uint8,))}, cur.device)
+    if h % bs or w % bs:
+        raise ValueError(f"intra_search: frame {h}x{w} is not a multiple of block size {bs}")
+    if cur.device.type == "cpu":
+        return intra_search_plain(cur, bs, sr, canvas_w, vbs, transpose)
+    if not 1 <= bs <= 32 or (vbs and bs % 2) or not 0 <= sr <= 127:
+        raise ValueError(f"the intra_search kernel takes 1 <= bs <= 32 (even under VBS) and 0 <= sr <= 127, got "
+                         f"bs={bs}, sr={sr}")
+    from streamoptima_tpu_torch._build import library
+
+    dev = cur.device
+    hh, ww = (w, h) if transpose else (h, w)
+    nbr, nbc = hh // bs, ww // bs
+    nb, s = nbr * nbc, bs // 2
+    i32 = {"dtype": torch.int32, "device": dev}
+    out = {"mv": torch.empty((nbr, nbc), **i32), "sad": torch.empty((nbr, nbc), **i32)}
+    if vbs:
+        out.update(sub_mv=torch.empty((nbr, nbc, 4), **i32), sub_sad=torch.empty((nbr, nbc, 4), **i32))
+    rf = torch.empty((nb, bs, bs), **i32)
+    rq = torch.empty((nb, 4, s, s), **i32) if vbs else None
+    if nb:
+        with torch.cuda.device(dev):
+            rc = library().so_intra_search(cur.data_ptr(), h, w, int(transpose), bs, sr, canvas_w, int(vbs),
+                                           out["mv"].data_ptr(), out["sad"].data_ptr(), _ptr(out.get("sub_mv")),
+                                           _ptr(out.get("sub_sad")), rf.data_ptr(), _ptr(rq), _stream(dev))
+        _launch_check(rc, "intra_search")
+        intra_search.launches += 1
+    return out, rf, rq
+
+
+intra_search.launches = 0

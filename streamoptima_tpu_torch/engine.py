@@ -18,6 +18,13 @@ transmitted MVs) come from the ``pred_fetch`` kernel in the matching mode:
 frame, in encode and decode and in either intra mode, is reconstructed by
 one launch of the ``intra_recon`` kernel (the sequential column scan).
 
+The residual coding is three kernels a frame: ``intra_search`` (an intra
+frame's search and residuals, either intra mode), ``transform_select``
+(every encoded frame's DCT, RD split, quantization and coded lengths) and
+``residual_recon`` (every encoded and decoded frame's dequantization; an
+inter frame's reconstruction from the prediction planes in the same
+launch).
+
 Fast ME (``fast_me``: a 3x3 search around the previous block's MV, chained
 in raster order) solves the chain per block row (``fast_chain``): the
 ``rowscan_pass`` kernel walks every row exactly from a guessed seed MV, and
@@ -66,14 +73,9 @@ from streamoptima_tpu_torch import rc
 from streamoptima_tpu_torch.bitstream import FrameMVArrays, FrameResArrays, widen_mvs
 from streamoptima_tpu_torch.config import CodecConfig
 from streamoptima_tpu_torch.core import fastme as FM
-from streamoptima_tpu_torch.core import intra as I
 from streamoptima_tpu_torch.core import kernels as K
-from streamoptima_tpu_torch.core import rd
-from streamoptima_tpu_torch.core.blocks import blockify, merge_quads, quads_px, split_quads, unblockify
+from streamoptima_tpu_torch.core.blocks import blockify, quads_px, split_quads
 from streamoptima_tpu_torch.core.me import block_origins, fme_parity_planes
-from streamoptima_tpu_torch.core.pred import wrap_uint8
-from streamoptima_tpu_torch.core.quant import qp_minus_1, rescale
-from streamoptima_tpu_torch.core.transform import idct2_int
 
 #: per-frame arrays that cross between this engine and the JAX engine
 STATE_KEYS = ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "recon")
@@ -97,7 +99,7 @@ def row_qps_of(cfg: CodecConfig) -> tuple[np.ndarray, np.ndarray]:
 class TorchCodec:
     """PyTorch encoder/decoder of the native engine, on an explicit ``device``."""
 
-    def __init__(self, cfg: CodecConfig, y_frames=None, *, device, rows: tuple[int, int] | None = None):
+    def __init__(self, cfg: CodecConfig, y_frames=None, *, device="cuda", rows: tuple[int, int] | None = None):
         check_slice(cfg)
         self.cfg = cfg
         self.vbs = cfg.vbs_enable
@@ -185,17 +187,11 @@ class TorchCodec:
         stack = torch.stack(refs)
         return fme_parity_planes(stack, wrap_row_pass=not initial) if self.fme else stack
 
-    def _dequant(self, qtc_full: torch.Tensor, qtc_quads: torch.Tensor, qps: torch.Tensor):
-        rf = idct2_int(rescale(qtc_full.to(torch.int32), qps))
-        if not self.vbs:
-            return rf, None
-        return rf, idct2_int(rescale(qtc_quads.to(torch.int32), qp_minus_1(qps)[:, None]))
-
     def _select(self, res_full, res_quads, sad, sub_sad, ftype: int, qps, ok=None, sub_ok=None, transposed=False):
-        return rd.transform_and_select(res_full, res_quads, sad, sub_sad, ftype, qps,
-                                       qp_nominal=int(self.cfg.qp), lam=self.cfg.lam, vbs_enable=self.vbs,
-                                       vbs_eligible=self.vbs_eligible_t if transposed else self.vbs_eligible,
-                                       bs=self.bs, sbs=self.sbs, ok_full=ok, ok_quads=sub_ok)
+        return K.transform_select(res_full, res_quads, sad, sub_sad, ftype, qps,
+                                  qp_nominal=int(self.cfg.qp), lam=self.cfg.lam, vbs_enable=self.vbs,
+                                  vbs_eligible=self.vbs_eligible_t if transposed else self.vbs_eligible,
+                                  bs=self.bs, sbs=self.sbs, ok_full=ok, ok_quads=sub_ok)
 
     def _band(self, band_row0: int) -> dict:
         """The kernels' band arguments: this instance's rows at ``band_row0``
@@ -203,28 +199,40 @@ class TorchCodec:
         return {"band_row0": band_row0, "g_row0": self.g_row0, "grid": (self.H, self.w)}
 
     def _fetch(self, mv, sub_mv, planes, band_row0: int = 0):
-        """Each block's, and under VBS each quad's, prediction at the given
-        MVs: (nb, bs, bs) and (nb, 4, s, s) int32 (None without VBS), from
-        the ``pred_fetch`` kernel in the tool set's mode."""
-        bs = self.bs
+        """Each block's, and under VBS each quad's, prediction plane at the
+        given MVs: (h, w) int16 each (the quads' None without VBS), from the
+        ``pred_fetch`` kernel in the tool set's mode."""
         band = self._band(band_row0)
         if self.vbs:
             fetch = K.pred_fetch_fme_vbs if self.fme else K.pred_fetch_vbs
-            pf, pq = fetch(mv, sub_mv, planes, bs, **band)
-            return blockify(pf, bs).to(torch.int32), quads_px(pq, bs).to(torch.int32)
-        pf = (K.pred_fetch_fme if self.fme else K.pred_fetch)(mv, planes, bs, **band)
-        return blockify(pf, bs).to(torch.int32), None
+            return fetch(mv, sub_mv, planes, self.bs, **band)
+        return (K.pred_fetch_fme if self.fme else K.pred_fetch)(mv, planes, self.bs, **band), None
 
-    def _recon_inter(self, pred_full, pred_q, split, qtc_full, qtc_quads, qps=None) -> torch.Tensor:
-        rf, rq = self._dequant(qtc_full, qtc_quads, self.qps_by_type[1] if qps is None else qps)
-        blocks = wrap_uint8(pred_full + rf)
-        if self.vbs:
-            quad_blocks = merge_quads(wrap_uint8(pred_q + rq))
-            blocks = torch.where(split[:, None, None], quad_blocks, blocks)
-        return unblockify(blocks, self.h, self.w)
+    def _pred_blocks(self, pf, pq, ok=None, sub_ok=None):
+        """The residual's predictions from the planes: (nb, bs, bs) and (nb,
+        4, s, s) int32 (None without VBS), 128 where ``ok`` / ``sub_ok`` is
+        False."""
+        pred_full = blockify(pf, self.bs).to(torch.int32)
+        if ok is not None:
+            pred_full = torch.where(ok[:, None, None], pred_full, 128)
+        if pq is None:
+            return pred_full, None
+        pred_q = quads_px(pq, self.bs).to(torch.int32)
+        if sub_ok is not None:
+            pred_q = torch.where(sub_ok[:, :, None, None], pred_q, 128)
+        return pred_full, pred_q
+
+    def _recon_inter(self, pf, pq, split, qtc_full, qtc_quads, qps=None, ok=None, sub_ok=None) -> torch.Tensor:
+        """An inter frame's (h, w) uint8 reconstruction from its prediction
+        planes (``_fetch``'s, or the whole-pel search's; 128 where ``ok`` /
+        ``sub_ok`` is False), in one ``residual_recon`` launch."""
+        return K.residual_recon(qtc_full, qtc_quads if self.vbs else None,
+                                self.qps_by_type[1] if qps is None else qps, pf, pq, split if self.vbs else None,
+                                ok, sub_ok)
 
     def _recon_intra(self, mv, split, sub_mv, qtc_full, qtc_quads, qps=None) -> torch.Tensor:
-        rf, rq = self._dequant(qtc_full, qtc_quads, self.qps_by_type[0] if qps is None else qps)
+        rf, rq = K.residual_recon(qtc_full, qtc_quads if self.vbs else None,
+                                  self.qps_by_type[0] if qps is None else qps)
         # without VBS rq is None, and the split flags and sub-MVs go unread; intra mode 1 is mode 0 on the
         # transposed frame (jax_engine.py:699-704)
         return K.intra_recon(rf, mv, self.h, self.w, self.bs, self.cfg.search_range, rq, split, sub_mv,
@@ -249,21 +257,14 @@ class TorchCodec:
         cfg = self.cfg
         qps = self.qps_by_type[0] if qps is None else qps
         mode1 = cfg.intra_mode == 1
-        work = cur.to(torch.int32)
-        if mode1:  # the search runs on the transposed frame (jax_engine.py:776-815)
-            work = work.T
+        # mode 1 searches the transposed frame (jax_engine.py:776-815); its residuals come back as the frame holds them
         canvas_w = cfg.intra_canvas[0] if mode1 else cfg.intra_canvas[1]
-        s = I.intra_search_mode0(work, self.bs, cfg.search_range, canvas_w, self.vbs)
-        sub_mv = s["sub_mv"] if self.vbs else None
-        res_full, res_quads = I.intra_residuals_mode0(work, s["mv"], self.bs, cfg.search_range, sub_mv)
-        if mode1:
-            res_full = res_full.transpose(-1, -2)
-            res_quads = None if res_quads is None else res_quads.transpose(-1, -2)
+        s, res_full, res_quads = K.intra_search(cur, self.bs, cfg.search_range, canvas_w, self.vbs, transpose=mode1)
         sub_sad = s["sub_sad"].reshape(self.nb, 4) if self.vbs else None
         sel = self._select(res_full, res_quads, s["sad"].reshape(-1), sub_sad, 0, qps, transposed=mode1)
         mv = s["mv"].reshape(-1)
-        sub_mv = sub_mv.reshape(self.nb, 4) if self.vbs else torch.zeros((self.nb, 4), dtype=torch.int32,
-                                                                          device=self.device)
+        sub_mv = s["sub_mv"].reshape(self.nb, 4) if self.vbs else torch.zeros((self.nb, 4), dtype=torch.int32,
+                                                                               device=self.device)
         recon = self._recon_intra(mv, sel[0], sub_mv, sel[1], sel[2], qps)
         # row bits sum pixel rows of blocks either way
         row_bits = sel[3].reshape(self.nbc, self.nbr).sum(dim=0) if mode1 else None
@@ -294,21 +295,17 @@ class TorchCodec:
         return out
 
     def _full_search(self, cur: torch.Tensor, planes: torch.Tensor, band_row0: int = 0):
-        """One full-search launch and the winners' predictions; blocks and
-        quads without a valid candidate take mv = (0, 0, 0) against 128s."""
+        """One full-search launch and the winners' prediction planes (``_fetch``'s
+        layout); blocks and quads without a valid candidate (``ok`` /
+        ``sub_ok`` False) take mv = (0, 0, 0) and are predicted by 128s."""
         sr, bs = self.cfg.search_range, self.bs
         if not (self.vbs or self.fme):
             s = K.full_search(cur, planes, sr, bs, **self._band(band_row0))  # returns the winners' pixels itself
-            pred_full, pred_q = blockify(s["pred"], bs).to(torch.int32), None
-        else:
-            search = {(False, True): K.full_search_vbs, (True, False): K.full_search_fme,
-                      (True, True): K.full_search_fme_vbs}[self.fme, self.vbs]
-            s = search(cur, planes, sr, bs, **self._band(band_row0))
-            pred_full, pred_q = self._fetch(s["mv"], s.get("sub_mv"), planes, band_row0)
-        pred_full = torch.where(s["ok"][:, None, None], pred_full, 128)
-        if pred_q is not None:
-            pred_q = torch.where(s["sub_ok"][:, :, None, None], pred_q, 128)
-        return s, pred_full, pred_q
+            return s, s["pred"], None
+        search = {(False, True): K.full_search_vbs, (True, False): K.full_search_fme,
+                  (True, True): K.full_search_fme_vbs}[self.fme, self.vbs]
+        s = search(cur, planes, sr, bs, **self._band(band_row0))
+        return (s, *self._fetch(s["mv"], s.get("sub_mv"), planes, band_row0))
 
     def _inter_step(self, cur: torch.Tensor, planes: torch.Tensor, g0: torch.Tensor | None = None,
                     band_row0: int = 0, qps: torch.Tensor | None = None, mvp: torch.Tensor | None = None) -> dict:
@@ -330,13 +327,16 @@ class TorchCodec:
                 s = self._fast_search_rowscan(cur, cur_blocks, planes, g0)
             # a block without a valid candidate keeps its MVP as MV (K8) and is
             # predicted at that MV like any other: no 128 mask here
-            pred_full, pred_q = self._fetch(s["mv"], s.get("sub_mv"), planes, band_row0)
+            pf, pq = self._fetch(s["mv"], s.get("sub_mv"), planes, band_row0)
+            mask = (None, None)
         else:
-            s, pred_full, pred_q = self._full_search(cur, planes, band_row0)
-        res_q = split_quads(cur_blocks) - pred_q if self.vbs else None
-        sel = self._select(cur_blocks - pred_full, res_q, s["sad"], s.get("sub_sad"), 1, qps, ok=s["ok"],
-                           sub_ok=s.get("sub_ok"))
-        recon = self._recon_inter(pred_full, pred_q, sel[0], sel[1], sel[2], qps)
+            s, pf, pq = self._full_search(cur, planes, band_row0)
+            mask = (s["ok"], s.get("sub_ok"))
+        pred_full, pred_q = self._pred_blocks(pf, pq, *mask)
+        res_q = (split_quads(cur_blocks) - pred_q).contiguous() if self.vbs else None
+        sel = self._select((cur_blocks - pred_full).contiguous(), res_q, s["sad"], s.get("sub_sad"), 1, qps,
+                           ok=s["ok"], sub_ok=s.get("sub_ok"))
+        recon = self._recon_inter(pf, pq, sel[0], sel[1], sel[2], qps, *mask)
         sub_mv = s["sub_mv"] if self.vbs else torch.zeros((self.nb, 4, 3), dtype=torch.int32, device=self.device)
         out = self._outputs(s["mv"], sub_mv, sel, recon)
         if "g_next" in s:

@@ -92,7 +92,7 @@ def ssim_torch(a: torch.Tensor, b: torch.Tensor, win_size: int = 11, data_range:
     return s.to(torch.float64).mean(dim=(-2, -1)).to(torch.float32)
 
 
-def ssim_frames(y_frames, recon_frames, win_size: int = 11, *, device) -> list[float]:
+def ssim_frames(y_frames, recon_frames, win_size: int = 11, *, device="cuda") -> list[float]:
     """Per-frame SSIM of a clip, (n, h, w) uint8 arrays or tensors, in one
     batched call on ``device`` (``ssim_frames`` of the JAX package)."""
     a, b = (f if isinstance(f, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(f))

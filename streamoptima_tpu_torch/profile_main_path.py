@@ -76,7 +76,8 @@ def _wall_ms(fn, reps: int) -> tuple[float, float, float]:
 
 #: the names of the kernels in csrc/, as the profiler lists them
 _OWN_KERNELS = ("full_search_kernel", "full_search_fme_kernel", "pred_fetch_kernel", "window_fetch_kernel",
-                "rowscan_pass_kernel", "dct_scipy_kernel", "intra_recon_kernel")
+                "rowscan_pass_kernel", "dct_scipy_kernel", "intra_recon_kernel", "transform_select_kernel",
+                "residual_recon_kernel", "intra_search_kernel")
 
 
 def _device_ms(e) -> float:

@@ -27,7 +27,7 @@ import torch
 from streamoptima_tpu_torch.engine import TorchCodec
 
 
-def time_steps(cfg, y_frames, warmup: int = 1, iters: int = 8, *, device) -> dict:
+def time_steps(cfg, y_frames, warmup: int = 1, iters: int = 8, *, device="cuda") -> dict:
     """Measure per-frame step latencies for each frame kind on ``device``.
 
     Returns {"intra_s": [...], "inter_s": [...], "decode_inter_s": [...],

@@ -59,7 +59,7 @@ def row_qp_sequence(cfg, frame_type: int = 0):
     return qps
 
 
-def measure_qp_tables(cfg, y_frames, sample_frames: int = 2, *, device):
+def measure_qp_tables(cfg, y_frames, sample_frames: int = 2, *, device="cuda"):
     """Measure per-row bitrate tables by encoding sample frames at every QP.
 
     table[frame_type][qp] = mean entropy-coded bits per block row (8 bits per

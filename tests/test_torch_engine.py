@@ -179,8 +179,13 @@ def test_two_pass_and_compat_refused():
 
 
 def test_device_is_required():
-    with pytest.raises(TypeError):
-        TorchCodec(_cfg(8))  # no default device, no auto-detection
+    """No silent CPU fallback: without ``device=`` the engine takes the card
+    ("cuda"); the CPU runs only when asked for, so without a card this raises."""
+    if torch.cuda.is_available():
+        assert TorchCodec(_cfg(8)).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            TorchCodec(_cfg(8))
 
 
 def test_corrupt_reference_index_rejected_before_launch(encoded):

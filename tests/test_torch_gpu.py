@@ -13,6 +13,7 @@ import torch
 from streamoptima_tpu_torch import CodecConfig, synthetic_clip
 from streamoptima_tpu_torch.core import kernels as K
 from streamoptima_tpu_torch.core import me as M
+from streamoptima_tpu_torch.core import quant as Q
 from streamoptima_tpu_torch.core import transform as T
 from streamoptima_tpu_torch.engine import TorchCodec
 
@@ -1373,3 +1374,244 @@ def test_intra_recon_on_card_engines_match_cpu(cuda, name, monkeypatch):
         dec = codec.decode(fts, [r for _, r in pairs], [[]] * len(fts), [m for m, _ in pairs])
     assert K.intra_recon.launches - n0 == 2 * fts.count(0)
     np.testing.assert_array_equal(torch.stack(dec).cpu().numpy(), bp["reconstructed frames"])
+
+
+# ------------------------------------------------ residual coding: transform_select, residual_recon, intra_search
+def _to(cuda, a):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+
+
+def _checkerboards(bs):
+    i, j = np.indices((bs, bs))
+    out = [np.where(((i // p) + (j // p)) % 2 == 0, 255, -255) for p in (1, 2, 4)]
+    return out + [-c for c in out] + [np.full((bs, bs), 255), np.full((bs, bs), -255), np.zeros((bs, bs), int)]
+
+
+def _select_case(cuda, rng, nb, bs):
+    """Residuals (dense, sparse, ±255 checkerboards, zero blocks), SADs with
+    INT32_MAX where no candidate is valid (``sad_masked``, the searches'
+    outputs, passed with their ok flags) or all valid (``sad``, passed
+    without), QPs in [0, 12]."""
+    s = bs // 2
+    res = rng.integers(-255, 256, (nb, bs, bs)) * (rng.random((nb, 1, 1)) < rng.random((nb, bs, bs)))
+    ch = _checkerboards(bs)
+    res[: len(ch)] = ch
+    quads = res.reshape(nb, 2, s, 2, s).swapaxes(2, 3).reshape(nb, 4, s, s).copy()
+    quads[1::3] = rng.integers(-255, 256, quads[1::3].shape)
+    ok, sub_ok = rng.random(nb) < 0.85, rng.random((nb, 4)) < 0.85
+    sad, sub_sad = rng.integers(0, 255 * bs * bs + 1, nb), rng.integers(0, 255 * s * s + 1, (nb, 4))
+    sad_m, sub_sad_m = np.where(ok, sad, 2**31 - 1), np.where(sub_ok, sub_sad, 2**31 - 1)
+    return {"res": _to(cuda, res.astype(np.int32)), "quads": _to(cuda, quads.astype(np.int32)),
+            "sad": _to(cuda, sad.astype(np.int32)), "sub_sad": _to(cuda, sub_sad.astype(np.int32)),
+            "sad_masked": _to(cuda, sad_m.astype(np.int32)), "sub_sad_masked": _to(cuda, sub_sad_m.astype(np.int32)),
+            "ok": _to(cuda, ok), "sub_ok": _to(cuda, sub_ok), "elig": _to(cuda, rng.random(nb) < 0.8),
+            "qps": _to(cuda, rng.integers(0, 13, nb).astype(np.int32))}
+
+
+def _select(fn, a, bs, vbs, qp, ft, with_ok):
+    sad, sub_sad = (a["sad_masked"], a["sub_sad_masked"]) if with_ok else (a["sad"], a["sub_sad"])
+    return fn(a["res"], a["quads"] if vbs else None, sad, sub_sad if vbs else None, ft, a["qps"],
+              qp_nominal=qp, lam=0.015, vbs_enable=vbs, vbs_eligible=a["elig"], bs=bs, sbs=bs // 2,
+              ok_full=a["ok"] if with_ok else None, ok_quads=a["sub_ok"] if with_ok and vbs else None)
+
+
+@pytest.mark.parametrize("vbs", [False, True], ids=["full", "vbs"])
+@pytest.mark.parametrize("bs", [4, 8, 16])
+@pytest.mark.parametrize("qp", [0, 4, 11])
+def test_transform_select_kernel_matches_plain(cuda, bs, vbs, qp):
+    rng = np.random.default_rng(bs * 100 + qp * 2 + vbs)
+    a = _select_case(cuda, rng, 300, bs)
+    for ft in (0, 1):
+        for with_ok in (False, True):
+            n0 = K.transform_select.launches
+            got = _select(K.transform_select, a, bs, vbs, qp, ft, with_ok)
+            torch.cuda.synchronize()
+            assert K.transform_select.launches == n0 + 1
+            want = _select(K.transform_select_plain, a, bs, vbs, qp, ft, with_ok)
+            for name, g, w in zip(("split", "qtc_full", "qtc_quads", "lens", "mae"), got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w), (name, ft, with_ok)
+
+
+def _recon_case(cuda, rng, nbr, nbc, bs, dtype):
+    nb, s = nbr * nbc, bs // 2
+    qps = rng.integers(0, 13, nb)
+    res = rng.integers(-255, 256, (nb, bs, bs))
+    ch = _checkerboards(bs)
+    res[: len(ch)], qps[: len(ch)] = ch, 0
+    r = torch.from_numpy(res.astype(np.int32))
+    qt = torch.from_numpy(qps.astype(np.int32))
+    qf = Q.quantize(T.dct2_int(r), qt)
+    qq = Q.quantize(T.dct2_int(r.reshape(nb, 2, s, 2, s).transpose(2, 3).reshape(nb, 4, s, s)), Q.qp_minus_1(qt)[:, None])
+    h, w = nbr * bs, nbc * bs
+    return {"qf": qf.to(dtype).to(cuda), "qq": qq.to(dtype).to(cuda), "qps": qt.to(cuda),
+            "pred": _to(cuda, rng.integers(0, 256, (h, w)).astype(np.int16)),
+            "pred_q": _to(cuda, rng.integers(0, 256, (h, w)).astype(np.int16)),
+            "split": _to(cuda, rng.random(nb) < 0.5), "ok": _to(cuda, rng.random(nb) < 0.8),
+            "sub_ok": _to(cuda, rng.random((nb, 4)) < 0.8)}
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("vbs", [False, True], ids=["full", "vbs"])
+@pytest.mark.parametrize("bs", [4, 8, 16])
+def test_residual_recon_kernel_matches_plain(cuda, bs, vbs, dtype):
+    rng = np.random.default_rng(bs * 10 + vbs)
+    a = _recon_case(cuda, rng, 5, 7, bs, dtype)
+    qq = a["qq"] if vbs else None
+    n0 = K.residual_recon.launches
+    got = K.residual_recon(a["qf"], qq, a["qps"])
+    torch.cuda.synchronize()
+    want = K.residual_recon_plain(a["qf"], qq, a["qps"])
+    assert torch.equal(got[0], want[0]) and (got[1] is None if not vbs else torch.equal(got[1], want[1]))
+    for with_ok in (False, True):
+        args = (a["qf"], qq, a["qps"], a["pred"], a["pred_q"] if vbs else None, a["split"] if vbs else None,
+                a["ok"] if with_ok else None, a["sub_ok"] if with_ok and vbs else None)
+        got = K.residual_recon(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.uint8 and torch.equal(got, K.residual_recon_plain(*args)), with_ok
+    assert K.residual_recon.launches == n0 + 3
+
+
+def _intra_frame(cuda, rng, kind, h, w):
+    if kind == "noise":
+        f = rng.integers(0, 256, (h, w))
+    elif kind == "flat":
+        f = np.full((h, w), 128)
+    elif kind == "checker":
+        f = np.where(np.indices((h, w)).sum(0) % 2, 255, 0)
+    else:
+        f = synthetic_clip(h, w, 1, seed=h)[0]
+    return _to(cuda, f.astype(np.uint8))
+
+
+def _intra_search_equal(cur, bs, sr, canvas, vbs, transpose):
+    n0 = K.intra_search.launches
+    got = K.intra_search(cur, bs, sr, canvas, vbs, transpose)
+    torch.cuda.synchronize()
+    assert K.intra_search.launches == n0 + 1
+    want = K.intra_search_plain(cur, bs, sr, canvas, vbs, transpose)
+    assert set(got[0]) == set(want[0])
+    for k in want[0]:
+        assert torch.equal(got[0][k], want[0][k]), k
+    assert torch.equal(got[1], want[1])
+    assert (got[2] is None and want[2] is None) or torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("vbs", [False, True], ids=["full", "vbs"])
+@pytest.mark.parametrize("bs,sr", [(bs, sr) for bs in (8, 16) for sr in (0, 1, 8, 16, 40)] + [(16, 127), (4, 3),
+                                                                                               (6, 9), (12, 20),
+                                                                                               (32, 16)])
+def test_intra_search_kernel_matches_plain(cuda, bs, sr, vbs):
+    """Both intra modes, the frame's canvas and a wider one, noise, flat
+    (every shift ties), checkerboard and smooth frames."""
+    rng = np.random.default_rng(bs * 1000 + sr + vbs)
+    h, w = 3 * bs, 5 * bs
+    for kind in ("noise", "flat", "checker", "smooth"):
+        cur = _intra_frame(cuda, rng, kind, h, w)
+        for transpose, extra in ((False, 0), (False, 40), (True, 0), (True, 17)):
+            _intra_search_equal(cur, bs, sr, (h if transpose else w) + extra, vbs, transpose)
+
+
+@pytest.mark.parametrize("transpose", [False, True], ids=["mode0", "mode1"])
+def test_residual_coding_kernels_match_plain_at_720p(cuda, transpose):
+    """The three kernels at 720p, sr = 16 with VBS, on a smooth frame: the
+    search, then the select and the dequantization on its outputs."""
+    cur = _to(cuda, synthetic_clip(720, 1280, 1, seed=7)[0])
+    _intra_search_equal(cur, 16, 16, 720 if transpose else 1280, True, transpose)
+    s, rf, rq = K.intra_search(cur, 16, 16, 720 if transpose else 1280, True, transpose)
+    nb = rf.shape[0]
+    qps = torch.full((nb,), 4, dtype=torch.int32, device=cuda)
+    elig = torch.ones(nb, dtype=torch.bool, device=cuda)
+    args = (rf, rq, s["sad"].reshape(-1), s["sub_sad"].reshape(nb, 4), 0, qps)
+    kw = dict(qp_nominal=4, lam=0.015, vbs_enable=True, vbs_eligible=elig, bs=16, sbs=8)
+    got, want = K.transform_select(*args, **kw), K.transform_select_plain(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, w in zip(K.residual_recon(got[1], got[2], qps), K.residual_recon_plain(got[1], got[2], qps)):
+        assert torch.equal(g, w)
+
+
+def test_residual_coding_wrappers_refuse_what_their_kernels_do_not_take(cuda):
+    n0 = (K.transform_select.launches, K.residual_recon.launches, K.intra_search.launches)
+    z = torch.zeros((6, 12, 12), dtype=torch.int32, device=cuda)
+    zi = torch.zeros(6, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="bs in"):
+        K.transform_select(z, None, zi, None, 1, zi, qp_nominal=4, lam=None, vbs_enable=False, vbs_eligible=None,
+                           bs=12, sbs=6)
+    with pytest.raises(ValueError, match="bs in"):
+        K.residual_recon(z, None, zi)
+    z16 = torch.zeros((6, 16, 16), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="nominal QP"):
+        K.transform_select(z16, torch.zeros((6, 4, 8, 8), dtype=torch.int32, device=cuda), zi,
+                           torch.zeros((6, 4), dtype=torch.int32, device=cuda), 1, zi, qp_nominal=4, lam=None,
+                           vbs_enable=True, vbs_eligible=torch.ones(6, dtype=torch.bool, device=cuda), bs=16, sbs=8)
+    with pytest.raises(TypeError, match="qtc_full"):
+        K.residual_recon(z16.to(torch.int64), None, zi)
+    frame = torch.zeros((32, 48), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="0 <= sr <= 127"):
+        K.intra_search(frame, 16, 128, 48, True)
+    with pytest.raises(ValueError, match="even under VBS"):
+        K.intra_search(torch.zeros((30, 45), dtype=torch.uint8, device=cuda), 15, 4, 45, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.intra_search(frame.T, 16, 8, 32, False)
+    assert (K.transform_select.launches, K.residual_recon.launches, K.intra_search.launches) == n0
+
+
+#: the plain functions the native frame steps ran before their kernels, by the modules that bind them
+_STEP_PLAINS = {
+    "transform": ("dct2_int", "idct2_int"), "quant": ("quantize", "rescale"), "zigzag": ("rle_length",),
+    "rd": ("transform_and_select", "dct2_int", "quantize", "rle_length"),
+    "intra": ("intra_search_mode0", "intra_residuals_mode0"), "kernels": ("idct2_int", "rescale"),
+}
+
+RESIDUAL_TOOLS = {
+    "whole_pel": dict(search_range=8),
+    "vbs_fme": dict(search_range=8, vbs_enable=True, fme_enable=True),
+    "fast_vbs_fme_sr16": dict(search_range=16, fast_me=True, vbs_enable=True, fme_enable=True),
+    "intra1_vbs_sr16": dict(search_range=16, intra_mode=1, vbs_enable=True),
+    "roi_rc_vbs": dict(search_range=8, vbs_enable=True, rc_flag=1, target_br="60 kbps", frame_rate=30,
+                       roi_qp_map=np.arange(24) % 5 - 2,
+                       qp_rate_tables=[[9000, 4000, 2000, 1100, 800, 600, 450, 350, 280, 230, 200, 180],
+                                       [8000, 3500, 1800, 1000, 700, 500, 400, 300, 250, 210, 190, 170]]),
+}
+
+
+@pytest.mark.parametrize("name", list(RESIDUAL_TOOLS))
+def test_residual_coding_on_card_never_calls_the_plain_functions(cuda, name, monkeypatch):
+    """An encode and a decode on the card, with the eight plain functions the
+    frame steps ran before (the int DCT pair, quantize, rescale,
+    rle_length, transform_and_select, the intra search and residuals) and
+    every ``*_plain`` patched to raise, equal the CPU port; each frame is one
+    ``transform_select`` launch, each encoded and decoded frame one
+    ``residual_recon``, each intra frame one ``intra_search``."""
+    import importlib
+
+    from streamoptima_tpu_torch.engine import frame_arrays_of
+
+    cfg = CodecConfig(height=64, width=96, frames=7, qp=4, intra_dur=3, lam=0.015, **RESIDUAL_TOOLS[name])
+    clip = synthetic_clip(64, 96, 7, seed=5)
+    b = TorchCodec(cfg, clip, device="cpu").encode(package=False)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain function ran in a frame step on the card")
+
+    for mod, names in _STEP_PLAINS.items():
+        m = importlib.import_module(f"streamoptima_tpu_torch.core.{mod}")
+        for attr in names:
+            monkeypatch.setattr(m, attr, refuse)
+    _refuse_plain(monkeypatch)
+    codec = TorchCodec(cfg, clip, device=cuda)
+    n0 = (K.transform_select.launches, K.residual_recon.launches, K.intra_search.launches)
+    a = codec.encode(package=False)
+    fts = a["frame_type_seq"]
+    assert fts == b["frame_type_seq"] == [0, 1, 1, 0, 1, 1, 0]
+    counts = (K.transform_select.launches - n0[0], K.residual_recon.launches - n0[1], K.intra_search.launches - n0[2])
+    assert counts == (7, 7, 3)
+    np.testing.assert_array_equal(a["reconstructed frames"], b["reconstructed frames"])
+    assert a["Qp_per_row_per_frame"] == b["Qp_per_row_per_frame"]
+    for fa, fb in zip(a["per_frame"], b["per_frame"]):
+        for k in ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "size", "row_bits", "mae"):
+            assert torch.equal(fa[k].cpu(), fb[k]), k
+    pairs = [frame_arrays_of(o, ft) for o, ft in zip(a["per_frame"], fts)]
+    dec = codec.decode(fts, [r for _, r in pairs], a["Qp_per_row_per_frame"], [m for m, _ in pairs])
+    assert K.residual_recon.launches - n0[1] == 14
+    np.testing.assert_array_equal(torch.stack(dec).cpu().numpy(), b["reconstructed frames"])
