@@ -46,10 +46,12 @@ from streamoptima_tpu_torch.bitstream import FrameMVArrays, FrameResArrays, _rec
 from streamoptima_tpu_torch.bitstream import widen_mvs as BS_widen
 from streamoptima_tpu_torch.core.zigzag import rle_decode_block, rle_encode_block
 from streamoptima_tpu_torch.engine import list_to_mvs_np, list_to_res_np
+from streamoptima_tpu_torch.profiling import traced
 
 MAGIC = b"SOTPB1\n"
 
 
+@traced("binstream.rle_encode")
 def _rle_encode_batch(blocks) -> tuple[np.ndarray, np.ndarray]:
     """(nblocks, n, n) -> (values i64, offsets i64) via the C++ runtime,
     Python twin as fallback."""
@@ -66,6 +68,7 @@ def _rle_encode_batch(blocks) -> tuple[np.ndarray, np.ndarray]:
     return np.asarray(vals, np.int64), np.asarray(offs, np.int64)
 
 
+@traced("binstream.rle_decode")
 def _rle_decode_batch(vals, offs, n: int) -> np.ndarray:
     nblocks = len(offs) - 1
     if nblocks == 0:
@@ -115,6 +118,7 @@ class _Reader:
         return int(v[0]) if count == 1 else v
 
 
+@traced("binstream.write")
 def write_binary(path, frame_types, mvs_per_frame, qp_rows_per_frame,
                  residuals_per_frame, cfg) -> None:
     """Write the container.  Frame structures may be the array interchange
@@ -163,6 +167,7 @@ def write_binary(path, frame_types, mvs_per_frame, qp_rows_per_frame,
             w.arr(_i16(vals_q, "coefficients"))
 
 
+@traced("binstream.read")
 def read_binary(path, cfg):
     """Read the container -> (frame_types, mvs, qps, residuals) in the array
     interchange (mvs: FrameMVArrays, residuals: FrameResArrays) — the same

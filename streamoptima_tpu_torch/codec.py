@@ -59,6 +59,7 @@ from streamoptima_tpu_torch.config import CodecConfig
 from streamoptima_tpu_torch.io.video import VideoManager
 from streamoptima_tpu_torch.engine import TorchCodec, frame_arrays_of
 from streamoptima_tpu_torch.parallel import ShardedCodec
+from streamoptima_tpu_torch.profiling import to_host, traced, tracer
 
 
 class VideoCodec:
@@ -76,13 +77,16 @@ class VideoCodec:
         self.cfg = cfg
         self.mesh = mesh
         self.device = torch.device(device) if mesh is None else mesh.devices[0, 0]
-        if mesh is not None:  # the mesh refuses what it does not run
-            self._enc = ShardedCodec(cfg, mesh, y_frames) if y_frames is not None else None
-            self._dec_mesh = self._enc or ShardedCodec(cfg, mesh)
-        else:
-            self._enc = self._engine(cfg, y_frames) if y_frames is not None else None
-            self._dec_mesh = None
-        self._dec = self._engine(cfg)
+        #: the tracer's request id of this codec's construction, encode and writes
+        self._request = tracer.new_request()
+        with tracer.request(self._request):
+            if mesh is not None:  # the mesh refuses what it does not run
+                self._enc = ShardedCodec(cfg, mesh, y_frames) if y_frames is not None else None
+                self._dec_mesh = self._enc or ShardedCodec(cfg, mesh)
+            else:
+                self._enc = self._engine(cfg, y_frames) if y_frames is not None else None
+                self._dec_mesh = None
+            self._dec = self._engine(cfg)
         self._pkg = None
         self._decoded = None
 
@@ -101,7 +105,8 @@ class VideoCodec:
         if self._enc is None:
             raise ValueError("construct with y_frames to encode")
         t0 = time.perf_counter()
-        pkg = self._enc.encode(**kw)
+        with tracer.request(self._request):
+            pkg = self._enc.encode(**kw)
         pkg.setdefault("timing", {})["total_s"] = time.perf_counter() - t0
         recon = self._enc.recon  # on the device; fetch="metrics" keeps none
         if compute_ssim and recon is not None:
@@ -111,6 +116,7 @@ class VideoCodec:
         self._pkg = pkg
         return pkg
 
+    @traced("codec.fetch")
     def _stream(self) -> tuple:
         """The last encode's (frame_types, mvs, qp_rows, residuals), for the
         writers: the array interchange of a ``package=False`` encode, else
@@ -127,13 +133,15 @@ class VideoCodec:
 
     def transmit_bitstream(self, mv_file, residual_file, raw_mv_file=None) -> None:
         """Write the two text bitstream files of the last encode."""
-        fts, mvs, qps, res = self._stream()
-        BS.write_bitstream(mv_file, residual_file, fts, mvs, qps, res, self.cfg, raw_mv_path=raw_mv_file)
+        with tracer.request(self._request):
+            fts, mvs, qps, res = self._stream()
+            BS.write_bitstream(mv_file, residual_file, fts, mvs, qps, res, self.cfg, raw_mv_path=raw_mv_file)
 
     def transmit_bitstream_binary(self, path) -> None:
         """Write the last encode as the one-file binary container
         (``binstream``, format SOTPB1)."""
-        BIN.write_binary(path, *self._stream(), self.cfg)
+        with tracer.request(self._request):
+            BIN.write_binary(path, *self._stream(), self.cfg)
 
     # ----------------------------------------------------------- decoding
     def decode(self, frame_types=None, residuals=None, qp_rows=None, mvs=None) -> np.ndarray:
@@ -147,7 +155,8 @@ class VideoCodec:
                 p["frame_type_seq"], p["approx residual"], p["Qp_per_row_per_frame"], p["MVS per Frame"])
         # a mesh shards GOP-regular streams; any other decodes on one device
         dec = self._dec_mesh if self._dec_mesh is not None and self._dec_mesh.gop_regular(frame_types) else self._dec
-        return self._finish(dec.decode(frame_types, residuals, qp_rows, mvs))
+        with tracer.request():
+            return self._finish(dec.decode(frame_types, residuals, qp_rows, mvs))
 
     def _read(self, read) -> tuple:
         """Run a bitstream reader and return ``decode``'s arguments
@@ -170,17 +179,20 @@ class VideoCodec:
 
     def decode_bitstream(self, mv_file, residual_file) -> np.ndarray:
         """File-level decode of the two text bitstream files."""
-        return self.decode(*self.parse_bitstream(mv_file, residual_file))
+        with tracer.request():
+            return self.decode(*self.parse_bitstream(mv_file, residual_file))
 
     def decode_bitstream_binary(self, path) -> np.ndarray:
         """File-level decode of the binary container (the native engine's:
         the compat engine replicates the reference, which has none)."""
         if self.cfg.compat:
             raise ValueError("the binary container requires engine='jax'")
-        return self.decode(*self._read(lambda: BIN.read_binary(path, self.cfg)))
+        with tracer.request():
+            return self.decode(*self._read(lambda: BIN.read_binary(path, self.cfg)))
 
+    @traced("codec.finish")
     def _finish(self, frames) -> np.ndarray:
-        self._decoded = torch.stack(frames).cpu().numpy()
+        self._decoded = to_host(torch.stack(frames), "finish")
         return self._decoded
 
     def save_decoded_frames(self, path, overlay_path=None) -> None:

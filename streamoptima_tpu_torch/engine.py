@@ -76,6 +76,7 @@ from streamoptima_tpu_torch.core import fastme as FM
 from streamoptima_tpu_torch.core import kernels as K
 from streamoptima_tpu_torch.core.blocks import blockify, quads_px, split_quads
 from streamoptima_tpu_torch.core.me import block_origins, fme_parity_planes
+from streamoptima_tpu_torch.profiling import host_flag, to_device, to_host, traced, tracer
 
 #: per-frame arrays that cross between this engine and the JAX engine
 STATE_KEYS = ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "recon")
@@ -99,6 +100,7 @@ def row_qps_of(cfg: CodecConfig) -> tuple[np.ndarray, np.ndarray]:
 class TorchCodec:
     """PyTorch encoder/decoder of the native engine, on an explicit ``device``."""
 
+    @traced("engine.init")
     def __init__(self, cfg: CodecConfig, y_frames=None, *, device="cuda", rows: tuple[int, int] | None = None):
         check_slice(cfg)
         self.cfg = cfg
@@ -107,7 +109,7 @@ class TorchCodec:
         self.device = torch.device(device)
         self.y = None if y_frames is None else np.asarray(y_frames, dtype=np.uint8)
         # the clip is uploaded once; frames are device slices
-        self._y_dev = None if self.y is None else torch.from_numpy(self.y).to(self.device)
+        self._y_dev = None if self.y is None else to_device(self.y, self.device, "clip")
         self.H, self.w = cfg.height, cfg.width
         # the frame rows [g_row0, g_row0 + h) this instance codes: the frame, or a mesh tile's band
         self.g_row0, r1 = (0, self.H) if rows is None else rows
@@ -198,6 +200,7 @@ class TorchCodec:
         of the references (0 for whole frames)."""
         return {"band_row0": band_row0, "g_row0": self.g_row0, "grid": (self.H, self.w)}
 
+    @traced("engine.fetch")
     def _fetch(self, mv, sub_mv, planes, band_row0: int = 0):
         """Each block's, and under VBS each quad's, prediction plane at the
         given MVs: (h, w) int16 each (the quads' None without VBS), from the
@@ -252,6 +255,7 @@ class TorchCodec:
         }
 
     # ------------------------------------------------------------- steps
+    @traced("engine.intra_step")
     def _intra_step(self, cur: torch.Tensor, qps: torch.Tensor | None = None) -> dict:
         """One intra frame at block QPs ``qps`` (default: the table rows')."""
         cfg = self.cfg
@@ -261,15 +265,17 @@ class TorchCodec:
         canvas_w = cfg.intra_canvas[0] if mode1 else cfg.intra_canvas[1]
         s, res_full, res_quads = K.intra_search(cur, self.bs, cfg.search_range, canvas_w, self.vbs, transpose=mode1)
         sub_sad = s["sub_sad"].reshape(self.nb, 4) if self.vbs else None
-        sel = self._select(res_full, res_quads, s["sad"].reshape(-1), sub_sad, 0, qps, transposed=mode1)
-        mv = s["mv"].reshape(-1)
-        sub_mv = s["sub_mv"].reshape(self.nb, 4) if self.vbs else torch.zeros((self.nb, 4), dtype=torch.int32,
-                                                                               device=self.device)
-        recon = self._recon_intra(mv, sel[0], sub_mv, sel[1], sel[2], qps)
+        with tracer.span("engine.residual"):
+            sel = self._select(res_full, res_quads, s["sad"].reshape(-1), sub_sad, 0, qps, transposed=mode1)
+            mv = s["mv"].reshape(-1)
+            sub_mv = s["sub_mv"].reshape(self.nb, 4) if self.vbs else torch.zeros((self.nb, 4), dtype=torch.int32,
+                                                                                   device=self.device)
+            recon = self._recon_intra(mv, sel[0], sub_mv, sel[1], sel[2], qps)
         # row bits sum pixel rows of blocks either way
         row_bits = sel[3].reshape(self.nbc, self.nbr).sum(dim=0) if mode1 else None
         return self._outputs(mv, sub_mv, sel, recon, row_bits)
 
+    @traced("engine.confirm")
     def _confirm(self, cur_blocks: torch.Tensor, planes: torch.Tensor, g: torch.Tensor) -> dict:
         """The fast-ME 3x3 searches around MVPs ``g`` (nb, 3), block and
         quads, from one ``window_fetch`` read of every block's region of the
@@ -307,6 +313,7 @@ class TorchCodec:
         s = search(cur, planes, sr, bs, **self._band(band_row0))
         return (s, *self._fetch(s["mv"], s.get("sub_mv"), planes, band_row0))
 
+    @traced("engine.inter_step")
     def _inter_step(self, cur: torch.Tensor, planes: torch.Tensor, g0: torch.Tensor | None = None,
                     band_row0: int = 0, qps: torch.Tensor | None = None, mvp: torch.Tensor | None = None) -> dict:
         """One inter frame against ``planes`` (``_planes`` of the references,
@@ -333,10 +340,11 @@ class TorchCodec:
             s, pf, pq = self._full_search(cur, planes, band_row0)
             mask = (s["ok"], s.get("sub_ok"))
         pred_full, pred_q = self._pred_blocks(pf, pq, *mask)
-        res_q = (split_quads(cur_blocks) - pred_q).contiguous() if self.vbs else None
-        sel = self._select((cur_blocks - pred_full).contiguous(), res_q, s["sad"], s.get("sub_sad"), 1, qps,
-                           ok=s["ok"], sub_ok=s.get("sub_ok"))
-        recon = self._recon_inter(pf, pq, sel[0], sel[1], sel[2], qps, *mask)
+        with tracer.span("engine.residual"):
+            res_q = (split_quads(cur_blocks) - pred_q).contiguous() if self.vbs else None
+            sel = self._select((cur_blocks - pred_full).contiguous(), res_q, s["sad"], s.get("sub_sad"), 1, qps,
+                               ok=s["ok"], sub_ok=s.get("sub_ok"))
+            recon = self._recon_inter(pf, pq, sel[0], sel[1], sel[2], qps, *mask)
         sub_mv = s["sub_mv"] if self.vbs else torch.zeros((self.nb, 4, 3), dtype=torch.int32, device=self.device)
         out = self._outputs(s["mv"], sub_mv, sel, recon)
         if "g_next" in s:
@@ -358,38 +366,41 @@ class TorchCodec:
         initial = True
         self.fast_me_passes = []
         promote = promotes(cfg, ftypes_fixed)
-        rqps = None if rqps is None else torch.from_numpy(rqps).to(self.device)
+        rqps = None if rqps is None else to_device(rqps, self.device, "row_qps")
         g_carry = None  # fast ME: the last inter frame's converged MVPs warm-start the next
         for i in range(cfg.frames):
-            cur = self._y_dev[i]
+            with tracer.frame(i):
+                cur = self._y_dev[i]
 
-            def qps(ftype: int) -> torch.Tensor:
-                return self.qps_by_type[ftype] if rqps is None else self._frame_qps(rqps[i], ftype)
+                def qps(ftype: int) -> torch.Tensor:
+                    return self.qps_by_type[ftype] if rqps is None else self._frame_qps(rqps[i], ftype)
 
-            intra = (i % cfg.intra_dur == 0 and cfg.parallel_mode != 1) if ftypes_fixed is None \
-                else ftypes_fixed[i] == 0
-            if intra:
-                out, ftype = self._intra_step(cur, qps(0)), 0
-            else:
-                out, ftype = self._inter_step(cur, self._planes(*self._inter_refs(refs, initial)), g_carry,
-                                              qps=qps(1)), 1
-                # scene-change promotion (jax_engine.py:959-963): one size read per inter frame
-                if promote and int(out["size"]) > cfg.intra_thresh:
+                intra = (i % cfg.intra_dur == 0 and cfg.parallel_mode != 1) if ftypes_fixed is None \
+                    else ftypes_fixed[i] == 0
+                if intra:
                     out, ftype = self._intra_step(cur, qps(0)), 0
-            g_carry = out.pop("g_next", g_carry)
-            ftypes.append(ftype)
-            if light:
-                per_frame.append({"row_bits": out["row_bits"]})
-            else:
-                out["psnr"] = metrics.psnr(cur, out["recon"])
-                per_frame.append(out)
-            if i < cfg.frames - 1:
-                if ftype == 0:
-                    refs = []
-                fifo_push(refs, out["recon"], cfg.n_ref_frames)
-                initial = False
+                else:
+                    out, ftype = self._inter_step(cur, self._planes(*self._inter_refs(refs, initial)), g_carry,
+                                                  qps=qps(1)), 1
+                    # scene-change promotion (jax_engine.py:959-963): one size read per inter frame
+                    if promote and int(to_host(out["size"], "promote_size")) > cfg.intra_thresh:
+                        out, ftype = self._intra_step(cur, qps(0)), 0
+                g_carry = out.pop("g_next", g_carry)
+                ftypes.append(ftype)
+                tracer.set("type", ftype)
+                if light:
+                    per_frame.append({"row_bits": out["row_bits"]})
+                else:
+                    out["psnr"] = metrics.psnr(cur, out["recon"])
+                    per_frame.append(out)
+                if i < cfg.frames - 1:
+                    if ftype == 0:
+                        refs = []
+                    fifo_push(refs, out["recon"], cfg.n_ref_frames)
+                    initial = False
         return per_frame, ftypes
 
+    @traced("engine.encode")
     def encode(self, package: bool = True) -> dict:
         """Encode the clip.  ``package=False`` leaves the per-frame outputs as
         device tensors under "per_frame" instead of building the list-form
@@ -405,6 +416,7 @@ class TorchCodec:
         return pkg
 
     # ------------------------------------------------------------ decode
+    @traced("engine.decode")
     def decode(self, frame_types, residuals_per_frame, qp_rows_per_frame, mvs_per_frame) -> list:
         """Decode list- or array-form interchange (the bitstream readers'
         output) into a list of (h, w) uint8 device tensors; the row QPs come
@@ -416,30 +428,33 @@ class TorchCodec:
         all_inter = cfg.parallel_mode == 1
         mv_all, smv_all, split_all, pay_all, rqp_all = pack_stream(cfg, frame_types, residuals_per_frame,
                                                                    mvs_per_frame, qp_rows_per_frame)
-        d_mv, d_split, d_pay = (torch.from_numpy(a).to(self.device) for a in (mv_all, split_all, pay_all))
-        d_smv = torch.from_numpy(smv_all).to(self.device) if self.vbs else None  # read only under VBS
-        d_rqp = torch.from_numpy(rqp_all).to(self.device) if cfg.rc_active else None
+        with tracer.span("engine.upload_stream"):
+            d_mv, d_split, d_pay = (to_device(a, self.device, "stream") for a in (mv_all, split_all, pay_all))
+            d_smv = to_device(smv_all, self.device, "stream") if self.vbs else None  # read only under VBS
+            d_rqp = to_device(rqp_all, self.device, "stream") if cfg.rc_active else None
 
         out = []
         refs = [self._plane128()]
         initial = True
         for i in range(n):
-            qf, qq = unpack_payload(d_split[i], d_pay[i], self.vbs)
-            intra = int(frame_types[i]) == 0 and not all_inter
-            ft = 0 if intra else 1
-            qps = self.qps_by_type[ft] if d_rqp is None else self._frame_qps(d_rqp[i], ft)
-            if intra:
-                f = self._recon_intra(d_mv[i, :, 0], d_split[i], d_smv[i, :, :, 0] if self.vbs else None, qf, qq,
-                                      qps)
-                refs = []
-            else:
-                pf, pq = self._fetch(d_mv[i], d_smv[i] if self.vbs else None,
-                                     self._planes(*self._inter_refs(refs, initial)))
-                f = self._recon_inter(pf, pq, d_split[i], qf, qq, qps)
-            out.append(f)
-            if i < n - 1:
-                fifo_push(refs, f, cfg.n_ref_frames)
-                initial = False
+            with tracer.frame(i):
+                qf, qq = unpack_payload(d_split[i], d_pay[i], self.vbs)
+                intra = int(frame_types[i]) == 0 and not all_inter
+                ft = 0 if intra else 1
+                tracer.set("type", ft)
+                qps = self.qps_by_type[ft] if d_rqp is None else self._frame_qps(d_rqp[i], ft)
+                if intra:
+                    f = self._recon_intra(d_mv[i, :, 0], d_split[i], d_smv[i, :, :, 0] if self.vbs else None,
+                                          qf, qq, qps)
+                    refs = []
+                else:
+                    pf, pq = self._fetch(d_mv[i], d_smv[i] if self.vbs else None,
+                                         self._planes(*self._inter_refs(refs, initial)))
+                    f = self._recon_inter(pf, pq, d_split[i], qf, qq, qps)
+                out.append(f)
+                if i < n - 1:
+                    fifo_push(refs, f, cfg.n_ref_frames)
+                    initial = False
         return out
 
 
@@ -462,7 +477,7 @@ def encode_passes(cfg: CodecConfig, row_qps_np, run_pass) -> tuple[list, list, l
     frame's type under rate control, ``[]`` per frame without it."""
     if cfg.two_pass and cfg.rc_active:
         pf1, ftypes1 = run_pass(None, None, True)
-        row_bits = torch.stack([o["row_bits"] for o in pf1]).cpu().numpy()  # the one copy
+        row_bits = to_host(torch.stack([o["row_bits"] for o in pf1]), "two_pass_bits")  # the one copy
         rqps = np.stack([rc.second_pass_row_qps(cfg, row_bits[i], t, row_qps_np[t]) for i, t in enumerate(ftypes1)])
         per_frame, ftypes = run_pass(ftypes1, rqps, False)
         return per_frame, ftypes, rqps.tolist()
@@ -492,6 +507,7 @@ class ChainTile(NamedTuple):
     fme: bool
 
 
+@traced("engine.fast_chain")
 def fast_chain(tiles: list, curs: list, planes: list, g0s: list) -> tuple[list, int]:
     """Solve one frame's fast-ME MVP chain over its tiles, top to bottom
     (``JaxCodec._fast_search_rowscan``; on a mesh ``_fast_tile_rowscan``).
@@ -525,13 +541,16 @@ def fast_chain(tiles: list, curs: list, planes: list, g0s: list) -> tuple[list, 
         passes += 1
         nxt = [torch.cat([z if t == 0 else mvs[t - 1][-1, -1:].to(e.device), m[:-1, -1]])
                for t, (e, z, m) in enumerate(zip(tiles, zeros, mvs))]
-        changed = bool(torch.stack([(a != b).any().to(e0.device) for a, b in zip(nxt, seeds)]).any())
+        changed = host_flag(torch.stack([(a != b).any().to(e0.device) for a, b in zip(nxt, seeds)]).any(),
+                            "chain_flag")
         seeds = nxt
     # each block's MVP: the MV before it in raster order, a tile's first the converged seed
     gs = [torch.cat([s[:1], m.reshape(-1, 3)[:-1]]) for s, m in zip(seeds, mvs)]
+    tracer.set("passes", passes)
     return gs, passes
 
 
+@traced("engine.package")
 def build_package(cfg: CodecConfig, per_frame: list, ftypes: list, fetch: str = "full",
                   qp_rows=None) -> tuple[dict, torch.Tensor | None]:
     """The encode package from per-frame outputs (each with "psnr" and the
@@ -542,9 +561,9 @@ def build_package(cfg: CodecConfig, per_frame: list, ftypes: list, fetch: str = 
     control ([] per frame without).  Returns the package and the
     reconstructions on their device (None under "metrics")."""
     nb = cfg.block_rows * cfg.blocks_per_row
-    stats = torch.stack([torch.stack([o["psnr"], o["mae"].mean()]) for o in per_frame]).cpu().numpy()
+    stats = to_host(torch.stack([torch.stack([o["psnr"], o["mae"].mean()]) for o in per_frame]), "package")
     recon = None if fetch == "metrics" else torch.stack([o["recon"] for o in per_frame])
-    sizes = torch.stack([o["size"] for o in per_frame]).cpu().numpy()
+    sizes = to_host(torch.stack([o["size"] for o in per_frame]), "package")
     pkg = {
         "block size": cfg.block_size,
         "num frames": cfg.frames,
@@ -556,7 +575,7 @@ def build_package(cfg: CodecConfig, per_frame: list, ftypes: list, fetch: str = 
         "frame_type_seq": ftypes,
         "Qp_per_row_per_frame": [[] for _ in ftypes] if qp_rows is None else qp_rows,
         "residual size per frame": [int(v) for v in sizes],
-        "reconstructed frames": None if recon is None else recon.cpu().numpy(),
+        "reconstructed frames": None if recon is None else to_host(recon, "package"),
     }
     if fetch == "full":
         pkg["MVS per Frame"] = [mvs_to_list(o, ft, nb) for o, ft in zip(per_frame, ftypes)]
@@ -568,6 +587,7 @@ def build_package(cfg: CodecConfig, per_frame: list, ftypes: list, fetch: str = 
     return pkg, recon
 
 
+@traced("engine.pack_stream")
 def pack_stream(cfg: CodecConfig, frame_types, residuals_per_frame, mvs_per_frame, qp_rows_per_frame=None):
     """The decoders' host pass: the clip's MVs, sub-MVs, split flags,
     coefficients and row QPs packed for one upload each, (n, nb, 3), (n, nb,
@@ -613,7 +633,7 @@ def pack_stream(cfg: CodecConfig, frame_types, residuals_per_frame, mvs_per_fram
 
 # ------------------------------------------------ interchange (module level)
 def _np(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return to_host(x, "fetch") if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def unpack_payload(sp: torch.Tensor, pay: torch.Tensor, vbs: bool):

@@ -15,10 +15,14 @@ a whole encode and a device decode of the same clip:
 
 - the host-clock median and quartiles of synchronised runs, without the
   profiler;
-- from one ``torch.profiler`` run each: the device busy time (the sum of
-  device-side events: kernels and copies), the number of device ops, the idle
-  share (1 - busy / unprofiled median), the ten largest device ops and every
-  hand-written kernel (``csrc/``) outside them.
+- from one ``torch.profiler`` run each, with the codec's tracer on
+  (``profiling.tracer``): the device busy time (the union of device-side
+  events: kernels and copies), the number of device ops, the idle share
+  (1 - busy / the profiled run's own wall on the profiler's clock), the
+  idle time by the tracer's span that was open (each gap between device
+  ops named by the innermost span covering most of it), the tracer's host
+  syncs and copied bytes, the ten largest device ops and every hand-written
+  kernel (``csrc/``) outside them.
 
 Under ``--fast`` the inter step is timed warm-started from its own converged
 MVPs, as every inter frame after a clip's first runs, and the passes per
@@ -57,6 +61,7 @@ import numpy as np
 import torch
 
 from streamoptima_tpu_torch import CodecConfig, synthetic_clip
+from streamoptima_tpu_torch.profiling import tracer
 from streamoptima_tpu_torch.compat_engine import CompatCodec
 from streamoptima_tpu_torch.engine import TorchCodec, frame_arrays_of
 
@@ -84,19 +89,87 @@ def _device_ms(e) -> float:
     return (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)) / 1e3
 
 
-def _profile(name: str, fn, median_ms: float) -> None:
-    from torch.profiler import ProfilerActivity, profile
+#: the profiled call's own range, on the profiler's clock
+_REGION = "profile_main_path.region"
+_SPAN = "streamoptima."
+
+
+def _annotation(name: str) -> bool:
+    return name == _REGION or name.startswith(_SPAN)
+
+
+def _union(intervals: list) -> list:
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _idle_by_span(gaps: list, spans: list) -> dict:
+    """Seconds of the idle ``gaps`` [(start, end)], in time order and
+    disjoint, by the innermost of the
+    ``spans`` [(name, start, end)] covering at least half of each, else the
+    span covering most of it ("outside spans" where none overlaps)."""
+    spans = sorted(spans, key=lambda sp: sp[1])
+    out: dict = {}
+    active, j = [], 0
+    for a, b in gaps:
+        while j < len(spans) and spans[j][1] < b:
+            active.append(spans[j])
+            j += 1
+        active = [sp for sp in active if sp[2] > a]
+        covers = [(min(b, e) - max(a, s), e - s, name) for name, s, e in active if min(b, e) > max(a, s)]
+        half = [c for c in covers if 2 * c[0] >= b - a]
+        label = min(half, key=lambda c: c[1])[2] if half else max(covers)[2] if covers else "outside spans"
+        out[label] = out.get(label, 0.0) + (b - a) / 1e6
+    return out
+
+
+def _profile(name: str, fn) -> None:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        fn()
-        torch.cuda.synchronize()
-    ops = [e for e in p.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA and _device_ms(e) > 0]
-    busy = sum(_device_ms(e) for e in ops)
+    tracer.reset()
+    tracer.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            with record_function(_REGION):
+                fn()
+                torch.cuda.synchronize()
+    finally:
+        tracer.disable()
+    # the profiler also lays each range on the card's timeline (user annotations): those are not device work
+    ops = [e for e in p.key_averages() if e.device_type == DeviceType.CUDA and _device_ms(e) > 0
+           and not _annotation(e.key)]
+    region, spans, device = None, [], []
+    for ev in p.events():
+        tr = ev.time_range
+        if ev.device_type == DeviceType.CPU and ev.name == _REGION:
+            region = (tr.start, tr.end)
+        elif ev.device_type == DeviceType.CPU and ev.name.startswith(_SPAN):
+            spans.append((ev.name[len(_SPAN):], tr.start, tr.end))
+        elif ev.device_type == DeviceType.CUDA and not _annotation(ev.name):
+            device.append((tr.start, tr.end))
+    r0, r1 = region
+    busy_iv = _union([(max(s, r0), min(e, r1)) for s, e in device if e > r0 and s < r1])
+    edges = [r0] + [x for iv in busy_iv for x in iv] + [r1]
+    gaps = [(a, b) for a, b in zip(edges[0::2], edges[1::2]) if b > a]
+    idle = sorted(_idle_by_span(gaps, spans).items(), key=lambda kv: -kv[1])
+    wall_ms, busy = (r1 - r0) / 1e3, sum(e - s for s, e in busy_iv) / 1e3
     print(f"== {name}: device busy {busy:.4f} ms, device ops {sum(e.count for e in ops)}, "
-          f"idle share {1 - busy / median_ms:.3f} of the unprofiled median")
+          f"idle share {1 - busy / wall_ms:.3f} of the profiled run's wall ({wall_ms:.4f} ms)")
+    print("   idle by span: " + ", ".join(f"{label} {1e3 * sec:.3f} ms" for label, sec in idle[:8]))
+    snap = tracer.snapshot()
+    frames = snap["spans"].get("engine.frame", {}).get("count", 0)
+    if frames:
+        print(f"   tracer, per frame over {frames}: host syncs {sum(snap['host_syncs'].values()) / frames:.3f} "
+              f"{snap['host_syncs']}, copied out {sum(snap['d2h_bytes'].values()) / frames / 1e6:.4f} MB, "
+              f"in {sum(snap['h2d_bytes'].values()) / frames / 1e6:.4f} MB")
     top = sorted(ops, key=_device_ms, reverse=True)
     # the ten largest, and every hand-written kernel (csrc/) among the rest
     for e in top[:10] + [e for e in top[10:] if any(k in e.key for k in _OWN_KERNELS)]:
@@ -105,13 +178,11 @@ def _profile(name: str, fn, median_ms: float) -> None:
 
 def _run_steps(steps) -> None:
     """Time each (name, fn, reps) step without the profiler, then profile it."""
-    medians = {}
     for name, fn, reps in steps:
         med, q1, q3 = _wall_ms(fn, reps)
-        medians[name] = med
         print(f"{name}: median {med:.4f} ms, quartiles {q1:.4f} / {q3:.4f} ms over {reps} runs (no profiler)")
     for name, fn, _ in steps:
-        _profile(name, fn, medians[name])
+        _profile(name, fn)
 
 
 def profile_compat(frames: int = 21, reps: int = 5) -> None:

@@ -1615,3 +1615,44 @@ def test_residual_coding_on_card_never_calls_the_plain_functions(cuda, name, mon
     dec = codec.decode(fts, [r for _, r in pairs], a["Qp_per_row_per_frame"], [m for m, _ in pairs])
     assert K.residual_recon.launches - n0[1] == 14
     np.testing.assert_array_equal(torch.stack(dec).cpu().numpy(), b["reconstructed frames"])
+
+
+def test_frame_spans_count_every_kernel_launch(cuda):
+    """The tracer's ``engine.frame`` spans: their per-kernel launch counts
+    sum, over an encode and its decode, to each wrapper's ``.launches``
+    change, and the outputs are those of an untraced encode."""
+    from collections import Counter
+
+    from streamoptima_tpu_torch import profiling
+    from streamoptima_tpu_torch.engine import frame_arrays_of
+    from streamoptima_tpu_torch.profiling import tracer
+
+    cfg = CodecConfig(height=64, width=96, frames=6, search_range=16, qp=4, intra_dur=4, lam=0.015,
+                      vbs_enable=True, fme_enable=True, fast_me=True)
+    clip = synthetic_clip(64, 96, 6, seed=3)
+    b = TorchCodec(cfg, clip, device=cuda).encode(package=False)
+    wrappers = profiling._launch_counters()
+    before = {name: fn.launches for name, fn in wrappers}
+    tracer.reset()
+    tracer.enable()
+    try:
+        codec = TorchCodec(cfg, clip, device=cuda)
+        a = codec.encode(package=False)
+        fts = a["frame_type_seq"]
+        pairs = [frame_arrays_of(o, ft) for o, ft in zip(a["per_frame"], fts)]
+        dec = codec.decode(fts, [r for _, r in pairs], a["Qp_per_row_per_frame"], [m for m, _ in pairs])
+        torch.cuda.synchronize()
+    finally:
+        tracer.disable()
+    changed = {name: fn.launches - before[name] for name, fn in wrappers if fn.launches != before[name]}
+    frames = [r[6] for r in tracer.records if r[0] == "engine.frame"]
+    tracer.reset()
+    assert len(frames) == 2 * cfg.frames
+    summed = Counter()
+    for attrs in frames:
+        summed.update(attrs["launches"])
+    assert dict(summed) == changed
+    assert {"rowscan_pass", "window_fetch", "pred_fetch_fme_vbs", "transform_select", "residual_recon",
+            "intra_search", "intra_recon"} <= set(changed)
+    np.testing.assert_array_equal(a["reconstructed frames"], b["reconstructed frames"])
+    np.testing.assert_array_equal(torch.stack(dec).cpu().numpy(), b["reconstructed frames"])
