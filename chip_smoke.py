@@ -83,8 +83,11 @@ all-gather mesh):
 ``[mesh]``'s encodes (one config, one device and the mesh) and from
 ``[mesh-rc]``'s and its single-device twin's: each pair of files is
 byte-equal, and each file decodes on one device and on the mesh to the
-reconstructions.  It says whether the C++ RLE runtime or its Python twin
-ran.  ``[dryrun]`` runs ``parallel.dryrun.dryrun_multichip(8)`` on an
+reconstructions.  Each write codes the coefficients on the card: two
+``rle_pack`` launches.  ``[rle-pack]`` (after ``[main-fast-vbs-fme]``)
+holds that kernel to its plain version on that path's 16 frames, the
+encode cell's shapes, with every block split, with none, and at a short
+capacity, and times it beside its plain version and its byte bound.  ``[dryrun]`` runs ``parallel.dryrun.dryrun_multichip(8)`` on an
 8-shard mesh of the card: the six feature sets of the JAX package's
 multi-chip dry run at 64x64, each bit for bit with one device and its
 sharded decode closed, with the launches each makes.
@@ -281,7 +284,7 @@ TOOLS = {
 KERNELS = {name: getattr(K, name) for name in (
     "full_search", "full_search_vbs", "full_search_fme", "full_search_fme_vbs", "pred_fetch", "pred_fetch_vbs",
     "pred_fetch_fme", "pred_fetch_fme_vbs", "rowscan_pass", "window_fetch", "dct_scipy", "intra_recon",
-    "transform_select", "residual_recon", "intra_search")}
+    "transform_select", "residual_recon", "intra_search", "rle_pack")}
 #: the wrappers a frame step's residual coding calls, whose real arguments the kernel phase reads off a step
 STEP_WRAPPERS = ("intra_search", "transform_select", "residual_recon", "intra_recon")
 FP64_LANES_PER_SM = 64  # Hopper: one float64 add or multiply per lane and cycle (an FMA counts two in data sheets)
@@ -852,6 +855,54 @@ def _residual_phases(dev, calls: dict, cyc: float, int_ops_per_ms: float) -> dic
     return rows
 
 
+def _rle_cost(cols: list, cap: int) -> int:
+    """``rle_pack``'s bytes: each block's split flag, MVs and the
+    coefficients of the variant it uses read once; the header, the
+    symbols and the totals written once."""
+    nbytes = 0
+    for sp, mv, smv, qf, _ in zip(*cols):
+        nb = sp.shape[0]
+        nsplit = int(sp.sum())
+        nbytes += nb * (1 + qf[0].numel() * 2 + mv.numel() // nb * 4) + nsplit * (smv.numel() // nb) * 4
+    _, s0 = K.rle_pack_layout(len(cols[0]), cols[0][0].shape[0])
+    return nbytes + 2 * (s0 + cap)
+
+
+def _rle_phase(dev, pkg: dict, cyc: float) -> dict:
+    """``[rle-pack]``: the container's coding kernel against its plain
+    version on the card, exactly, on ``[main-fast-vbs-fme]``'s 16 frames
+    (the encode cell's shapes), on a copy with every block split and one
+    with none, and at a capacity short by 5 (symbols dropped, flagged); then
+    its time, the plain version's and the bound (bytes).  Returns its row
+    without its launches."""
+    cols = [[o[k] for o in pkg["per_frame"]] for k in ("split", "mv", "sub_mv", "qtc_full", "qtc_quads")]
+    cap = sum(pkg["residual size per frame"])
+
+    def with_split(flag: bool) -> tuple:
+        sp = [torch.full_like(t, flag) for t in cols[0]]
+        plain = K.rle_pack_plain(sp, *cols[1:], 0)
+        return (sp, *cols[1:]), int(plain[: 4 * len(sp)].view(torch.int32).sum())
+
+    sets = {"segment": (tuple(cols), cap), "every block split": with_split(True),
+            "no block split": with_split(False), "short by 5": (tuple(cols), cap - 5)}
+    err = 0
+    for label, (a, c) in sets.items():
+        err = max(err, _check_equal(f"[rle-pack] {label}", K.rle_pack(*a, c), K.rle_pack_plain(*a, c)))
+    got = K.rle_pack(*cols, cap)
+    totals = got[: 4 * len(cols[0])].view(torch.int32).reshape(-1, 2).sum(1).tolist()
+    _require(totals == pkg["residual size per frame"], f"[rle-pack] totals {totals} differ from the package's sizes")
+    ms, host = _time_ms(lambda: K.rle_pack(*cols, cap), 50, cyc)
+    plain_ms, _ = _time_ms(lambda: K.rle_pack_plain(*cols, cap), 2, cyc)
+    nbytes = _rle_cost(cols, cap)
+    bound_ms, bound_by = _bound(nbytes, 0, 1.0)
+    print(f"[rle-pack] {len(cols[0])} frames 720p, {cap} symbols: {ms:.4f} ms a segment (two launches) vs plain "
+          f"{plain_ms:.4f} ms (host enqueue {host:.4f} ms per call); bound {bound_ms:.5f} ms by {bound_by} "
+          f"({nbytes} bytes); kernel == plain version on the card, bit for bit, on {list(sets)}", flush=True)
+    return {"name": "rle_pack", "route": "cuda", "source": "streamoptima_tpu_torch/csrc/rle_pack.cu",
+            "replaces": "streamoptima_tpu/native/entropy.cpp:163 (host)", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def _compat_phase(dev) -> dict:
     """The compat engine's paths, each run on the card with every kernel's
     launches counted from 0 just before it, and again on the CPU (the plain
@@ -1130,8 +1181,10 @@ def _binary_phase(dev, pairs: dict) -> None:
     after its encode.  Each writes the container; the two files are
     byte-equal, and each decodes, on one device and on the mesh, to the
     reconstructions, with one fetch per inter frame (on the mesh one per
-    tile)."""
-    rle = "the C++ RLE runtime" if native.available() else "its Python twin (the C++ library did not build)"
+    tile).  Each write codes the encode's coefficients on the card: two
+    ``rle_pack`` launches and no other kernel.  Returns the writes' ``rle_pack``
+    launches."""
+    rle_launches = 0
     with tempfile.TemporaryDirectory() as d:
         for label, (one, on_mesh, pkg) in pairs.items():
             cfg = one.cfg
@@ -1139,9 +1192,13 @@ def _binary_phase(dev, pairs: dict) -> None:
             files, write_s = [], []
             for tag, codec in (("device", one), ("mesh", on_mesh)):
                 files.append(Path(d) / f"{label}-{tag}.sob")
+                _zero_counts()
                 t0 = time.perf_counter()
                 codec.transmit_bitstream_binary(files[-1])
                 write_s.append(time.perf_counter() - t0)
+                launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
+                _require(launches == {"rle_pack": 2}, f"[binary] {label} {tag}: write launches {launches}")
+                rle_launches += 2
             _require(files[0].read_bytes() == files[1].read_bytes(),
                      f"[binary] {label}: the one-device and the mesh container differ")
             n_inter = pkg["frame_type_seq"].count(1)
@@ -1164,7 +1221,8 @@ def _binary_phase(dev, pairs: dict) -> None:
             print(f"[binary] {label}: 720p {cfg.frames} frames, SOTPB1 {files[0].stat().st_size} bytes written in "
                   f"{write_s[0]:.3f} s (one device) and {write_s[1]:.3f} s (mesh), byte-equal; decode_bitstream_binary "
                   f"of each file on one device and on the mesh == recon ({', '.join(f'{x:.3f}' for x in decodes)} s); "
-                  f"RLE by {rle}", flush=True)
+                  "coefficients coded on the card (rle_pack, two launches a write)", flush=True)
+    return rle_launches
 
 
 def _dryrun_launches(summary: dict) -> dict:
@@ -1783,6 +1841,7 @@ def main() -> None:
                                 pred_fetch=2 * N_INTER)}
     _require(sum(int(o["split"].sum()) for o in fast["main-fast-vbs-fme"]["pkg"]["per_frame"]) > 0,
              "the fast-ME VBS + FME path split no block")
+    rle_row = _rle_phase(dev, fast["main-fast-vbs-fme"]["pkg"], cyc)
     tools = {
         "main-vbs": _drive("main-vbs", TOOLS["main-vbs"], clip, dev, full_search_vbs=N_INTER,
                            pred_fetch_vbs=2 * N_INTER),
@@ -1879,8 +1938,9 @@ def main() -> None:
 
     # the binary container from [main] and [mesh]'s encodes (one config, one device and the mesh), and from
     # [mesh-rc]'s and its single-device twin's
-    _binary_phase(dev, {"main": (whole["codec"], mesh_runs["mesh"]["codec"], mesh_runs["mesh"]["pkg"]),
-                        "mesh-rc": (singles["mesh-rc"], mesh_runs["mesh-rc"]["codec"], mesh_runs["mesh-rc"]["pkg"])})
+    rle_row["launches"] = _binary_phase(
+        dev, {"main": (whole["codec"], mesh_runs["mesh"]["codec"], mesh_runs["mesh"]["pkg"]),
+              "mesh-rc": (singles["mesh-rc"], mesh_runs["mesh-rc"]["codec"], mesh_runs["mesh-rc"]["pkg"])})
 
     # the dry run: __graft_entry__.dryrun_multichip's six feature sets at 64x64 on an 8-shard mesh of the card
     _zero_counts()
@@ -1964,6 +2024,7 @@ def main() -> None:
     for name, row in residual_rows.items():
         row["launches"] = fast["main-fast-vbs-fme"]["launches"][name]
         kernels.append(row)
+    kernels.append(rle_row)  # its launches: the [binary] phase's container writes
     # the two fast-ME kernels: the FME mode's numbers, the whole-pel mode's under whole_pel_* keys
     rows = {}
     for fme, label in ((True, "main-fast-vbs-fme"), (False, "main-fast")):

@@ -128,4 +128,7 @@ def library() -> ctypes.CDLL:
     # frame, h, w, transpose, bs, sr, canvas_w, vbs, mv, sad, sub_mv, sub_sad, res_full, res_quads, stream
     lib.so_intra_search.argtypes = [p, i, i, i, i, i, i, i, *[p] * 7]
     lib.so_intra_search.restype = i
+    # table, frames, nb, n, scan_full, scan_quad, out, out elements, stream
+    lib.so_rle_pack.argtypes = [p, i, i, i, p, p, p, ctypes.c_longlong, p]
+    lib.so_rle_pack.restype = i
     return lib

@@ -1,9 +1,7 @@
 """Binary bitstream container (native extension, format "SOTPB1").
 
 The port's copy of the JAX package's ``binstream`` module: the same layout,
-byte for byte, so either package reads the other's files.  It is host code:
-numpy and the C++ RLE runtime (``native``), with the Python RLE twin in
-``core/zigzag.py`` where the library does not build.
+byte for byte, so either package reads the other's files.
 
 The reference's two text files are the parity format (bitstream.py,
 byte-exact with decoder.py:651-670); this single-file binary container is
@@ -15,6 +13,21 @@ text walk at all.  Both engines decode either format identically: the
 container stores exactly the arrays the text format round-trips (split
 flags, MVs, per-row QPs, diagonal-RLE coefficient lists), so a clip written
 as text and as binary reconstructs bit-identically.
+
+Which inputs take which route to the coded lists.  ``write_binary`` writes
+frames in the coded interchange (``CodedFrame``: split flags, MVs, the
+unsplit blocks' and the split blocks' RLE lists with their u32 offsets) as
+they are.  A ``package=False`` encode's per-frame tensors become coded
+frames by ``coded_frames_of``: one ``K.rle_pack`` over the whole clip (the
+CUDA kernel for tensors on a card, its plain PyTorch twin for CPU tensors)
+and one device-to-host copy of the packed buffer (``VideoCodec``'s
+``transmit_bitstream_binary`` takes this route).  Host arrays (the list
+interchange of ``package=True`` encodes and of the compat engine,
+``read_binary``'s and ``read_bitstream``'s array interchange) are coded on
+the host, by the C++ runtime ``native`` over int64 blocks, or its Python
+twin in ``core/zigzag.py`` where the library does not build.  The tracer's
+``rle_frames`` counter counts each route's frames (sites ``device`` and
+``host``).  Both routes give the same bytes.
 
 Layout (little-endian):
 
@@ -35,20 +48,84 @@ Layout (little-endian):
 RLE lists are the reference's diagonal-scan run-length code (core/zigzag);
 every symbol fits i16 (|qtc| <= 4080 for the orthonormal 16x16 DCT of
 +-255 residuals, run headers bounded by the block size — out-of-range
-coefficients raise at write time instead of truncating).
+MVs and coefficients raise at write time instead of truncating).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 
 from streamoptima_tpu_torch import native
 from streamoptima_tpu_torch.bitstream import FrameMVArrays, FrameResArrays, _reconcile_roi
 from streamoptima_tpu_torch.bitstream import widen_mvs as BS_widen
+from streamoptima_tpu_torch.core import kernels as K
 from streamoptima_tpu_torch.core.zigzag import rle_decode_block, rle_encode_block
 from streamoptima_tpu_torch.engine import list_to_mvs_np, list_to_res_np
-from streamoptima_tpu_torch.profiling import traced
+from streamoptima_tpu_torch.profiling import to_host, traced, tracer
 
 MAGIC = b"SOTPB1\n"
+
+
+class CodedFrame(NamedTuple):
+    """One frame in the coded interchange: the container's fields, ready to
+    write.  split (nb,) bool; mv (nb, 3) int16 (a split block's zero, an
+    intra frame's in component 0); sub_mv (n_split, 4, 3) int16, the split
+    blocks' in raster order; offs_f (n_unsplit + 1,) and offs_q (4 n_split
+    + 1,) u32 and vals_f, vals_q int16: the unsplit blocks' full-block RLE
+    lists and the split blocks' quad lists (Z order), concatenated."""
+    split: np.ndarray
+    mv: np.ndarray
+    sub_mv: np.ndarray
+    offs_f: np.ndarray
+    vals_f: np.ndarray
+    offs_q: np.ndarray
+    vals_q: np.ndarray
+
+
+def _offsets(lengths) -> np.ndarray:
+    offs = np.zeros(len(lengths) + 1, "<u4")
+    np.cumsum(lengths, out=offs[1:])
+    return offs
+
+
+def coded_frames_of(per_frame: list, frame_types, sizes) -> list:
+    """A ``package=False`` encode's per-frame tensors (``pkg["per_frame"]``)
+    -> one ``CodedFrame`` a frame: one ``K.rle_pack`` over every frame, and
+    one copy of its buffer to the host.  ``sizes``: each frame's coded
+    length (``pkg["residual size per frame"]``), which sizes the buffer
+    before the copy; a frame whose coded lists add up to another length
+    raises ``ValueError``, as does an MV outside int16."""
+    frames = len(per_frame)
+    if frames == 0:
+        return []
+    cols = [[o[k] for o in per_frame] for k in ("split", "mv", "sub_mv", "qtc_full", "qtc_quads")]
+    for ft, mv in zip(frame_types, cols[1]):
+        if (mv.dim() == 1) != (int(ft) == 0):
+            raise ValueError("an intra frame carries scalar MVs (nb,), an inter frame triples (nb, 3)")
+    nb = cols[0][0].shape[0]
+    buf = to_host(K.rle_pack(*cols, int(sum(sizes))), "fetch")
+    a, s0 = K.rle_pack_layout(frames, nb)
+    totals = buf[: 4 * frames].view("<i4").reshape(frames, 2)
+    if buf[4 * frames: a].view("<i4")[0] & 1:
+        raise ValueError("mv outside int16 range — refusing to truncate")
+    if not np.array_equal(totals.sum(1), np.asarray(sizes)):
+        raise ValueError(f"the coded lists add up to {totals.sum(1).tolist()} symbols a frame, the package's residual "
+                         f"sizes are {list(sizes)}")
+    head = buf[a:s0].reshape(frames, K.RLE_HDR * nb)
+    out, pos = [], s0
+    for f in range(frames):
+        h = head[f]
+        split = h[:nb] != 0
+        lens = h[16 * nb:].reshape(nb, 4)
+        end_f, end_q = pos + int(totals[f, 0]), pos + int(totals[f, 0]) + int(totals[f, 1])
+        out.append(CodedFrame(split, h[nb: 4 * nb], h[4 * nb: 16 * nb].reshape(nb, 4, 3)[split],
+                              _offsets(lens[~split, 0]), buf[pos:end_f], _offsets(lens[split].reshape(-1)),
+                              buf[end_f:end_q]))
+        pos = end_q
+    if tracer.on:
+        tracer.rle_frames["device"] += frames
+    return out
 
 
 @traced("binstream.rle_encode")
@@ -93,7 +170,7 @@ class _Writer:
         self.f = f
 
     def arr(self, a):
-        self.f.write(np.ascontiguousarray(a).tobytes())
+        self.f.write(np.ascontiguousarray(a).data)
 
     def u32(self, *vs):
         self.arr(np.asarray(vs, "<u4"))
@@ -118,13 +195,38 @@ class _Reader:
         return int(v[0]) if count == 1 else v
 
 
+def _code_on_host(ft: int, mvs, res, nb: int, bs: int, sbs: int) -> CodedFrame:
+    """One frame of host arrays (the list or array interchange) -> its coded
+    frame, by the host RLE (``native`` or the Python twin)."""
+    mv, split, smv = list_to_mvs_np(mvs, ft, nb)
+    qf, qq = list_to_res_np(res, nb, bs, sbs)
+    m3, s3 = BS_widen(ft, mv, smv, dtype=np.int64)
+    split = np.asarray(split, bool)
+    # canonical form = the text format's information content: a
+    # block carries EITHER its full MV or its quad MVs (the array
+    # package also holds the unchosen variant's winners; the list
+    # package zeroes them) — zero the unchosen slots so both
+    # package kinds serialize byte-identically and decode exactly
+    # like a text-parsed stream
+    m3[split] = 0
+    si = np.flatnonzero(split)
+    vals_f, offs_f = _rle_encode_batch(np.asarray(qf)[~split].astype(np.int64))
+    vals_q, offs_q = _rle_encode_batch(np.asarray(qq)[si].reshape(-1, sbs, sbs).astype(np.int64))
+    if tracer.on:
+        tracer.rle_frames["host"] += 1
+    return CodedFrame(split, _i16(m3, "mv"), _i16(s3[si], "sub_mv"), offs_f.astype("<u4"),
+                      _i16(vals_f, "coefficients"), offs_q.astype("<u4"), _i16(vals_q, "coefficients"))
+
+
 @traced("binstream.write")
 def write_binary(path, frame_types, mvs_per_frame, qp_rows_per_frame,
                  residuals_per_frame, cfg) -> None:
-    """Write the container.  Frame structures may be the array interchange
-    (FrameMVArrays / FrameResArrays — encode(package=False) via
-    engine.frame_arrays_of, or read_binary/read_bitstream output) or the
-    list format; both normalize through engine.list_to_*_np."""
+    """Write the container.  A frame's ``residuals_per_frame`` entry may be
+    a ``CodedFrame`` (``coded_frames_of``: written as it is, its MVs
+    included; its ``mvs_per_frame`` entry is not read), or host arrays in
+    the array interchange (FrameMVArrays / FrameResArrays, e.g.
+    read_binary's or read_bitstream's output) or the list interchange, both
+    normalized through engine.list_to_*_np and coded on the host."""
     nb, bs, sbs = cfg.n_blocks, cfg.block_size, cfg.sub_block_size
     n = len(frame_types)
     flags = (1 if cfg.rc_active else 0) | (2 if cfg.roi_qp_map is not None else 0)
@@ -136,35 +238,23 @@ def write_binary(path, frame_types, mvs_per_frame, qp_rows_per_frame,
             w.arr(_i16(np.asarray(cfg.roi_qp_map).reshape(-1), "roi_qp_map"))
         for i in range(n):
             ft = int(frame_types[i])
-            mv, split, smv = list_to_mvs_np(mvs_per_frame[i], ft, nb)
-            qf, qq = list_to_res_np(residuals_per_frame[i], nb, bs, sbs)
-            m3, s3 = BS_widen(ft, mv, smv, dtype=np.int64)
-            split = np.asarray(split, bool)
-            # canonical form = the text format's information content: a
-            # block carries EITHER its full MV or its quad MVs (the array
-            # package also holds the unchosen variant's winners; the list
-            # package zeroes them) — zero the unchosen slots so both
-            # package kinds serialize byte-identically and decode exactly
-            # like a text-parsed stream
-            m3[split] = 0
+            c = residuals_per_frame[i]
+            if not isinstance(c, CodedFrame):
+                c = _code_on_host(ft, mvs_per_frame[i], c, nb, bs, sbs)
             f.write(np.uint8(ft).tobytes())
-            w.arr(np.packbits(split))
-            w.arr(_i16(m3.reshape(-1), "mv"))
-            si = np.flatnonzero(split)
-            w.u32(si.size)
-            w.arr(_i16(s3[si].reshape(-1), "sub_mv"))
+            w.arr(np.packbits(c.split))
+            w.arr(c.mv)
+            w.u32(len(c.sub_mv))
+            w.arr(c.sub_mv)
             if cfg.rc_active:
                 q = np.asarray(qp_rows_per_frame[i])
                 if q.shape[0] != cfg.block_rows:
                     raise ValueError("rc stream needs one QP per block row")
                 w.arr(_i16(q, "row_qps"))
-            vals_f, offs_f = _rle_encode_batch(np.asarray(qf)[~split].astype(np.int64))
-            vals_q, offs_q = _rle_encode_batch(
-                np.asarray(qq)[si].reshape(-1, sbs, sbs).astype(np.int64))
-            w.arr(offs_f.astype("<u4"))
-            w.arr(_i16(vals_f, "coefficients"))
-            w.arr(offs_q.astype("<u4"))
-            w.arr(_i16(vals_q, "coefficients"))
+            w.arr(c.offs_f)
+            w.arr(c.vals_f)
+            w.arr(c.offs_q)
+            w.arr(c.vals_q)
 
 
 @traced("binstream.read")

@@ -13,8 +13,14 @@ Counterpart of ``streamoptima_tpu.codec.VideoCodec`` for the main path::
 
 The text bitstream is written through ``bitstream.write_bitstream`` and the
 binary container (format SOTPB1) through ``binstream.write_binary``, both
-with the array-form interchange and byte-identical to the JAX package's
-files.
+byte-identical to the JAX package's files.  After a ``package=False``
+encode the text writer gets the array interchange (the per-frame tensors
+copied to the host) and the container the coded interchange: one
+``rle_pack`` over the clip's tensors where they lie (the CUDA kernel on a
+card, its plain twin on the CPU) and one copy of the coded buffer
+(``binstream.coded_frames_of``).  After a ``package=True`` encode both get
+the list interchange, and the container's lists are coded on the host
+(``native``).
 
 ``device`` defaults to ``"cuda"``; the CPU runs only when asked for
 (``device="cpu"``).  With ``mesh=`` in place of ``device=``
@@ -117,14 +123,17 @@ class VideoCodec:
         return pkg
 
     @traced("codec.fetch")
-    def _stream(self) -> tuple:
+    def _stream(self, coded: bool = False) -> tuple:
         """The last encode's (frame_types, mvs, qp_rows, residuals), for the
-        writers: the array interchange of a ``package=False`` encode, else
-        the list interchange."""
+        writers: of a ``package=False`` encode the array interchange, or
+        with ``coded`` the coded one (``binstream.coded_frames_of``, as both
+        mvs and residuals); else the list interchange."""
         if self._pkg is None:
             raise ValueError("encode() first")
         p = self._pkg
-        if "per_frame" in p:
+        if "per_frame" in p and coded:
+            mvs = res = BIN.coded_frames_of(p["per_frame"], p["frame_type_seq"], p["residual size per frame"])
+        elif "per_frame" in p:
             pairs = [frame_arrays_of(o, ft) for o, ft in zip(p["per_frame"], p["frame_type_seq"])]
             mvs, res = [m for m, _ in pairs], [r for _, r in pairs]
         else:
@@ -139,9 +148,10 @@ class VideoCodec:
 
     def transmit_bitstream_binary(self, path) -> None:
         """Write the last encode as the one-file binary container
-        (``binstream``, format SOTPB1)."""
+        (``binstream``, format SOTPB1); a ``package=False`` encode's
+        coefficients are coded where they lie, by ``rle_pack``."""
         with tracer.request(self._request):
-            BIN.write_binary(path, *self._stream(), self.cfg)
+            BIN.write_binary(path, *self._stream(coded=True), self.cfg)
 
     # ----------------------------------------------------------- decoding
     def decode(self, frame_types=None, residuals=None, qp_rows=None, mvs=None) -> np.ndarray:

@@ -44,6 +44,11 @@
                             of its transpose (csrc/intra_search.cu; no TPU
                             kernel: intra_search_mode0 and
                             intra_residuals_mode0 in the jit).
+``rle_pack``             -- the binary container's run-length coding of a
+                            segment's chosen coefficients, with its split
+                            flags and MVs, into one buffer (csrc/rle_pack.cu;
+                            no TPU kernel: the JAX package codes them on the
+                            host, native/entropy.cpp rle_encode_blocks).
 
 The searches and fetches also take a band of the frame in place of the
 whole frame (a mesh tile's, ``parallel/mesh.py``; me_pallas's ``read_row0``,
@@ -74,7 +79,8 @@ from streamoptima_tpu_torch.core.blocks import blockify, merge_quads, quads_px, 
 from streamoptima_tpu_torch.core.pred import gather_predictions, wrap_uint8
 from streamoptima_tpu_torch.core.quant import qp_minus_1, rescale
 from streamoptima_tpu_torch.core.transform import dct2_scipy, dct_matrix_fixed, idct2_int, idct2_scipy
-from streamoptima_tpu_torch.core.zigzag import diag_scan_indices
+from streamoptima_tpu_torch.core.zigzag import diag_scan_indices, scan_indices
+from streamoptima_tpu_torch.profiling import to_device
 
 #: shared memory one block may use on Hopper (bytes)
 _SMEM_LIMIT = 232448
@@ -1061,3 +1067,155 @@ def intra_search(cur: torch.Tensor, bs: int, sr: int, canvas_w: int, vbs: bool, 
 
 
 intra_search.launches = 0
+
+
+# ------------------------------------------------ the container's run-length coding
+#: int16 a block takes in a frame's header of ``rle_pack``'s buffer: split, mv (3), sub_mv (4 x 3), lengths (4)
+RLE_HDR = 20
+
+
+def rle_pack_layout(frames: int, nb: int) -> tuple[int, int]:
+    """Where ``rle_pack``'s buffer holds the frames' headers and the symbols
+    (int16 elements): (A, S0)."""
+    a = 4 * frames + 4
+    return a, a + RLE_HDR * nb * frames
+
+
+def _rle_units(seq: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The diagonal-scan RLE of each row of ``seq`` (U, m), the coefficients
+    in scan order: (symbols (U, 2m), each row's first ``length`` entries;
+    lengths (U,) int64).  A nonzero's slot is the count of nonzeros before
+    it plus the count of run starts up to it; a run's header takes the slot
+    before its first position: -L for L nonzeros, the count of a zero run,
+    0 for the trailing one."""
+    u, m = seq.shape
+    nz = seq != 0
+    start = torch.ones_like(nz)
+    start[:, 1:] = nz[:, 1:] != nz[:, :-1]
+    nz_i, st_i = nz.to(torch.int64), start.to(torch.int64)
+    runs = st_i.cumsum(1)
+    slot = nz_i.cumsum(1) - nz_i + runs
+    run = runs - 1
+    run_len = torch.zeros_like(run).scatter_add_(1, run, torch.ones_like(run)).gather(1, run)
+    last = run == runs[:, -1:] - 1
+    head = torch.where(nz, -run_len, torch.where(last, 0, run_len))
+    rows = torch.arange(u, device=seq.device)[:, None].expand(u, m)
+    sym = torch.zeros((u, 2 * m), dtype=torch.int64, device=seq.device)
+    sym[rows[nz], slot[nz]] = seq[nz].to(torch.int64)
+    sym[rows[start], slot[start] - 1] = head[start]
+    return sym, nz_i.sum(1) + st_i.sum(1)
+
+
+def rle_pack_plain(split: list, mv: list, sub_mv: list, qtc_full: list, qtc_quads: list, cap: int) -> torch.Tensor:
+    """Plain PyTorch version of the ``rle_pack`` kernel (any device)."""
+    frames, nb = len(split), split[0].shape[0]
+    n = qtc_full[0].shape[-1]
+    s = n // 2
+    a, s0 = rle_pack_layout(frames, nb)
+    dev = split[0].device
+    sp = torch.stack(split).to(torch.bool)
+    m3 = torch.stack([torch.nn.functional.pad(t.reshape(nb, -1).to(torch.int64), (0, 3 - t.reshape(nb, -1).shape[1]))
+                      for t in mv])
+    s3 = torch.stack([torch.nn.functional.pad(t.reshape(nb, 4, -1).to(torch.int64),
+                                              (0, 3 - t.reshape(nb, 4, -1).shape[2])) for t in sub_mv])
+    m3 = torch.where(sp[..., None], 0, m3)
+    s3 = torch.where(sp[..., None, None], s3, 0)
+    bad = bool(((m3 < -32768) | (m3 > 32767)).any() or ((s3 < -32768) | (s3 > 32767)).any())
+    sym_f, len_f = _rle_units(torch.stack(qtc_full).reshape(-1, n * n)[:, scan_indices(n, dev)])
+    sym_q, len_q = _rle_units(torch.stack(qtc_quads).reshape(-1, s * s)[:, scan_indices(s, dev)])
+    len_f = torch.where(sp, 0, len_f.reshape(frames, nb))
+    len_q = torch.where(sp[..., None], len_q.reshape(frames, nb, 4), 0)
+    tf, tq = len_f.sum(1), len_q.sum((1, 2))
+    base = (tf + tq).cumsum(0) - (tf + tq) + s0
+    flat_q = len_q.reshape(frames, -1)
+    off_f = base[:, None] + len_f.cumsum(1) - len_f
+    off_q = (base + tf)[:, None] + flat_q.cumsum(1) - flat_q
+
+    out = torch.empty(s0 + cap, dtype=torch.int16, device=dev)
+    out[: 4 * frames].view(torch.int32).copy_(torch.stack([tf, tq], 1).reshape(-1))
+    hdr = out[a:s0].view(frames, RLE_HDR * nb)
+    lens = torch.where(sp[..., None], len_q, torch.nn.functional.pad(len_f[..., None], (0, 3)))
+    hdr.copy_(torch.cat([sp.to(torch.int64), m3.reshape(frames, -1), s3.reshape(frames, -1),
+                         lens.reshape(frames, -1)], 1).to(torch.int16))
+    over = False
+    for sym, length, off in ((sym_f, len_f, off_f), (sym_q, len_q, off_q)):
+        k = torch.arange(sym.shape[1], device=dev)
+        keep = k < length.reshape(-1, 1)
+        pos = off.reshape(-1, 1) + k
+        fits = keep & (pos < s0 + cap)
+        over = over or bool((keep & ~fits).any())
+        out[pos[fits]] = sym[fits].to(torch.int16)
+    out[4 * frames: a].view(torch.int32).copy_(torch.tensor([int(bad) | 2 * int(over), 0], dtype=torch.int32))
+    return out
+
+
+def rle_pack(split: list, mv: list, sub_mv: list, qtc_full: list, qtc_quads: list, cap: int) -> torch.Tensor:
+    """The binary container's coding of F frames' chosen coefficients, with
+    their split flags and MVs, into one int16 buffer.
+
+    Per frame (lists of F tensors, on one device): split (nb,) bool; mv
+    (nb,) int32 (an intra frame's scalar MVs) and sub_mv (nb, 4), or (nb, 3)
+    and (nb, 4, 3) int32; qtc_full (nb, bs, bs) and qtc_quads (nb, 4, s, s)
+    int16, s = bs / 2.  All contiguous.  A block codes the variant it uses:
+    unsplit, its full block's diagonal-scan RLE list; split, its four
+    quads', Z order (``core/zigzag.rle_encode_block``'s symbols).  ``cap``:
+    the symbols' room, the frames' coded lengths summed.  Returns the
+    buffer of S0 + cap int16 (``rle_pack_layout``):
+
+    - [0, 4F): per frame the symbol counts of its unsplit and of its split
+      blocks, two int32;
+    - [4F, A): int32 error bits, then 0: bit 0, an MV or a split block's
+      sub-MV outside int16 (stored truncated); bit 1, symbols past ``cap``
+      (dropped);
+    - [A, S0): per frame 20 nb int16: split (0 / 1), mv (nb, 3; a split
+      block's zero, an intra frame's in component 0), sub_mv (nb, 4, 3; an
+      unsplit block's zero), the unit lengths (nb, 4; unsplit (L, 0, 0, 0));
+    - [S0, S0 + cap): the symbols, frame after frame, each frame's unsplit
+      blocks' lists in raster order and then its split blocks' quad lists:
+      the container's vals_f and vals_q.
+
+    The kernel takes bs in {4, 8, 16} and at most 65535 frames: two launches
+    (the count, then the write), after a zeroing of [0, A).  The plain
+    version is ``rle_pack_plain``.
+    """
+    frames = len(split)
+    if frames == 0 or not all(len(x) == frames for x in (mv, sub_mv, qtc_full, qtc_quads)):
+        raise ValueError("rle_pack: give one split, mv, sub_mv, qtc_full and qtc_quads tensor for each of >= 1 frames")
+    if not isinstance(qtc_full[0], torch.Tensor) or qtc_full[0].dim() != 3:
+        raise ValueError("rle_pack: qtc_full must hold (nb, bs, bs) tensors")
+    nb, bs = qtc_full[0].shape[0], qtc_full[0].shape[-1]
+    s = bs // 2
+    dev = qtc_full[0].device
+    ncomp = []
+    for i in range(frames):
+        one = isinstance(mv[i], torch.Tensor) and mv[i].dim() == 1
+        ncomp.append(1 if one else 3)
+        tail = () if one else (3,)
+        _check_tensors("rle_pack", {"split": (split[i], (nb,), _BOOL), "mv": (mv[i], (nb,) + tail, _I32),
+                                    "sub_mv": (sub_mv[i], (nb, 4) + tail, _I32),
+                                    "qtc_full": (qtc_full[i], (nb, bs, bs), (torch.int16,)),
+                                    "qtc_quads": (qtc_quads[i], (nb, 4, s, s), (torch.int16,))}, dev)
+    if cap < 0:
+        raise ValueError(f"rle_pack: cap must be >= 0, got {cap}")
+    if dev.type == "cpu":
+        return rle_pack_plain(split, mv, sub_mv, qtc_full, qtc_quads, cap)
+    if bs not in _TRANSFORM_SIZES or frames > 65535:
+        raise ValueError(f"the rle_pack kernel takes bs in {_TRANSFORM_SIZES} and at most 65535 frames, got bs={bs}, "
+                         f"{frames} frames")
+    from streamoptima_tpu_torch._build import library
+
+    _, s0 = rle_pack_layout(frames, nb)
+    out = torch.empty(s0 + cap, dtype=torch.int16, device=dev)
+    table = np.array([[t.data_ptr() for t in (split[i], mv[i], sub_mv[i], qtc_full[i], qtc_quads[i])] + [ncomp[i]]
+                      for i in range(frames)], dtype=np.int64)
+    table = to_device(table, dev, "rle_table", pinned=True)  # queued behind the encode, no wait
+    with torch.cuda.device(dev):
+        rc = library().so_rle_pack(table.data_ptr(), frames, nb, bs, _table("scan", bs, dev).data_ptr(),
+                                   _table("scan", s, dev).data_ptr(), out.data_ptr(), out.numel(), _stream(dev))
+    _launch_check(rc, "rle_pack")
+    rle_pack.launches += 2
+    return out
+
+
+#: kernel launches: two a call (the count and the write)
+rle_pack.launches = 0

@@ -9,6 +9,13 @@ name that carries a hash of the source and flags.  Every caller handles
 ``available() == False`` and falls back to the Python twins in
 ``core/zigzag.py`` / ``bitstream.py``: the output is byte-identical either
 way.
+
+The binary container's RLE (``rle_encode_blocks``) runs here for host
+arrays only: the list package of a ``package=True`` encode, the compat
+engine's, and streams read back by ``read_binary`` or ``read_bitstream``.
+A ``package=False`` encode's tensors are coded where they lie by the
+``rle_pack`` kernel (``core/kernels.py``, ``binstream.coded_frames_of``),
+which writes the same lists.
 """
 from __future__ import annotations
 

@@ -60,12 +60,17 @@ reached pageable host memory).  The read sites are ``chain_flag`` (fast
 ME's convergence flag, one a pass), ``promote_size`` (scene-change
 promotion's size read), ``package`` (the package's three copies),
 ``fetch`` (the per-frame arrays), ``two_pass_bits`` and ``finish``; the
-upload sites ``clip``, ``stream`` and ``row_qps``.  The helpers count on
-the CPU too.
+upload sites ``clip``, ``stream``, ``row_qps`` and ``rle_table`` (the
+``rle_pack`` kernel's table of the frames' tensors).  The helpers count on
+the CPU too.  ``rle_frames``, by site, counts the frames the binary
+container's writer codes: ``device``, the frames of a package's tensors
+coded by ``rle_pack`` (the kernel on a card, its plain twin on the CPU),
+and ``host``, the frames of host arrays coded by ``native`` (or its Python
+twin).
 
 ``tracer.snapshot()`` returns {"spans": {name: {"seconds", "count"}},
-"host_syncs", "d2h_bytes", "h2d_bytes": {site: count}, "pageable_bytes":
-{"d2h", "h2d"}}; ``tracer.reset()`` empties the spans and the counters;
+"host_syncs", "d2h_bytes", "h2d_bytes", "rle_frames": {site: count},
+"pageable_bytes": {"d2h", "h2d"}}; ``tracer.reset()`` empties the spans and the counters;
 ``tracer.write(path)`` writes the spans with their attributes and the
 snapshot as JSON.  The codec's outputs are the same with the tracer on or
 off.
@@ -208,6 +213,7 @@ class Tracer:
         self.d2h_bytes: Counter = Counter()
         self.h2d_bytes: Counter = Counter()
         self.pageable_bytes: Counter = Counter()
+        self.rle_frames: Counter = Counter()
 
     def new_request(self) -> int:
         """A fresh request id."""
@@ -250,7 +256,8 @@ class Tracer:
             s["seconds"] += (t1 - t0) / 1e9
             s["count"] += 1
         return {"spans": spans, "host_syncs": dict(self.host_syncs), "d2h_bytes": dict(self.d2h_bytes),
-                "h2d_bytes": dict(self.h2d_bytes), "pageable_bytes": dict(self.pageable_bytes)}
+                "h2d_bytes": dict(self.h2d_bytes), "pageable_bytes": dict(self.pageable_bytes),
+                "rle_frames": dict(self.rle_frames)}
 
     def write(self, path, first_id: int = 0) -> None:
         """Write the spans from id ``first_id`` on, with their attributes, and
@@ -311,12 +318,16 @@ def host_flag(t: torch.Tensor, site: str) -> bool:
     return flag
 
 
-def to_device(a: np.ndarray, device, site: str) -> torch.Tensor:
-    """``torch.from_numpy(a).to(device)``; with the tracer on, its bytes
-    counted at ``site`` (numpy's memory is pageable)."""
+def to_device(a: np.ndarray, device, site: str, pinned: bool = False) -> torch.Tensor:
+    """``torch.from_numpy(a).to(device)``, or with ``pinned`` (a CUDA
+    device) staged in pinned memory and copied without waiting for the
+    device's queue (the caching host allocator holds the stage until the
+    copy has run); with the tracer on, its bytes counted at ``site``
+    (pageable unless ``pinned``)."""
     if tracer.on:
-        _count(tracer.h2d_bytes, "h2d", site, a.nbytes, False)
-    return torch.from_numpy(a).to(device)
+        _count(tracer.h2d_bytes, "h2d", site, a.nbytes, pinned)
+    t = torch.from_numpy(a)
+    return t.pin_memory().to(device, non_blocking=True) if pinned else t.to(device)
 
 
 def time_steps(cfg, y_frames, warmup: int = 1, iters: int = 8, *, device="cuda") -> dict:

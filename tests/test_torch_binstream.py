@@ -232,16 +232,21 @@ def test_rle_bindings_match_jax_package_and_python_twin():
 
 
 def test_python_fallback_writes_and_reads_the_same_bytes(tmp_path, monkeypatch):
-    """Without the C++ library the container falls back to the Python RLE
-    twin: the same file, and the same decode."""
+    """Without the C++ library the host route (a list package) falls back to
+    the Python RLE twin: the same file as the C++ runtime's and as the coded
+    route's (a package=False encode's tensors), and the same decode."""
     y = synthetic_clip(64, 96, 4)
     cfg = _cfg(frames=4, vbs_enable=True, **RC)
     v = _codec(cfg, y)
-    pkg = v.encode(package=False)
+    pkg = v.encode(package=True)
     v.transmit_bitstream_binary(tmp_path / "native.sob")
+    coded = _codec(dataclasses.replace(cfg), y)
+    coded.encode(package=False)
+    coded.transmit_bitstream_binary(tmp_path / "coded.sob")
     monkeypatch.setattr(native, "rle_encode_blocks", lambda blocks: None)
     monkeypatch.setattr(native, "rle_decode_blocks", lambda vals, offs, n: None)
     v.transmit_bitstream_binary(tmp_path / "python.sob")
     assert (tmp_path / "python.sob").read_bytes() == (tmp_path / "native.sob").read_bytes()
+    assert (tmp_path / "coded.sob").read_bytes() == (tmp_path / "native.sob").read_bytes()
     dec = _codec(dataclasses.replace(cfg)).decode_bitstream_binary(tmp_path / "native.sob")
     np.testing.assert_array_equal(dec, pkg["reconstructed frames"])

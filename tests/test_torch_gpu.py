@@ -1656,3 +1656,124 @@ def test_frame_spans_count_every_kernel_launch(cuda):
             "intra_search", "intra_recon"} <= set(changed)
     np.testing.assert_array_equal(a["reconstructed frames"], b["reconstructed frames"])
     np.testing.assert_array_equal(torch.stack(dec).cpu().numpy(), b["reconstructed frames"])
+
+
+# --------------------------------------------- the container's run-length coding (rle_pack)
+def _rle_cols(pkg: dict) -> list:
+    return [[o[k] for o in pkg["per_frame"]] for k in ("split", "mv", "sub_mv", "qtc_full", "qtc_quads")]
+
+
+def _rle_equal(cols: list, cap: int) -> torch.Tensor:
+    """The kernel's buffer against the plain version's on the same device tensors, exactly."""
+    n0 = K.rle_pack.launches
+    got = K.rle_pack(*cols, cap)
+    torch.cuda.synchronize()
+    assert K.rle_pack.launches == n0 + 2
+    assert torch.equal(got, K.rle_pack_plain(*cols, cap))
+    return got
+
+
+@pytest.fixture(scope="module")
+def segment_720p():
+    """A 720p fast ME + VBS + FME segment of 16 frames, encoded on the card (package=False)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = CodecConfig(height=720, width=1280, frames=16, search_range=16, qp=4, intra_dur=8, lam=0.015,
+                      vbs_enable=True, fme_enable=True, fast_me=True)
+    from streamoptima_tpu_torch import VideoCodec
+
+    codec = VideoCodec(cfg, synthetic_clip(720, 1280, 16, seed=18), device="cuda")
+    pkg = codec.encode(compute_ssim=False, package=False)
+    return cfg, codec, pkg
+
+
+def test_rle_pack_kernel_matches_plain_on_a_720p_segment(cuda, segment_720p):
+    cfg, _, pkg = segment_720p
+    cols = _rle_cols(pkg)
+    assert any(int(s.sum()) for s in cols[0]) and not all(bool(s.all()) for s in cols[0])
+    got = _rle_equal(cols, sum(pkg["residual size per frame"])).cpu().numpy()
+    totals = got[: 4 * cfg.frames].view(np.int32).reshape(-1, 2).sum(1)
+    assert totals.tolist() == pkg["residual size per frame"]
+
+
+@pytest.mark.parametrize("n,nb", [(16, 3600), (16, 70), (8, 130), (4, 67)])
+def test_rle_pack_kernel_matches_plain_at_extremes(cuda, n, nb):
+    """Zero, all-nonzero, alternating, +-4080 and random blocks, no, every and
+    some blocks split, scalar and triple MVs, MVs outside int16, a capacity
+    both exact and short (dropped symbols, bit 1)."""
+    rng = np.random.default_rng(n * nb)
+    s = n // 2
+    from streamoptima_tpu_torch.core.zigzag import diag_scan_indices
+
+    alt = np.zeros(n * n, np.int64)
+    alt[diag_scan_indices(n)[::2]] = -3
+    kinds = {"zero": lambda shape: np.zeros(shape, np.int64),
+             "nonzero": lambda shape: rng.choice([-1, 1], shape) * rng.integers(1, 4081, shape),
+             "alternating": lambda shape: (np.broadcast_to(alt.reshape(n, n), (shape[0], n, n)).reshape(-1)[
+                 : int(np.prod(shape))].reshape(shape)),
+             "extremes": lambda shape: rng.choice([-4080, 0, 4080], shape),
+             "random": lambda shape: np.where(rng.random(shape) < rng.random(), rng.integers(-4080, 4081, shape), 0)}
+    cols = [[] for _ in range(5)]
+    for i, (kind, make) in enumerate(kinds.items()):
+        split = [np.zeros(nb, bool), np.ones(nb, bool), rng.random(nb) < 0.5][i % 3]
+        tail = () if i == 0 else (3,)
+        mv = rng.integers(-40000, 40001, (nb,) + tail) if kind == "extremes" else rng.integers(-40, 41, (nb,) + tail)
+        for c, a in enumerate((split, mv.astype(np.int32), rng.integers(-40, 41, (nb, 4) + tail).astype(np.int32),
+                               make((nb, n, n)).astype(np.int16), make((nb, 4, s, s)).astype(np.int16))):
+            cols[c].append(torch.from_numpy(np.ascontiguousarray(a)).to(cuda))
+    plain = K.rle_pack_plain(*cols, 0)
+    a, _ = K.rle_pack_layout(len(kinds), nb)
+    cap = int(plain[: 4 * len(kinds)].view(torch.int32).sum())
+    got = _rle_equal(cols, cap)
+    assert int(got[4 * len(kinds): a].view(torch.int32)[0]) == 1  # the unsplit extremes frame's MVs pass int16
+    short = _rle_equal(cols, cap - 7)
+    assert int(short[4 * len(kinds): a].view(torch.int32)[0]) == 3
+    assert torch.equal(short[a:], got[a: got.numel() - 7]) and torch.equal(short[: 4 * len(kinds)],
+                                                                          got[: 4 * len(kinds)])
+
+
+def test_rle_pack_wrapper_raises_instead_of_falling_back(cuda):
+    nb = 6
+    cols = [[torch.zeros(nb, dtype=torch.bool, device=cuda)], [torch.zeros((nb, 3), dtype=torch.int32, device=cuda)],
+            [torch.zeros((nb, 4, 3), dtype=torch.int32, device=cuda)],
+            [torch.zeros((nb, 16, 16), dtype=torch.int16, device=cuda)],
+            [torch.zeros((nb, 4, 8, 8), dtype=torch.int16, device=cuda)]]
+    K.rle_pack(*cols, nb)
+    with pytest.raises(TypeError):
+        K.rle_pack(*cols[:3], [cols[3][0].to(torch.int32)], cols[4], nb)
+    with pytest.raises(ValueError):  # one frame's tensors on two devices
+        K.rle_pack(*cols[:4], [cols[4][0].cpu()], nb)
+    with pytest.raises(ValueError):  # a block size the kernel does not take
+        K.rle_pack(*cols[:3], [torch.zeros((nb, 6, 6), dtype=torch.int16, device=cuda)],
+                   [torch.zeros((nb, 4, 3, 3), dtype=torch.int16, device=cuda)], nb)
+
+
+def test_container_write_codes_on_the_card_in_one_copy(cuda, segment_720p, tmp_path):
+    """One ``transmit_bitstream_binary`` of a ``package=False`` encode: two
+    ``rle_pack`` launches, every frame coded on the card, one device-to-host
+    copy; the file equals the host route's (the list package's)."""
+    from streamoptima_tpu_torch import VideoCodec
+    from streamoptima_tpu_torch.profiling import tracer
+
+    cfg, codec, pkg = segment_720p
+    n0 = K.rle_pack.launches
+    tracer.reset()
+    tracer.enable()
+    try:
+        codec.transmit_bitstream_binary(tmp_path / "card.sob")
+    finally:
+        tracer.disable()
+    snap = tracer.snapshot()
+    tracer.reset()
+    assert K.rle_pack.launches == n0 + 2
+    assert snap["rle_frames"] == {"device": cfg.frames}
+    assert snap["host_syncs"] == {"fetch": 1} and snap["host_syncs"]["fetch"] <= 2
+    _, s0 = K.rle_pack_layout(cfg.frames, cfg.n_blocks)
+    assert snap["d2h_bytes"]["fetch"] == 2 * (s0 + sum(pkg["residual size per frame"]))
+    host = VideoCodec(cfg, synthetic_clip(720, 1280, 16, seed=18), device=cuda)
+    host.encode(compute_ssim=False)
+    host.transmit_bitstream_binary(tmp_path / "host.sob")
+    assert K.rle_pack.launches == n0 + 2
+    assert (tmp_path / "card.sob").read_bytes() == (tmp_path / "host.sob").read_bytes()
+    dec = VideoCodec(cfg, device=cuda).decode_bitstream_binary(tmp_path / "card.sob")
+    np.testing.assert_array_equal(dec, pkg["reconstructed frames"])

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from streamoptima_tpu_torch import CodecConfig, VideoCodec, binstream, profiling, synthetic_clip
+from streamoptima_tpu_torch.core import kernels as K
 from streamoptima_tpu_torch.engine import pack_stream
 from streamoptima_tpu_torch.profile_main_path import _idle_by_span, _union
 from streamoptima_tpu_torch.profiling import host_flag, to_device, to_host, tracer
@@ -58,7 +59,7 @@ def test_off_records_nothing(clip, tmp_path):
     _round_trip(clip, tmp_path / "c.sob")
     snap = tracer.snapshot()
     assert tracer.records == [] and snap == {"spans": {}, "host_syncs": {}, "d2h_bytes": {}, "h2d_bytes": {},
-                                             "pageable_bytes": {}}
+                                             "pageable_bytes": {}, "rle_frames": {}}
 
 
 @pytest.mark.parametrize("on", [False, True])
@@ -157,12 +158,14 @@ def test_sync_counters_equal_the_copies(clip, tmp_path):
     tracer.reset()
     enc.transmit_bitstream_binary(tmp_path / "c.sob")
     snap = tracer.snapshot()
-    keys = ("split", "mv", "sub_mv", "qtc_full", "qtc_quads")
-    tensors = [o[k] for o in pkg["per_frame"] for k in keys]
-    assert snap["host_syncs"] == {"fetch": len(tensors)}
-    assert snap["d2h_bytes"] == {"fetch": sum(t.numel() * t.element_size() for t in tensors)}
+    # the container's coefficients are coded by rle_pack where they lie: one copy of its buffer
+    _, s0 = K.rle_pack_layout(CFG.frames, CFG.n_blocks)
+    assert snap["host_syncs"] == {"fetch": 1}
+    assert snap["d2h_bytes"] == {"fetch": 2 * (s0 + sum(pkg["residual size per frame"]))}
     assert snap["pageable_bytes"] == {"d2h": snap["d2h_bytes"]["fetch"]}
+    assert snap["rle_frames"] == {"device": CFG.frames}
     assert snap["spans"]["codec.fetch"]["count"] == 1 and snap["spans"]["binstream.write"]["count"] == 1
+    assert "binstream.rle_encode" not in snap["spans"]
 
 
 def test_upload_counter_equals_the_packed_stream(clip, tmp_path):
