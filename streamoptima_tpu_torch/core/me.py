@@ -15,9 +15,12 @@ dy_index), packed as the int32 secondary key
 ``0 <= x+dx < W - bs`` and ``0 <= y+dy < H - bs`` (the reference's strict
 off-by-one), under FME also ``0 <= x+dx+2bs < W - bs`` (same for y,
 Encoder.py:698), with x, y, W, H in grid units.  No valid candidate gives
-mv = (0, 0, 0) and SAD = INT32_MAX.
+mv = (0, 0, 0) and SAD = INT32_MAX.  ``valid_candidates`` counts those
+candidates from the shapes alone (the tracer's ``search_positions``).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -97,20 +100,43 @@ def sad_maps(cur: torch.Tensor, ref: torch.Tensor, sr: int, bs: int, stride: int
     return torch.stack(out).to(torch.int32)
 
 
+def axis_valid(origins: torch.Tensor, sr: int, bs: int, D: int, fme: bool = False) -> torch.Tensor:
+    """Validity of each displacement along one axis of D grid units: (nd, n)
+    bool for (n,) origins in grid units (doubled under FME)."""
+    d = torch.arange(-sr, sr + 1, device=origins.device)
+    p = origins[None, :] + d[:, None]
+    ok = (p >= 0) & (p < D - bs)
+    if fme:
+        ok &= (p + 2 * bs >= 0) & (p + 2 * bs < D - bs)
+    return ok
+
+
 def candidate_valid_mask(bx: torch.Tensor, by: torch.Tensor, sr: int, bs: int, H: int, W: int,
                          fme: bool = False) -> torch.Tensor:
     """Validity of each displacement for each block: (ndy, ndx, nb) bool.
 
     bx, by: (nb,) block origins in grid units (doubled under FME)."""
-    d = torch.arange(-sr, sr + 1, device=bx.device)
-    px = bx[None, :] + d[:, None]
-    py = by[None, :] + d[:, None]
-    okx = (px >= 0) & (px < W - bs)
-    oky = (py >= 0) & (py < H - bs)
-    if fme:
-        okx &= (px + 2 * bs >= 0) & (px + 2 * bs < W - bs)
-        oky &= (py + 2 * bs >= 0) & (py + 2 * bs < H - bs)
-    return oky[:, None, :] & okx[None, :, :]
+    return axis_valid(by, sr, bs, H, fme)[:, None, :] & axis_valid(bx, sr, bs, W, fme)[None, :, :]
+
+
+@functools.lru_cache(maxsize=None)
+def valid_candidates(h: int, w: int, bs: int, sr: int, *, fme: bool, vbs: bool, row0: int = 0,
+                     H: int | None = None) -> int:
+    """The candidates a full search can pick, summed over the blocks of frame
+    rows [row0, row0 + h) of an H-row frame (H = h by default): those valid
+    for the block or, with VBS, for one of its quads.  The test is one of
+    rows times one of columns and the quads are the block's halves on each
+    axis, so this is a product of two per-axis sums: no (candidates x
+    blocks) mask is built."""
+    H = h if H is None else H
+    f = 2 if fme else 1  # the half-pel grid doubles origins and range
+
+    def axis(origins: torch.Tensor, D: int) -> int:
+        subs = [(origins, bs)] + ([(origins, bs // 2), (origins + bs // 2, bs // 2)] if vbs else [])
+        ok = torch.stack([axis_valid(f * o, f * sr, n, f * (D - 1) + 1, fme) for o, n in subs])
+        return int(ok.any(dim=0).sum())
+
+    return axis(torch.arange(row0, row0 + h, bs), H) * axis(torch.arange(0, w, bs), w)
 
 
 def secondary_keys(nref: int, sr: int, device) -> torch.Tensor:

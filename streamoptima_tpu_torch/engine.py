@@ -75,7 +75,7 @@ from streamoptima_tpu_torch.config import CodecConfig
 from streamoptima_tpu_torch.core import fastme as FM
 from streamoptima_tpu_torch.core import kernels as K
 from streamoptima_tpu_torch.core.blocks import blockify, quads_px, split_quads
-from streamoptima_tpu_torch.core.me import block_origins, fme_parity_planes
+from streamoptima_tpu_torch.core.me import block_origins, fme_parity_planes, valid_candidates
 from streamoptima_tpu_torch.profiling import host_flag, to_device, to_host, traced, tracer
 
 #: per-frame arrays that cross between this engine and the JAX engine
@@ -305,13 +305,17 @@ class TorchCodec:
         layout); blocks and quads without a valid candidate (``ok`` /
         ``sub_ok`` False) take mv = (0, 0, 0) and are predicted by 128s."""
         sr, bs = self.cfg.search_range, self.bs
-        if not (self.vbs or self.fme):
-            s = K.full_search(cur, planes, sr, bs, **self._band(band_row0))  # returns the winners' pixels itself
-            return s, s["pred"], None
-        search = {(False, True): K.full_search_vbs, (True, False): K.full_search_fme,
+        search = {(False, False): K.full_search, (False, True): K.full_search_vbs, (True, False): K.full_search_fme,
                   (True, True): K.full_search_fme_vbs}[self.fme, self.vbs]
-        s = search(cur, planes, sr, bs, **self._band(band_row0))
-        return (s, *self._fetch(s["mv"], s.get("sub_mv"), planes, band_row0))
+        with tracer.span("engine.search"):
+            if tracer.on:  # from the shapes alone: no sync
+                tracer.set("refs", planes.shape[0])
+                tracer.search_positions[search.__name__] += planes.shape[0] * valid_candidates(
+                    self.h, self.w, bs, sr, fme=self.fme, vbs=self.vbs, row0=self.g_row0, H=self.H)
+            s = search(cur, planes, sr, bs, **self._band(band_row0))
+            if search is K.full_search:  # returns the winners' pixels itself
+                return s, s["pred"], None
+            return (s, *self._fetch(s["mv"], s.get("sub_mv"), planes, band_row0))
 
     @traced("engine.inter_step")
     def _inter_step(self, cur: torch.Tensor, planes: torch.Tensor, g0: torch.Tensor | None = None,

@@ -41,9 +41,10 @@ Spans (``engine`` is ``TorchCodec``, ``codec`` the ``VideoCodec`` facade):
   hand-written kernel's launches in the frame (the change of its wrapper's
   ``.launches`` counter; kernels run only on a card);
 - ``engine.intra_step``, ``engine.inter_step``; in them ``engine.fast_chain``
-  (attribute ``passes``), ``engine.confirm``, ``engine.fetch`` (the
-  prediction planes) and ``engine.residual`` (transform, selection and
-  reconstruction);
+  (attribute ``passes``), ``engine.confirm``, ``engine.search`` (a full
+  search's launch and its winners' fetch; attribute ``refs``, the
+  references searched), ``engine.fetch`` (the prediction planes) and
+  ``engine.residual`` (transform, selection and reconstruction);
 - ``engine.package`` (``build_package``), ``engine.pack_stream`` and
   ``engine.upload_stream`` (the decode's host pass and its uploads);
 - ``codec.fetch`` (the last encode's per-frame arrays, copied to the host
@@ -66,11 +67,18 @@ the CPU too.  ``rle_frames``, by site, counts the frames the binary
 container's writer codes: ``device``, the frames of a package's tensors
 coded by ``rle_pack`` (the kernel on a card, its plain twin on the CPU),
 and ``host``, the frames of host arrays coded by ``native`` (or its Python
-twin).
+twin).  ``search_positions``, by search wrapper (``full_search``,
+``full_search_vbs``, ``full_search_fme``, ``full_search_fme_vbs``), counts
+the candidates a full search can pick, per block and reference: those of
+the (2r + 1)^2 positions (r the search range on the whole-pel grid, twice it
+on the half-pel grid) that the search's bounds make valid for the block or,
+with VBS, for one of its quads (``core.me.valid_candidates``, from the
+shapes: no sync), summed over the blocks and the references searched.
 
 ``tracer.snapshot()`` returns {"spans": {name: {"seconds", "count"}},
 "host_syncs", "d2h_bytes", "h2d_bytes", "rle_frames": {site: count},
-"pageable_bytes": {"d2h", "h2d"}}; ``tracer.reset()`` empties the spans and the counters;
+"pageable_bytes": {"d2h", "h2d"}, "search_positions": {wrapper: count}};
+``tracer.reset()`` empties the spans and the counters;
 ``tracer.write(path)`` writes the spans with their attributes and the
 snapshot as JSON.  The codec's outputs are the same with the tracer on or
 off.
@@ -214,6 +222,7 @@ class Tracer:
         self.h2d_bytes: Counter = Counter()
         self.pageable_bytes: Counter = Counter()
         self.rle_frames: Counter = Counter()
+        self.search_positions: Counter = Counter()
 
     def new_request(self) -> int:
         """A fresh request id."""
@@ -257,7 +266,7 @@ class Tracer:
             s["count"] += 1
         return {"spans": spans, "host_syncs": dict(self.host_syncs), "d2h_bytes": dict(self.d2h_bytes),
                 "h2d_bytes": dict(self.h2d_bytes), "pageable_bytes": dict(self.pageable_bytes),
-                "rle_frames": dict(self.rle_frames)}
+                "rle_frames": dict(self.rle_frames), "search_positions": dict(self.search_positions)}
 
     def write(self, path, first_id: int = 0) -> None:
         """Write the spans from id ``first_id`` on, with their attributes, and

@@ -1777,3 +1777,70 @@ def test_container_write_codes_on_the_card_in_one_copy(cuda, segment_720p, tmp_p
     assert (tmp_path / "card.sob").read_bytes() == (tmp_path / "host.sob").read_bytes()
     dec = VideoCodec(cfg, device=cuda).decode_bitstream_binary(tmp_path / "card.sob")
     np.testing.assert_array_equal(dec, pkg["reconstructed frames"])
+
+
+# ------------------- the half-pel full search at class B size, four references
+H_B, W_B = 1088, 1920
+
+
+def _moving_1088p(cuda, nref: int, content: str, seed: int):
+    """cur and ``nref`` references at 1088x1920: random pixels, or a smoothed
+    texture that reference r holds, in its own band of columns only (random
+    pixels elsewhere), shifted by (nref - r) * (3, -2) px, so the winners
+    lie inside the range and on every reference."""
+    rng = np.random.default_rng(seed)
+    refs = rng.integers(0, 256, (nref, H_B, W_B), dtype=np.uint8)
+    if content == "random":
+        cur = rng.integers(0, 256, (H_B, W_B), dtype=np.uint8)
+    else:
+        clip = synthetic_clip(H_B + 64, W_B + 64, 1, seed=seed)[0]
+        cur = clip[32:32 + H_B, 32:32 + W_B]
+        band = W_B // nref
+        for r in range(nref):
+            k = nref - r
+            shifted = clip[32 - 2 * k:32 - 2 * k + H_B, 32 + 3 * k:32 + 3 * k + W_B]
+            refs[r, :, r * band:(r + 1) * band] = shifted[:, r * band:(r + 1) * band]
+    return torch.from_numpy(np.ascontiguousarray(cur)).to(cuda), torch.from_numpy(refs).to(cuda)
+
+
+@pytest.mark.parametrize("content", ["moving", "random"])
+@pytest.mark.parametrize("nref", [1, 2, 3, 4])
+def test_fme_vbs_search_kernel_matches_plain_at_1088p(cuda, nref, content):
+    """Kernel 2's VBS instance at the ``full-vbs-fme-nref4-1088p`` shape:
+    68 x 120 blocks, sr 16 (the +-32 half-pel fields of the tie-break key,
+    48 x 48 windows), the parity planes of one to four references staged
+    in turns; MVs, SADs, ok and the quads' equal the plain version's."""
+    cur, refs = _moving_1088p(cuda, nref, content, 1088 + nref)
+    planes = M.fme_parity_planes(refs, True)
+    n0 = K.full_search_fme_vbs.launches
+    got = K.full_search_fme_vbs(cur, planes, 16, 16)
+    torch.cuda.synchronize()
+    assert K.full_search_fme_vbs.launches == n0 + 1
+    want = K.full_search_fme_vbs_plain(cur, planes, 16, 16)
+    _fme_search_equal(got, want)
+    if content == "moving":  # every reference wins somewhere
+        assert set(got["mv"][:, 2].unique().tolist()) == set(range(nref))
+    del want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("bound", [32, 5000])
+def test_fme_quad_fetch_kernel_matches_plain_at_1088p(cuda, bound):
+    """``pred_fetch``'s FME instance with the quad plane at 1088 x 1920 over
+    four references: MVs and quad MVs at every reference index 0 to 3, in
+    the search's range and far past the frame."""
+    rng = np.random.default_rng(bound + 4)
+    nb = (H_B // 16) * (W_B // 16)
+    refs = torch.from_numpy(rng.integers(0, 256, (4, H_B, W_B), dtype=np.uint8)).to(cuda)
+    planes = M.fme_parity_planes(refs, True)
+    mv = np.stack([rng.integers(-bound, bound + 1, nb), rng.integers(-bound, bound + 1, nb),
+                   np.arange(nb) % 4], 1).astype(np.int32)
+    smv = np.stack([rng.integers(-bound, bound + 1, (nb, 4)), rng.integers(-bound, bound + 1, (nb, 4)),
+                    rng.integers(0, 4, (nb, 4))], 2).astype(np.int32)
+    mv, smv = torch.from_numpy(mv).to(cuda), torch.from_numpy(smv).to(cuda)
+    n0 = K.pred_fetch_fme_vbs.launches
+    got = K.pred_fetch_fme_vbs(mv, smv, planes, 16)
+    torch.cuda.synchronize()
+    assert K.pred_fetch_fme_vbs.launches == n0 + 1
+    plain = K.pred_fetch_fme_vbs_plain(mv, smv, planes, 16)
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])

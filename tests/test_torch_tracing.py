@@ -59,7 +59,7 @@ def test_off_records_nothing(clip, tmp_path):
     _round_trip(clip, tmp_path / "c.sob")
     snap = tracer.snapshot()
     assert tracer.records == [] and snap == {"spans": {}, "host_syncs": {}, "d2h_bytes": {}, "h2d_bytes": {},
-                                             "pageable_bytes": {}, "rle_frames": {}}
+                                             "pageable_bytes": {}, "rle_frames": {}, "search_positions": {}}
 
 
 @pytest.mark.parametrize("on", [False, True])
