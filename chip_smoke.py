@@ -20,7 +20,8 @@ All are 720p, bs=16, qp=4, intra_dur=8, lam=0.015 on
 - ``[main-fast-vbs-fme]``: fast ME with VBS and FME at sr=16
   (``sweep.py``'s ``720p_fast_me_vbs_fme``, the JAX package's default tool
   set), 16 frames: every inter frame solves its MVP chain with the
-  ``rowscan_pass`` kernel and confirms through ``window_fetch``;
+  ``rowscan_pass`` kernel and confirms through ``window_fetch`` and one
+  ``fast_confirm`` launch;
 - ``[main-fast]``: fast ME whole-pel, no VBS (``720p_fast_me``), 16 frames;
 - ``[main-vbs]``: ``720p_vbs_fme`` without FME: whole-pel VBS full search,
   16 frames;
@@ -48,7 +49,8 @@ on one card measure correctness and the host's cost, not scaling.
   ``[mesh-fast]``: whole-pel fast ME, 8 frames.  Fast ME reads whole
   reference frames; each pass of a frame's chain launches ``rowscan_pass``
   once per tile, so its launches are three times the mesh's recorded
-  passes, and ``window_fetch`` three per inter frame.
+  passes, and ``window_fetch`` and ``fast_confirm`` three each per inter
+  frame.
 
 Rate control on the device, 8 frames each, at ``benchmarks/sweep.py``'s
 settings (``rc_tables``, 8 mbps, 30 fps: the tables' QPs 7 and 8):
@@ -215,7 +217,15 @@ The two fast-ME rows carry the whole-pel mode's numbers under
 and ``pred_fetch`` carry their numbers at four references (``[main-nref4]``)
 under ``nref4_*`` keys, and ``full_search_vbs`` its numbers at sr=16
 (``[main-intra1]``: 33^2 candidates, 297 groups of four for a macroblock's 32 lanes)
-under ``sr16_*`` keys.  The eight band modes are rows of their own
+under ``sr16_*`` keys.  The ``fast_confirm`` row is the confirm of
+``[main-fast-vbs-fme]``'s converged MVPs on the clip (FME, VBS, one
+reference: (3600, 4, 18, 18) regions), with the whole-pel confirm of
+``[main-fast]``'s (no VBS) under ``whole_pel_*`` keys; each is held to its
+plain version (``core.fastme.confirm``) on those MVPs and on random MVPs of
+either sign, some far outside the frame, on the clip, black-vs-white, flat
+and drift inputs; its bound is bytes (the regions, the int32 pixels, MVPs
+and origins read once, the winners written once) or the abs-diffs of every
+window's pixels, whichever is larger.  The eight band modes are rows of their own
 (``"<kernel> band"``): time, plain time and bound per launch (the mean over
 the three tiles; ``frame_ms`` is one frame's three launches), launches on
 the mesh paths.  The tile rows (``"rowscan_pass tile"`` and
@@ -283,8 +293,8 @@ TOOLS = {
 #: every kernel wrapper, by name: each path's launch counts cover them all
 KERNELS = {name: getattr(K, name) for name in (
     "full_search", "full_search_vbs", "full_search_fme", "full_search_fme_vbs", "pred_fetch", "pred_fetch_vbs",
-    "pred_fetch_fme", "pred_fetch_fme_vbs", "rowscan_pass", "window_fetch", "dct_scipy", "intra_recon",
-    "transform_select", "residual_recon", "intra_search", "rle_pack")}
+    "pred_fetch_fme", "pred_fetch_fme_vbs", "rowscan_pass", "window_fetch", "fast_confirm", "dct_scipy",
+    "intra_recon", "transform_select", "residual_recon", "intra_search", "rle_pack")}
 #: the wrappers a frame step's residual coding calls, whose real arguments the kernel phase reads off a step
 STEP_WRAPPERS = ("intra_search", "transform_select", "residual_recon", "intra_recon")
 FP64_LANES_PER_SM = 64  # Hopper: one float64 add or multiply per lane and cycle (an FMA counts two in data sheets)
@@ -744,6 +754,43 @@ def _hold_timed(name: str, source: str, replaces: str, sets: dict, timed: dict, 
     return row
 
 
+def _confirm_cost(a: tuple, kw: dict) -> tuple[int, int]:
+    """``fast_confirm``'s bytes (the regions, the int32 pixels, MVPs and
+    origins read once, the winners written once) and operations (every
+    candidate's pixel abs-diffs, nine a reference per block; the quads'
+    are the same pixels)."""
+    win, cur, fme, vbs = a[0], a[1], a[7], a[8]
+    nb, P = win.shape[:2]
+    nref = P // 4 if fme else P
+    nbytes = win.numel() + cur.numel() * 4 + nb * (12 + 8) + nb * (5 if vbs else 1) * (12 + 4 + 1)
+    return nbytes, nb * 9 * nref * cur[0].numel()
+
+
+def _hold_confirm(mode: str, solver: TorchCodec, sets: dict, g_conv, g_wild, cyc: float,
+                  int_ops_per_ms: float) -> dict:
+    """``[fast-confirm]``: the kernel against ``core.fastme.confirm`` on the
+    card, exactly, with the engine's arguments (``TorchCodec._confirm``'s:
+    ``window_fetch``'s regions at ``region_base``) on every input set at the
+    converged MVPs ``g_conv`` and at ``g_wild``; then its time, the plain
+    version's and the bound at the clip's converged MVPs.  Returns its row
+    without its launches."""
+    fme, bs = solver.fme, solver.bs
+    scale = 2 if fme else 1
+    dims = (2 * H - 1, 2 * W - 1) if fme else (H, W)
+    calls = {}
+    for name, (c, p) in sets.items():
+        for gname, g in (("converged", g_conv), ("wild", g_wild)):
+            by0, bx0 = FM.region_base(g, solver.by, solver.bx, fme)
+            win = K.window_fetch(p.reshape(-1, H, W), by0, bx0, bs + 2)
+            calls[f"{name} {gname}"] = ((win, blockify(c, bs).to(torch.int32), g, scale * solver.bx,
+                                         scale * solver.by, bs, dims, fme, solver.vbs), {})
+    row = _hold_timed("fast_confirm", "fast_confirm.cu", "streamoptima_tpu/core/fastme.py:1063 (the jitted confirm; "
+                      "no TPU kernel)", calls, {"": "clip converged"}, _confirm_cost, cyc, int_ops_per_ms)
+    print(f"[fast-confirm] 720p {mode}, VBS {solver.vbs} ({calls['clip converged'][0][0].shape[0]} blocks, "
+          f"{tuple(calls['clip converged'][0][0].shape[1:])} regions): held on {list(calls)}", flush=True)
+    return row
+
+
 def _select_cost(a: tuple, kw: dict) -> tuple[int, int]:
     """``transform_select``'s bytes (its inputs read once, its outputs
     written once, the quad planes zeros without VBS) and operations (the
@@ -969,7 +1016,8 @@ def _compat_phase(dev) -> dict:
             psnr = held(label, label, synthetic_clip(CIF_H, CIF_W, frames))
             n_inter = frames - 1
             if label == "compat":  # per inter frame: the chain, one confirm, two fetches (K18) and one in decode
-                want = {"rowscan_pass": sum(chained), "window_fetch": n_inter, "pred_fetch_fme_vbs": 3 * n_inter,
+                want = {"rowscan_pass": sum(chained), "window_fetch": n_inter, "fast_confirm": n_inter,
+                        "pred_fetch_fme_vbs": 3 * n_inter,
                         "dct_scipy": 4 * frames + 2 * frames, "intra_recon": 2, "intra_search": 1}
                 _require(len(chained) == n_inter, f"[{label}] solved {len(chained)} chains")
             else:
@@ -1254,6 +1302,7 @@ def _dryrun_launches(summary: dict) -> dict:
             single, mesh = s["fast_me_passes"]
             add("rowscan_pass", sum(single) + ntile * sum(mesh))
             add("window_fetch", (1 + ntile) * steps)
+            add("fast_confirm", (1 + ntile) * steps)
             add("pred_fetch" + suffix, (1 + ntile) * steps)
         else:
             add("full_search" + suffix, (1 + ntile) * steps)
@@ -1302,7 +1351,7 @@ def _cli_phase(clip: np.ndarray, main_run: dict) -> None:
     two decodes (binary and text).  Run B: the command line's defaults (CIF,
     21 frames, fast ME + VBS + FME, sr 16) with rate control measured on the
     card, two-pass, the binary container and the VBS overlay; its launches
-    must be one ``window_fetch`` and one ``pred_fetch_fme_vbs`` per fast-ME
+    must be one ``window_fetch``, one ``fast_confirm`` and one ``pred_fetch_fme_vbs`` per fast-ME
     step (the rate tables' 12 QPs x 2 inter frames, then two passes of 20),
     ``rowscan_pass`` once per pass of their chains, one fetch per inter
     frame for each decode, and no other kernel; every file it writes must
@@ -1374,7 +1423,7 @@ def _cli_phase(clip: np.ndarray, main_run: dict) -> None:
         # intra_recon: rc.measure_qp_tables' 12 x 2 intra steps, one intra frame in each pass and each decode;
         # the select: the tables' 12 x 2 intra and 12 x 2 inter steps and the two passes' frames, and the recon
         # those and each decode's frames
-        want = {"rowscan_pass": sum(chained), "window_fetch": n_steps,
+        want = {"rowscan_pass": sum(chained), "window_fetch": n_steps, "fast_confirm": n_steps,
                 "pred_fetch_fme_vbs": n_steps + 2 * (n_b - 1), "intra_recon": 12 * 2 + 2 + 2,
                 "intra_search": 12 * 2 + 2, "transform_select": 48 + 2 * n_b, "residual_recon": 48 + 4 * n_b}
         _require(launches == want, f"[cli] run B's launches {launches}, expected {want}")
@@ -1629,6 +1678,8 @@ def main() -> None:
         wf = _hold_window(mode, flat, wsets, "confirm_origins", cyc)
         ch.update(werr=wf["err"], wms=wf["ms"], wplain_ms=wf["plain_ms"], wlib_ms=wf["lib_ms"],
                   wfloor_ms=wf["floor_ms"])
+        g_wild = torch.from_numpy(_adversarial_mvs(rng, nb, 3 * W)).to(dev)
+        ch["confirm"] = _hold_confirm(mode, solver, sets, ch["g"], g_wild, cyc, int_ops_per_ms)
         print(f"[kernel] window_fetch 720p {mode} ({nb}, {flat.shape[0]}, {BS_ + 2}, {BS_ + 2}): bit-equal (tolerance "
               f"0) on adversarial and converged confirm origins, to the plain version and the library read; "
               f"{wf['ms']:.4f} ms vs plain {wf['plain_ms']:.4f} ms, library (one indexing read of planes padded "
@@ -1834,11 +1885,12 @@ def main() -> None:
     whole = _drive("main", {}, clip, dev, full_search=N_INTER, pred_fetch=N_INTER)
     vf = _drive("main-vbs-fme", VBS_FME, clip, dev, full_search_fme_vbs=N_INTER, pred_fetch_fme_vbs=2 * N_INTER)
     _require(sum(int(o["split"].sum()) for o in vf["pkg"]["per_frame"]) > 0, "the VBS + FME path split no block")
-    # fast ME: the chain's passes, one confirm read and one winner fetch per inter frame; decode: one fetch
+    # fast ME: the chain's passes, one confirm (its regions' read and one fast_confirm) and one winner fetch per
+    # inter frame; decode: one fetch
     fast = {"main-fast-vbs-fme": _drive("main-fast-vbs-fme", FAST_VBS_FME, clip, dev, rowscan_pass="passes",
-                                        window_fetch=N_INTER, pred_fetch_fme_vbs=2 * N_INTER),
+                                        window_fetch=N_INTER, fast_confirm=N_INTER, pred_fetch_fme_vbs=2 * N_INTER),
             "main-fast": _drive("main-fast", FAST, clip, dev, rowscan_pass="passes", window_fetch=N_INTER,
-                                pred_fetch=2 * N_INTER)}
+                                fast_confirm=N_INTER, pred_fetch=2 * N_INTER)}
     _require(sum(int(o["split"].sum()) for o in fast["main-fast-vbs-fme"]["pkg"]["per_frame"]) > 0,
              "the fast-ME VBS + FME path split no block")
     rle_row = _rle_phase(dev, fast["main-fast-vbs-fme"]["pkg"], cyc)
@@ -1848,15 +1900,16 @@ def main() -> None:
         "main-nref4": _drive("main-nref4", TOOLS["main-nref4"], clip, dev, full_search=N_INTER, pred_fetch=N_INTER),
         "main-fme": _drive("main-fme", TOOLS["main-fme"], clip, dev, 8, full_search_fme=n8, pred_fetch_fme=2 * n8),
         "main-fast-vbs": _drive("main-fast-vbs", TOOLS["main-fast-vbs"], clip, dev, 8, rowscan_pass="passes",
-                                window_fetch=n8, pred_fetch_vbs=2 * n8),
+                                window_fetch=n8, fast_confirm=n8, pred_fetch_vbs=2 * n8),
         "main-fast-fme": _drive("main-fast-fme", TOOLS["main-fast-fme"], clip, dev, 8, rowscan_pass="passes",
-                                window_fetch=n8, pred_fetch_fme=2 * n8),
+                                window_fetch=n8, fast_confirm=n8, pred_fetch_fme=2 * n8),
         "main-intra1": _drive("main-intra1", TOOLS["main-intra1"], clip, dev, 8, full_search_vbs=n8,
                               pred_fetch_vbs=2 * n8),
         # mode 1: every frame is an inter frame against the all-128 plane
         "main-pm1": _drive("main-pm1", TOOLS["main-pm1"], clip, dev, 8, full_search=8, pred_fetch=8),
         # mode 2: one confirm read at zero MVPs per inter frame, no chain
-        "main-pm2": _drive("main-pm2", TOOLS["main-pm2"], clip, dev, 8, window_fetch=n8, pred_fetch=2 * n8),
+        "main-pm2": _drive("main-pm2", TOOLS["main-pm2"], clip, dev, 8, window_fetch=n8, fast_confirm=n8,
+                           pred_fetch=2 * n8),
         "main-pm3": _drive("main-pm3", TOOLS["main-pm3"], clip, dev, 8, full_search=n8, pred_fetch=n8),
     }
     for label in ("main-vbs", "main-fast-vbs", "main-intra1"):
@@ -1878,8 +1931,9 @@ def main() -> None:
     # fetch per tile and inter frame; decode: one fetch per tile and inter frame
     mesh_fast = {
         "mesh-fast-vbs-fme": (FAST_VBS_FME, FRAMES, {"rowscan_pass": "passes", "window_fetch": tiled["n"],
-                                                     "pred_fetch_fme_vbs": 2 * tiled["n"]}),
-        "mesh-fast": (FAST, 8, {"rowscan_pass": "passes", "window_fetch": tiled["n8"], "pred_fetch": 2 * tiled["n8"]}),
+                                                     "fast_confirm": tiled["n"], "pred_fetch_fme_vbs": 2 * tiled["n"]}),
+        "mesh-fast": (FAST, 8, {"rowscan_pass": "passes", "window_fetch": tiled["n8"], "fast_confirm": tiled["n8"],
+                                "pred_fetch": 2 * tiled["n8"]}),
     }
     for label, (extra, frames, expected) in mesh_fast.items():
         mesh_runs[label] = _drive(label, extra, clip, dev, frames, mesh=True, **expected)
@@ -2038,6 +2092,10 @@ def main() -> None:
                         ch["wplain_ms"], _window_bytes_read(flat, ch["by0"], ch["bx0"], BS_ + 2) + nb * 8
                         + nb * flat.shape[0] * (BS_ + 2) ** 2, 0, int_ops_per_ms, library_ms=ch["wlib_ms"]))
         rows[fme][1]["write_floor_ms"] = ch["wfloor_ms"]
+    confirm_rows = {}
+    for fme, label in ((True, "main-fast-vbs-fme"), (False, "main-fast")):
+        confirm_rows[fme] = dict(chain[fme]["confirm"], launches=fast[label]["launches"]["fast_confirm"])
+    rows = {fme: (*rows[fme], confirm_rows[fme]) for fme in rows}
     for row, wp in zip(rows[True], rows[False]):
         row.update({f"whole_pel_{k}": wp[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                                       "bound_by", "library_ms")})

@@ -113,6 +113,12 @@ def library() -> ctypes.CDLL:
     lib.so_rowscan_pass.restype = i
     lib.so_rowscan_pass_smem.argtypes = [i, i, i]  # nref, bs, fme
     lib.so_rowscan_pass_smem.restype = i
+    L = ctypes.c_longlong
+    # win, cur, g, X, Y, nb, P, n, fme, vbs, DH, DW, mv, sad, ok, sub_mv, sub_sad, sub_ok, stream
+    lib.so_fast_confirm.argtypes = [p, p, p, p, p, i, i, i, i, i, L, L, *[p] * 7]
+    lib.so_fast_confirm.restype = i
+    lib.so_fast_confirm_smem.argtypes = [i, i, i]  # P, n, fme
+    lib.so_fast_confirm_smem.restype = i
     lib.so_dct_scipy.argtypes = [p, p, i, i, i, p]  # in, out, nb, n, inverse, stream
     lib.so_dct_scipy.restype = i
     lib.so_intra_recon.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p]  # rf, rq, split, mv, smv, nbr, nbc, bs, sr, ...

@@ -33,9 +33,9 @@ Every search, fetch and transform is a kernel launch on a CUDA device
 (``core/kernels.py``): the full searches (``full_search``, or with VBS or
 FME the MVs-only searches and the ``pred_fetch`` kernel in the matching
 mode), fast ME's chain (``engine.fast_chain``: ``rowscan_pass``) and confirm
-(``window_fetch``), ``dct_scipy``, and each intra frame's search and
-residuals (``intra_search``) and reconstruction (``intra_recon``), one
-launch each a frame.  On the CPU each takes its plain
+(``window_fetch``, ``fast_confirm``), ``dct_scipy``, and each intra frame's
+search and residuals (``intra_search``) and reconstruction
+(``intra_recon``), one launch each a frame.  On the CPU each takes its plain
 PyTorch version.  The package and the decoder's inputs are the JAX
 engine's list forms, which ``bitstream.write_bitstream`` serializes.
 """
@@ -164,9 +164,10 @@ class CompatCodec:
         MVP; parallel mode 2 takes mvp (0, 0, 0) for every block
         (Encoder.py:641-642).  The chain is solved by ``engine.fast_chain``
         (its one fixpoint, whatever the start ``g0``), then one confirm pass
-        reads every block's region through ``window_fetch``.  The MAE slot
-        holds the winner's reference index (K6), 0 where no candidate is
-        valid, and the MV is then the MVP itself (K8)."""
+        reads every block's region through ``window_fetch`` and searches them
+        in one ``fast_confirm`` launch.  The MAE slot holds the winner's
+        reference index (K6), 0 where no candidate is valid, and the MV is
+        then the MVP itself (K8)."""
         n, fme = self.bs, self.fme
         if self.cfg.parallel_mode == 2:
             g = torch.zeros((self.nb, 3), dtype=torch.int32, device=self.device)
@@ -177,8 +178,8 @@ class CompatCodec:
         win = K.window_fetch(planes.reshape(-1, self.h, self.w), by0, bx0, n + 2)
         scale = 2 if fme else 1
         dims = (2 * self.h - 1, 2 * self.w - 1) if fme else (self.h, self.w)
-        out = FM.confirm(win, blockify(cur, n).to(torch.int32), g, scale * self.bx, scale * self.by, n, dims, fme,
-                         self.vbs)
+        cur_blocks = blockify(cur, n).to(torch.int32, memory_format=torch.contiguous_format)
+        out = K.fast_confirm(win, cur_blocks, g, scale * self.bx, scale * self.by, n, dims, fme, self.vbs)
         out["g_next"] = g
         out["mae"] = torch.where(out["ok"], out["mv"][:, 2], 0).to(torch.float64)
         if self.vbs:

@@ -24,6 +24,11 @@
                             or FME, of the frame or a mesh tile's rows
                             (csrc/rowscan_pass.cu; replaces
                             me_pallas.rowscan_pass with pass_prep).
+``fast_confirm``         -- the fast-ME confirm: every block's 3x3 search
+                            around its MVP, and its quads', from
+                            ``window_fetch``'s regions (csrc/fast_confirm.cu;
+                            no TPU kernel: the JAX engine's jitted
+                            core/fastme.py confirm).
 ``dct_scipy``            -- the compat engine's scipy-exact 2D DCT-II or its
                             inverse (csrc/dct_scipy.cu; no TPU kernel: the
                             JAX compat engine calls scipy on the host).
@@ -74,13 +79,14 @@ import torch
 from streamoptima_tpu_torch.core import intra as I
 from streamoptima_tpu_torch.core import me as M
 from streamoptima_tpu_torch.core import rd
+from streamoptima_tpu_torch.core.fastme import confirm as fast_confirm_plain
 from streamoptima_tpu_torch.core.fastme import rowscan_pass_plain, window_fetch_plain
 from streamoptima_tpu_torch.core.blocks import blockify, merge_quads, quads_px, unblockify, unquads_px
 from streamoptima_tpu_torch.core.pred import gather_predictions, wrap_uint8
 from streamoptima_tpu_torch.core.quant import qp_minus_1, rescale
 from streamoptima_tpu_torch.core.transform import dct2_scipy, dct_matrix_fixed, idct2_int, idct2_scipy
 from streamoptima_tpu_torch.core.zigzag import diag_scan_indices, scan_indices
-from streamoptima_tpu_torch.profiling import to_device
+from streamoptima_tpu_torch.profiling import to_device, tracer
 
 #: shared memory one block may use on Hopper (bytes)
 _SMEM_LIMIT = 232448
@@ -678,6 +684,67 @@ def rowscan_pass(cur: torch.Tensor, planes: torch.Tensor, seeds: torch.Tensor, b
 
 
 rowscan_pass.launches = 0
+
+
+# ------------------------------------------------------------ fast-ME confirm
+def fast_confirm(win: torch.Tensor, cur_blocks: torch.Tensor, g: torch.Tensor, X: torch.Tensor, Y: torch.Tensor,
+                 bs: int, dims: tuple[int, int], fme: bool, vbs: bool) -> dict:
+    """The fast-ME confirm at MVPs ``g``: each block's winner of the 3x3
+    search and, with ``vbs``, its quads' (``fast_confirm_plain``, which is
+    ``core.fastme.confirm``: the same contract, bit for bit).
+
+    win: (nb, P, bs + 2, bs + 2) uint8, the regions ``window_fetch`` reads
+    at ``core.fastme.region_base(g)`` (P = nref, or 4 * nref parity planes
+    under ``fme``); cur_blocks: (nb, bs, bs) int32; g: (nb, 3) int32; X, Y:
+    (nb,) int32 block origins on the grid (doubled under ``fme``), whose
+    extent is ``dims`` = (H, W).  Returns {"mv", "sad", "ok"} and, with
+    ``vbs``, {"sub_mv", "sub_sad", "sub_ok"}.  The tracer's
+    ``confirm_blocks`` counts the blocks by route (``kernel``, ``plain``);
+    an empty batch launches nothing."""
+    _check_plane(win, "win", 4)
+    nb, P = win.shape[:2]
+    if tuple(win.shape[2:]) != (bs + 2, bs + 2) or bs < 1:
+        raise ValueError(f"win {tuple(win.shape)} does not hold (bs + 2)^2 regions of bs={bs} blocks")
+    if P < 1 or (fme and P % 4):
+        raise ValueError(f"win's {P} planes are not {'4 * nref parity planes' if fme else 'nref references'}")
+    dev = win.device
+    if cur_blocks.dtype != torch.int32 or tuple(cur_blocks.shape) != (nb, bs, bs) or not cur_blocks.is_contiguous():
+        raise ValueError(f"cur_blocks must be a contiguous {(nb, bs, bs)} int32 tensor, got {cur_blocks.dtype} "
+                         f"{tuple(cur_blocks.shape)}")
+    if cur_blocks.device != dev:
+        raise ValueError("cur_blocks and win must be on one device")
+    _check_mv(g, "g", (nb, 3), dev)
+    _check_mv(X, "X", (nb,), dev)
+    _check_mv(Y, "Y", (nb,), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"fast_confirm runs on cpu or cuda tensors, not {dev}")
+    if dev.type == "cpu":
+        if tracer.on:
+            tracer.confirm_blocks["plain"] += nb
+        return fast_confirm_plain(win, cur_blocks, g, X, Y, bs, dims, fme, vbs)
+    from streamoptima_tpu_torch._build import library
+
+    lib = library()
+    if lib.so_fast_confirm_smem(P, bs, int(fme)) == 0:
+        raise ValueError(f"bs={bs}, P={P}: a block's regions exceed a CUDA block's shared memory")
+    shapes = {"mv": (nb, 3), "sad": (nb,), "ok": (nb,), "sub_mv": (nb, 4, 3), "sub_sad": (nb, 4), "sub_ok": (nb, 4)}
+    keys = _BLOCK_KEYS + (_QUAD_KEYS if vbs else ())
+    out = {k: torch.empty(shapes[k], dtype=torch.bool if k.endswith("ok") else torch.int32, device=dev) for k in keys}
+    if tracer.on:
+        tracer.confirm_blocks["kernel"] += nb
+    if nb == 0:  # nothing to launch
+        return out
+    subs = [out[k].data_ptr() if vbs else None for k in _QUAD_KEYS]
+    with torch.cuda.device(dev):
+        rc = lib.so_fast_confirm(win.data_ptr(), cur_blocks.data_ptr(), g.data_ptr(), X.data_ptr(), Y.data_ptr(), nb,
+                                 P, bs, int(fme), int(vbs), dims[0], dims[1],
+                                 *(out[k].data_ptr() for k in _BLOCK_KEYS), *subs, _stream(dev))
+    _launch_check(rc, "fast_confirm")
+    fast_confirm.launches += 1
+    return out
+
+
+fast_confirm.launches = 0
 
 
 # ----------------------------------------------------- scipy-exact DCT

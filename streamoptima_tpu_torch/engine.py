@@ -31,8 +31,9 @@ in raster order) solves the chain per block row (``fast_chain``): the
 the seeds (each row's is the last MV of the row above) are iterated until
 they stop changing, starting from the previous frame's.  One confirm pass at
 the converged MVPs then reads every block's candidate region through the
-``window_fetch`` kernel and derives the block and quad winners
-(``core/fastme.py``).  Decode is the same as for the full search: a fast-ME
+``window_fetch`` kernel, and the ``fast_confirm`` kernel derives the block
+and quad winners from those regions (``core/fastme.py`` ``confirm`` is its
+plain version).  Decode is the same as for the full search: a fast-ME
 stream is an ordinary MV stream.
 
 Parallel modes (the reference's multiprocessing modes, run in order on one
@@ -279,14 +280,15 @@ class TorchCodec:
     def _confirm(self, cur_blocks: torch.Tensor, planes: torch.Tensor, g: torch.Tensor) -> dict:
         """The fast-ME 3x3 searches around MVPs ``g`` (nb, 3), block and
         quads, from one ``window_fetch`` read of every block's region of the
-        whole-frame ``planes``, at frame rows (mesh.py:553-584)."""
+        whole-frame ``planes``, at frame rows (mesh.py:553-584), and one
+        ``fast_confirm`` launch over those regions."""
         n, fme = self.bs, self.fme
         y = self.by + self.g_row0
         by0, bx0 = FM.region_base(g, y, self.bx, fme)
         win = K.window_fetch(planes.reshape(-1, self.H, self.w), by0, bx0, n + 2)
         scale = 2 if fme else 1
         dims = (2 * self.H - 1, 2 * self.w - 1) if fme else (self.H, self.w)
-        return FM.confirm(win, cur_blocks, g, scale * self.bx, scale * y, n, dims, fme, self.vbs)
+        return K.fast_confirm(win, cur_blocks, g, scale * self.bx, scale * y, n, dims, fme, self.vbs)
 
     def _fast_search_rowscan(self, cur: torch.Tensor, cur_blocks: torch.Tensor, planes: torch.Tensor,
                              g0: torch.Tensor | None) -> dict:
@@ -326,7 +328,8 @@ class TorchCodec:
         chain from ``g0``, or confirms at MVPs ``mvp`` a caller has already
         solved (a mesh tile: ``fast_chain`` over its data row's tiles)."""
         qps = self.qps_by_type[1] if qps is None else qps
-        cur_blocks = blockify(cur, self.bs).to(torch.int32)
+        # contiguous for the confirm kernel (a one-row frame or tile blockifies to a strided view)
+        cur_blocks = blockify(cur, self.bs).to(torch.int32, memory_format=torch.contiguous_format)
         if self.fast:
             if self.cfg.parallel_mode == 2:  # every block's MVP is zero (jax_engine.py:237-295)
                 s = self._confirm(cur_blocks, planes, torch.zeros((self.nb, 3), dtype=torch.int32,

@@ -67,7 +67,10 @@ the CPU too.  ``rle_frames``, by site, counts the frames the binary
 container's writer codes: ``device``, the frames of a package's tensors
 coded by ``rle_pack`` (the kernel on a card, its plain twin on the CPU),
 and ``host``, the frames of host arrays coded by ``native`` (or its Python
-twin).  ``search_positions``, by search wrapper (``full_search``,
+twin).  ``confirm_blocks``, by route, counts the blocks the fast-ME
+confirm searched: ``kernel``, by the ``fast_confirm`` kernel on a card, and
+``plain``, by its plain twin (``core.fastme.confirm``) on the CPU.
+``search_positions``, by search wrapper (``full_search``,
 ``full_search_vbs``, ``full_search_fme``, ``full_search_fme_vbs``), counts
 the candidates a full search can pick, per block and reference: those of
 the (2r + 1)^2 positions (r the search range on the whole-pel grid, twice it
@@ -77,7 +80,8 @@ shapes: no sync), summed over the blocks and the references searched.
 
 ``tracer.snapshot()`` returns {"spans": {name: {"seconds", "count"}},
 "host_syncs", "d2h_bytes", "h2d_bytes", "rle_frames": {site: count},
-"pageable_bytes": {"d2h", "h2d"}, "search_positions": {wrapper: count}};
+"pageable_bytes": {"d2h", "h2d"}, "search_positions": {wrapper: count},
+"confirm_blocks": {route: count}};
 ``tracer.reset()`` empties the spans and the counters;
 ``tracer.write(path)`` writes the spans with their attributes and the
 snapshot as JSON.  The codec's outputs are the same with the tracer on or
@@ -223,6 +227,7 @@ class Tracer:
         self.pageable_bytes: Counter = Counter()
         self.rle_frames: Counter = Counter()
         self.search_positions: Counter = Counter()
+        self.confirm_blocks: Counter = Counter()
 
     def new_request(self) -> int:
         """A fresh request id."""
@@ -266,7 +271,8 @@ class Tracer:
             s["count"] += 1
         return {"spans": spans, "host_syncs": dict(self.host_syncs), "d2h_bytes": dict(self.d2h_bytes),
                 "h2d_bytes": dict(self.h2d_bytes), "pageable_bytes": dict(self.pageable_bytes),
-                "rle_frames": dict(self.rle_frames), "search_positions": dict(self.search_positions)}
+                "rle_frames": dict(self.rle_frames), "search_positions": dict(self.search_positions),
+                "confirm_blocks": dict(self.confirm_blocks)}
 
     def write(self, path, first_id: int = 0) -> None:
         """Write the spans from id ``first_id`` on, with their attributes, and

@@ -204,6 +204,180 @@ def test_confirm_matches_jax_package(fme, vbs):
         assert (TB.blockify(pf, BS).numpy()[3] == 0).all()  # a K8 block far outside predicts zeros, not 128
 
 
+# ------------------------------------------------- the confirm kernel's wrapper
+def _confirm_args(fme, vbs, nref=2, bs=BS, seed=5, content="random"):
+    """The confirm's arguments (``fast_confirm``'s and ``FM.confirm``'s):
+    random regions, or flat ones for ``content`` "flat" (every SAD ties);
+    pixels 0..255, or any int32 for "wide"; MVPs of either sign and parity,
+    some far outside the grid (K8); origins on the grid, two of them near
+    the int32 bounds, where the origin plus the MVP wraps as torch's int32
+    does."""
+    rng = np.random.default_rng(seed)
+    nb = 24
+    P = 4 * nref if fme else nref
+    if content == "flat":
+        win, cur = np.full((nb, P, bs + 2, bs + 2), 77, np.uint8), np.full((nb, bs, bs), 77, np.int32)
+    else:
+        win = rng.integers(0, 256, (nb, P, bs + 2, bs + 2)).astype(np.uint8)
+        hi = 2**31 if content == "wide" else 256
+        cur = rng.integers(-hi if content == "wide" else 0, hi, (nb, bs, bs)).astype(np.int32)
+    scale = 2 if fme else 1
+    dims = _dims(10 * bs, 12 * bs, fme)
+    X = scale * bs * rng.integers(0, 4, nb)
+    Y = scale * bs * rng.integers(0, 6, nb)
+    g = rng.integers(-6, 7, (nb, 3))
+    g[:, 2] = rng.integers(0, nref, nb)
+    g[3], g[7] = (5000, -4000, 0), (-2 * dims[1], 2 * dims[0], nref - 1)
+    X[5], g[5, 0] = 2**31 - 3, 7  # wraps past INT32_MAX
+    Y[6], g[6, 1] = -(2**31) + 2, -9
+    return (_t(win), _t(cur), _t(g.astype(np.int32)), _t(X.astype(np.int32)), _t(Y.astype(np.int32)), bs, dims, fme,
+            vbs)
+
+
+def _confirm_transcription(win, cur, g, X, Y, bs, dims, fme, vbs) -> dict:
+    """csrc/fast_confirm.cu's rule, loop for loop, in Python integers: each
+    window's part sums (the four quads and, for an odd bs, the last row and
+    column) in wrapping int32; a block's SAD the sum of its window's parts;
+    per block or quad the first strict minimum in scan order among the
+    candidates K7 leaves valid at its own origin and size."""
+    win, cur, g, X, Y = (t.numpy().astype(np.int64) for t in (win, cur, g, X, Y))
+    nb, P = win.shape[:2]
+    n, s = bs, bs >> 1
+    no, scale = (2, 2) if fme else (3, 1)
+    nref = P // 4 if fme else P
+    DH, DW = dims
+
+    def i32(v):
+        return ((int(v) + 2**31) & 0xFFFFFFFF) - 2**31
+
+    def rect(reg, c, oy, ox, r0, r1, c0, c1):
+        d = (reg[r0 + oy:r1 + oy, c0 + ox:c1 + ox] - c[r0:r1, c0:c1]) & 0xFFFFFFFF
+        return int(np.where(d >= 2**31, (-d) & 0xFFFFFFFF, d).sum())
+
+    def k7(p, D, m):
+        return 0 <= p < D - m and 0 <= p + 2 * m < D - m
+
+    rects = [[(r0, r0 + s, c0, c0 + s)] for r0 in (0, s) for c0 in (0, s)]
+    if n & 1:
+        rects.append([(2 * s, n, 0, n), (0, 2 * s, 2 * s, n)])
+    out = {k: [] for k in ("mv", "sad", "ok", "sub_mv", "sub_sad", "sub_ok")}
+    for b in range(nb):
+        sums = np.array([[sum(rect(win[b, p], cur[b], oy, ox, *r) for r in part) & 0xFFFFFFFF for part in rects]
+                         for p in range(P) for oy in range(no) for ox in range(no)])
+        gx, gy, gr = (int(v) for v in g[b])
+        for q in ([-1, 0, 1, 2, 3] if vbs else [-1]):
+            m, qx, qy = (n, 0, 0) if q < 0 else (s, (q & 1) * s, (q >> 1) * s)
+            px, py = i32(i32(X[b] + scale * qx) + gx), i32(i32(Y[b] + scale * qy) + gy)
+            vx, vy = [k7(px + d - 1, DW, m) for d in range(3)], [k7(py + d - 1, DH, m) for d in range(3)]
+            best, bk = INT32_MAX, 0
+            for k in range(9 * nref):
+                r, c = divmod(k, 9)
+                dxi, dyi = divmod(c, 3)
+                if not (vx[dxi] and vy[dyi]):
+                    continue
+                if fme:
+                    ty, tx = dyi + 1 - (gy & 1), dxi + 1 - (gx & 1)
+                    w = ((4 * r + 2 * (ty & 1) + (tx & 1)) * 2 + (ty >> 1)) * 2 + (tx >> 1)
+                else:
+                    w = (r * 3 + dyi) * 3 + dxi
+                v = i32(sums[w].sum() if q < 0 else sums[w, q])
+                if v < best:
+                    best, bk = v, k
+            found = best != INT32_MAX
+            mv = [i32(gx + bk % 9 // 3 - 1), i32(gy + bk % 3 - 1), bk // 9] if found else [gx, gy, gr]
+            pre = "" if q < 0 else "sub_"
+            out[pre + "mv"].append(mv)
+            out[pre + "sad"].append(best)
+            out[pre + "ok"].append(found)
+    res = {"mv": torch.tensor(out["mv"], dtype=torch.int32), "sad": torch.tensor(out["sad"], dtype=torch.int32),
+           "ok": torch.tensor(out["ok"])}
+    if vbs:
+        res.update(sub_mv=torch.tensor(out["sub_mv"], dtype=torch.int32).reshape(nb, 4, 3),
+                   sub_sad=torch.tensor(out["sub_sad"], dtype=torch.int32).reshape(nb, 4),
+                   sub_ok=torch.tensor(out["sub_ok"]).reshape(nb, 4))
+    return res
+
+
+def _confirm_equal(got: dict, want: dict) -> None:
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("fme,vbs", [(True, True), (False, False), (False, True), (True, False)])
+def test_fast_confirm_wrapper_sends_cpu_tensors_to_the_plain_confirm(fme, vbs):
+    """On the CPU the wrapper is ``FM.confirm``, output for output, and
+    launches nothing; the tracer counts its blocks on the ``plain`` route."""
+    from streamoptima_tpu_torch.profiling import tracer
+
+    args = _confirm_args(fme, vbs)
+    n0 = K.fast_confirm.launches
+    tracer.reset()
+    tracer.enable()
+    try:
+        got = K.fast_confirm(*args)
+    finally:
+        tracer.disable()
+    assert tracer.snapshot()["confirm_blocks"] == {"plain": 24}
+    tracer.reset()
+    assert K.fast_confirm.launches == n0
+    _confirm_equal(got, FM.confirm(*args))
+    assert K.fast_confirm_plain is FM.confirm
+
+
+@pytest.mark.parametrize("fme,vbs,nref,bs,content", [
+    (True, True, 1, 16, "random"), (True, True, 2, 8, "random"), (False, True, 4, 8, "random"),
+    (False, False, 1, 16, "random"), (True, False, 4, 16, "random"), (True, True, 2, 16, "flat"),
+    (False, True, 1, 16, "flat"), (True, True, 1, 16, "wide"), (False, True, 2, 8, "wide"),
+    (True, True, 2, 5, "random"), (False, True, 1, 7, "wide"), (False, False, 2, 5, "random"),
+    (True, False, 1, 1, "random")])
+def test_fast_confirm_kernel_rule_matches_the_plain_confirm(fme, vbs, nref, bs, content):
+    """A transcription of the kernel's rule (part sums per window, the block
+    as their sum, a scan-order pick per block and quad) equals ``FM.confirm``
+    on every output: whole-pel and FME, with and without VBS, nref 1 to 4,
+    even and odd bs, flat regions (every SAD ties), int32 pixels of any
+    value, MVPs far outside (K8) and origins whose sums wrap."""
+    args = _confirm_args(fme, vbs, nref, bs, seed=nref * 31 + bs, content=content)
+    want = FM.confirm(*args)
+    _confirm_equal(_confirm_transcription(*args), want)
+    assert not want["ok"].all()
+    assert want["ok"].any()
+    if content == "flat":
+        assert (want["sad"][want["ok"]] == 0).all()
+
+
+def test_fast_confirm_wrapper_refuses_what_the_kernel_does_not_take():
+    win, cur, g, X, Y, bs, dims, fme, vbs = _confirm_args(True, True)
+    call = lambda **kw: K.fast_confirm(*({"win": win, "cur": cur, "g": g, "X": X, "Y": Y} | kw).values(), bs, dims,
+                                       fme, vbs)
+    with pytest.raises(TypeError):
+        call(win=win.to(torch.int16))
+    with pytest.raises(ValueError, match="cur_blocks"):
+        call(cur=cur.to(torch.int64))
+    with pytest.raises(ValueError, match="g must"):
+        call(g=g.to(torch.int64))
+    with pytest.raises(ValueError, match="X must"):
+        call(X=X[:-1].contiguous())
+    with pytest.raises(ValueError, match="regions"):
+        call(win=win[:, :, 1:].contiguous())
+    with pytest.raises(ValueError, match="parity planes"):
+        call(win=win[:, :3].contiguous())  # FME wants 4 * nref planes
+    with pytest.raises(ValueError, match="cur_blocks"):
+        call(cur=cur[:-1].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(win=win.transpose(2, 3))
+    with pytest.raises(ValueError, match="cur_blocks"):
+        call(cur=cur.transpose(1, 2))
+    with pytest.raises(ValueError, match="g must"):
+        call(g=g.t().contiguous().t())
+    with pytest.raises(ValueError, match="one device"):
+        call(Y=Y.to("meta"))
+    with pytest.raises(ValueError, match="one device"):
+        call(cur=cur.to("meta"))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        K.fast_confirm(win.to("meta"), cur.to("meta"), g.to("meta"), X.to("meta"), Y.to("meta"), bs, dims, fme, vbs)
+
+
 # ------------------------------------------------------------ the chain pass
 def _jax_pass_inputs(cur, refs, bx, by, fme, k):
     """``me_pallas.rowscan_pass``'s arguments, as tests/test_fastme.py:169-226."""

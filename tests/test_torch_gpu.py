@@ -11,8 +11,10 @@ import pytest
 import torch
 
 from streamoptima_tpu_torch import CodecConfig, synthetic_clip
+from streamoptima_tpu_torch.core import fastme as FM
 from streamoptima_tpu_torch.core import kernels as K
 from streamoptima_tpu_torch.core import me as M
+from streamoptima_tpu_torch.core.blocks import blockify
 from streamoptima_tpu_torch.core import quant as Q
 from streamoptima_tpu_torch.core import transform as T
 from streamoptima_tpu_torch.engine import TorchCodec
@@ -285,6 +287,88 @@ def test_engine_fast_me_on_card_matches_cpu(cuda, extra):
     for fa, fb in zip(a["per_frame"], b["per_frame"]):
         for k in ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "size"):
             assert torch.equal(fa[k].cpu(), fb[k]), k
+
+
+# ------------------------------------------------------- the fast-ME confirm
+CONFIRM_CASES = ([(fme, vbs, nref, bs, "random") for fme in (False, True) for vbs in (False, True)
+                  for nref in (1, 2, 4) for bs in (8, 16)]
+                 + [(fme, vbs, 2, 16, case) for fme in (False, True) for vbs in (False, True)
+                    for case in ("drift", "flat", "tile", "one_column", "one_row")]
+                 + [(True, True, 1, 5, "random"), (False, True, 2, 7, "drift"), (True, False, 1, 16, "wide")])
+
+
+def _confirm_case(cuda, fme, vbs, nref, bs, case):
+    """The confirm's arguments as ``TorchCodec._confirm`` builds them on the
+    card (``region_base``, one ``window_fetch`` of the whole frame's planes),
+    for a case: random content and MVPs of either sign and parity, some far
+    outside (K8); ``drift``, MVPs that walk one step a block from the origin
+    past the frame's right and bottom edges; ``flat`` content (every SAD
+    ties); ``tile``, the middle rows of a frame three times as tall, read at
+    their frame rows; ``one_column``, a one-block-wide frame; ``one_row``, a
+    one-block-tall one; ``wide``, int32 pixels of any value."""
+    rng = np.random.default_rng(nref * 100 + bs + len(case) + 2 * fme + vbs)
+    H, w = {"one_column": (6 * bs, bs), "one_row": (bs, 8 * bs)}.get(case, (6 * bs, 8 * bs))
+    h, g_row0 = (2 * bs, 2 * bs) if case == "tile" else (H, 0)
+    if case == "flat":
+        refs = torch.full((nref, H, w), 77, dtype=torch.uint8, device=cuda)
+        cur = torch.full((h, w), 77, dtype=torch.uint8, device=cuda)
+    else:
+        refs = torch.from_numpy(rng.integers(0, 256, (nref, H, w), dtype=np.uint8)).to(cuda)
+        cur = torch.from_numpy(rng.integers(0, 256, (h, w), dtype=np.uint8)).to(cuda)
+    planes = M.fme_parity_planes(refs, True) if fme else refs
+    cur_blocks = blockify(cur, bs).to(torch.int32, memory_format=torch.contiguous_format)
+    if case == "wide":
+        cur_blocks = torch.from_numpy(rng.integers(-2**31, 2**31, tuple(cur_blocks.shape)).astype(np.int32)).to(cuda)
+    nb = cur_blocks.shape[0]
+    bx, by = (t.to(torch.int32) for t in M.block_origins(h, w, bs, cuda))
+    y = by + g_row0
+    scale = 2 if fme else 1
+    if case == "drift":
+        g = np.stack([np.arange(nb) + 1, np.arange(nb) // 2, np.arange(nb) % nref], 1)
+    else:
+        g = rng.integers(-2 * scale * bs, 2 * scale * bs + 1, (nb, 3))
+        g[:, 2] = rng.integers(0, nref, nb)
+        g[0], g[-1] = (5001, -4001, 0), (-2 * scale * w - 1, 2 * scale * H + 1, nref - 1)
+    g = torch.from_numpy(g.astype(np.int32)).to(cuda)
+    by0, bx0 = FM.region_base(g, y, bx, fme)
+    win = K.window_fetch(planes.reshape(-1, H, w), by0, bx0, bs + 2)
+    dims = (2 * H - 1, 2 * w - 1) if fme else (H, w)
+    return win, cur_blocks, g, scale * bx, scale * y, bs, dims, fme, vbs
+
+
+@pytest.mark.parametrize("fme,vbs,nref,bs,case", CONFIRM_CASES)
+def test_fast_confirm_kernel_matches_plain(cuda, fme, vbs, nref, bs, case):
+    """``fast_confirm`` == ``FM.confirm`` on the same device tensors, every
+    output exactly, in one launch: whole-pel and FME, with and without VBS,
+    nref 1, 2, 4, bs 8 and 16 (and 5, 7), MVPs past the frame's edges (K8
+    blocks and quads), flat content, a tile's frame rows, one-block-wide
+    and one-block-tall frames, int32 pixels of any value."""
+    args = _confirm_case(cuda, fme, vbs, nref, bs, case)
+    n0 = K.fast_confirm.launches
+    got = K.fast_confirm(*args)
+    torch.cuda.synchronize()
+    assert K.fast_confirm.launches == n0 + 1
+    want = FM.confirm(*args)
+    assert set(got) == set(want) == {"mv", "sad", "ok"} | ({"sub_mv", "sub_sad", "sub_ok"} if vbs else set())
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        assert torch.equal(got[k], want[k]), k
+    if case in ("drift", "random"):
+        assert not want["ok"].all()
+    if case == "flat":
+        assert (want["sad"][want["ok"]] == 0).all()
+
+
+def test_fast_confirm_raises_instead_of_falling_back(cuda):
+    win, cur, g, X, Y, bs, dims, fme, vbs = _confirm_case(cuda, True, True, 1, 16, "random")
+    with pytest.raises(ValueError, match="one device"):
+        K.fast_confirm(win, cur, g.cpu(), X, Y, bs, dims, fme, vbs)
+    with pytest.raises(ValueError, match="cur_blocks"):
+        K.fast_confirm(win, cur.to(torch.int64), g, X, Y, bs, dims, fme, vbs)
+    with pytest.raises(ValueError, match="shared memory"):  # 4096 parity planes of 64x64 blocks
+        K.fast_confirm(torch.zeros((1, 4096, 66, 66), dtype=torch.uint8, device=cuda),
+                       torch.zeros((1, 64, 64), dtype=torch.int32, device=cuda), g[:1].contiguous(),
+                       X[:1].contiguous(), Y[:1].contiguous(), 64, dims, True, True)
 
 
 # ---------------------------------- the tool matrix: VBS or FME alone, nref <= 8
@@ -1646,14 +1730,19 @@ def test_frame_spans_count_every_kernel_launch(cuda):
         tracer.disable()
     changed = {name: fn.launches - before[name] for name, fn in wrappers if fn.launches != before[name]}
     frames = [r[6] for r in tracer.records if r[0] == "engine.frame"]
+    confirmed = tracer.snapshot()["confirm_blocks"]
     tracer.reset()
     assert len(frames) == 2 * cfg.frames
     summed = Counter()
     for attrs in frames:
         summed.update(attrs["launches"])
     assert dict(summed) == changed
-    assert {"rowscan_pass", "window_fetch", "pred_fetch_fme_vbs", "transform_select", "residual_recon",
-            "intra_search", "intra_recon"} <= set(changed)
+    assert {"rowscan_pass", "window_fetch", "fast_confirm", "pred_fetch_fme_vbs", "transform_select",
+            "residual_recon", "intra_search", "intra_recon"} <= set(changed)
+    # every inter frame of the encode: one confirm, in one launch, every block on the kernel's route
+    n_inter = fts.count(1)
+    assert [f["launches"].get("fast_confirm", 0) for f in frames[:cfg.frames]] == fts
+    assert changed["fast_confirm"] == n_inter and confirmed == {"kernel": cfg.n_blocks * n_inter}
     np.testing.assert_array_equal(a["reconstructed frames"], b["reconstructed frames"])
     np.testing.assert_array_equal(torch.stack(dec).cpu().numpy(), b["reconstructed frames"])
 

@@ -59,7 +59,8 @@ def test_off_records_nothing(clip, tmp_path):
     _round_trip(clip, tmp_path / "c.sob")
     snap = tracer.snapshot()
     assert tracer.records == [] and snap == {"spans": {}, "host_syncs": {}, "d2h_bytes": {}, "h2d_bytes": {},
-                                             "pageable_bytes": {}, "rle_frames": {}, "search_positions": {}}
+                                             "pageable_bytes": {}, "rle_frames": {}, "search_positions": {},
+                                             "confirm_blocks": {}}
 
 
 @pytest.mark.parametrize("on", [False, True])
@@ -166,6 +167,23 @@ def test_sync_counters_equal_the_copies(clip, tmp_path):
     assert snap["rle_frames"] == {"device": CFG.frames}
     assert snap["spans"]["codec.fetch"]["count"] == 1 and snap["spans"]["binstream.write"]["count"] == 1
     assert "binstream.rle_encode" not in snap["spans"]
+
+
+def test_confirm_blocks_by_route(clip):
+    """A fast-ME encode's confirm: every inter frame's blocks on the CPU
+    take the plain route, and no frame launches ``fast_confirm`` (on a card,
+    one a frame: ``tests/test_torch_gpu.py``)."""
+    tracer.enable()
+    n0 = K.fast_confirm.launches
+    pkg = VideoCodec(CFG, clip, device="cpu").encode(compute_ssim=False, package=False)
+    n_inter = pkg["frame_type_seq"].count(1)
+    assert n_inter == 4
+    assert tracer.snapshot()["confirm_blocks"] == {"plain": CFG.n_blocks * n_inter}
+    frames = [s["attrs"] for s in _spans() if s["name"] == "engine.frame"]
+    assert len(frames) == CFG.frames
+    assert all(f["launches"].get("fast_confirm", 0) == 0 for f in frames)
+    assert K.fast_confirm.launches == n0
+    assert sum(s["name"] == "engine.confirm" for s in _spans()) == n_inter
 
 
 def test_upload_counter_equals_the_packed_stream(clip, tmp_path):
