@@ -250,7 +250,7 @@ import torch
 
 from streamoptima_tpu_torch import CodecConfig, _build, metrics, native, profiling, synthetic_clip
 from streamoptima_tpu_torch import bitstream as BS
-from streamoptima_tpu_torch import engine as E
+from streamoptima_tpu_torch.core import motion as MO
 from streamoptima_tpu_torch.compat_engine import CompatCodec
 from streamoptima_tpu_torch.codec import VideoCodec
 from streamoptima_tpu_torch.core import fastme as FM
@@ -259,7 +259,7 @@ from streamoptima_tpu_torch.core import me as M
 from streamoptima_tpu_torch.core import transform as T
 from streamoptima_tpu_torch.core.blocks import blockify
 from streamoptima_tpu_torch.core.pred import gather_predictions
-from streamoptima_tpu_torch.engine import TorchCodec, fast_chain, frame_arrays_of
+from streamoptima_tpu_torch.engine import TorchCodec, frame_arrays_of
 from streamoptima_tpu_torch.main import main as cli_main
 from streamoptima_tpu_torch.parallel import ShardedCodec, make_mesh
 from streamoptima_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -644,7 +644,7 @@ def _step_calls(cfg: CodecConfig, clip: np.ndarray, dev) -> dict:
         f0, f1 = (torch.from_numpy(f).to(dev) for f in clip[:2])
         codec._intra_step(f0)
         step[0] = "inter"
-        codec._inter_step(f1, codec._planes([f0], False))
+        codec._inter_step(f1, codec.motion.planes([f0]))
     finally:
         for name in STEP_WRAPPERS:
             setattr(K, name, real[name])
@@ -769,21 +769,21 @@ def _confirm_cost(a: tuple, kw: dict) -> tuple[int, int]:
 def _hold_confirm(mode: str, solver: TorchCodec, sets: dict, g_conv, g_wild, cyc: float,
                   int_ops_per_ms: float) -> dict:
     """``[fast-confirm]``: the kernel against ``core.fastme.confirm`` on the
-    card, exactly, with the engine's arguments (``TorchCodec._confirm``'s:
+    card, exactly, with the engine's arguments (``Motion.confirm``'s:
     ``window_fetch``'s regions at ``region_base``) on every input set at the
     converged MVPs ``g_conv`` and at ``g_wild``; then its time, the plain
     version's and the bound at the clip's converged MVPs.  Returns its row
     without its launches."""
-    fme, bs = solver.fme, solver.bs
+    fme, bs = solver.motion.fme, solver.bs
     scale = 2 if fme else 1
     dims = (2 * H - 1, 2 * W - 1) if fme else (H, W)
     calls = {}
     for name, (c, p) in sets.items():
         for gname, g in (("converged", g_conv), ("wild", g_wild)):
-            by0, bx0 = FM.region_base(g, solver.by, solver.bx, fme)
+            by0, bx0 = FM.region_base(g, solver.motion.by, solver.motion.bx, fme)
             win = K.window_fetch(p.reshape(-1, H, W), by0, bx0, bs + 2)
-            calls[f"{name} {gname}"] = ((win, blockify(c, bs).to(torch.int32), g, scale * solver.bx,
-                                         scale * solver.by, bs, dims, fme, solver.vbs), {})
+            calls[f"{name} {gname}"] = ((win, blockify(c, bs).to(torch.int32), g, scale * solver.motion.bx,
+                                         scale * solver.motion.by, bs, dims, fme, solver.vbs), {})
     row = _hold_timed("fast_confirm", "fast_confirm.cu", "streamoptima_tpu/core/fastme.py:1063 (the jitted confirm; "
                       "no TPU kernel)", calls, {"": "clip converged"}, _confirm_cost, cyc, int_ops_per_ms)
     print(f"[fast-confirm] 720p {mode}, VBS {solver.vbs} ({calls['clip converged'][0][0].shape[0]} blocks, "
@@ -989,8 +989,8 @@ def _compat_phase(dev) -> dict:
         argvs = {"compat": ["--synthetic", "--engine", "compat"],
                  "compat-vbs-fme": ["--synthetic", "--engine", "compat", "--frames", "8", "--no-fast-me"]}
         for label, argv in argvs.items():
-            chained = []  # the passes of each fast-ME chain, read off engine.fast_chain
-            chain = E.fast_chain
+            chained = []  # the passes of each fast-ME chain, read off motion.fast_chain
+            chain = MO.fast_chain
 
             def recording(*a, **k):
                 gs, passes = chain(*a, **k)
@@ -998,13 +998,13 @@ def _compat_phase(dev) -> dict:
                 return gs, passes
 
             _zero_counts()
-            E.fast_chain = recording
+            MO.fast_chain = recording
             try:
                 t0 = time.perf_counter()
                 rc_g = cli_main(argv + files(f"g{label}"))
                 g_s = time.perf_counter() - t0
             finally:
-                E.fast_chain = chain
+                MO.fast_chain = chain
             launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
             margin = K.pred_fetch_fme_vbs.margin_launches
             _require(rc_g == 0, f"[{label}] exited {rc_g} on the card")
@@ -1400,8 +1400,8 @@ def _cli_phase(clip: np.ndarray, main_run: dict) -> None:
         n_b, h_b, w_b = 21, 288, 352
         argv_b = ["--synthetic", "--rc-flag", "1", "--target-br", "2400 kbps", "--two-pass"]
         n_steps = 12 * 2 + 2 * (n_b - 1)  # rc.measure_qp_tables' inter steps, then two passes' inter frames
-        chained = []  # the passes of each fast-ME chain run B solves, read off engine.fast_chain
-        chain = E.fast_chain
+        chained = []  # the passes of each fast-ME chain run B solves, read off motion.fast_chain
+        chain = MO.fast_chain
 
         def recording(*a, **k):
             gs, passes = chain(*a, **k)
@@ -1409,13 +1409,13 @@ def _cli_phase(clip: np.ndarray, main_run: dict) -> None:
             return gs, passes
 
         _zero_counts()
-        E.fast_chain = recording
+        MO.fast_chain = recording
         try:
             t0 = time.perf_counter()
             rc_b = cli_main(argv_b + ["--vbs-overlay", str(d / "bov.yuv")] + outputs("b"))
             b_s = time.perf_counter() - t0
         finally:
-            E.fast_chain = chain
+            MO.fast_chain = chain
         launches = {k: fn.launches for k, fn in KERNELS.items() if fn.launches}
         _require(rc_b == 0, f"[cli] run B exited {rc_b}")
         closed("b")
@@ -1641,10 +1641,11 @@ def main() -> None:
         err_e = 0
         for name, (c, p) in sets.items():
             # a cold solve by the engine: the converged MVPs, and the seeds they hold (each row's first)
-            g_fin = solver._fast_search_rowscan(c, blockify(c, BS_).to(torch.int32), p, None)["g_next"]
+            solved, npass = solver.motion.fast_search(c, blockify(c, BS_).to(torch.int32), p, None)
+            g_fin = solved["g_next"]
             conv_seeds = g_fin.reshape(S, W // BS_, 3)[:, 0].contiguous()
             if name == "clip":
-                chain[fme] = {"seeds": conv_seeds, "g": g_fin, "passes": solver.fast_me_passes[-1]}
+                chain[fme] = {"seeds": conv_seeds, "g": g_fin, "passes": npass}
             for sname, seeds in (("zero", torch.zeros_like(conv_seeds)), ("random", torch.from_numpy(wild).to(dev)),
                                  ("converged", conv_seeds)):
                 got, plain = K.rowscan_pass(c, p, seeds, BS_, fme), K.rowscan_pass_plain(c, p, seeds, BS_, fme)
@@ -1668,7 +1669,8 @@ def main() -> None:
 
         flat = p.reshape(-1, H, W)
         ch["flat"] = flat
-        ch["by0"], ch["bx0"] = FM.region_base(ch["g"], solver.by, solver.bx, fme)  # the confirm pass's origins
+        # the confirm pass's origins
+        ch["by0"], ch["bx0"] = FM.region_base(ch["g"], solver.motion.by, solver.motion.bx, fme)
         adv_y = rng.integers(-40, H + 40, nb).astype(np.int32)
         adv_x = rng.integers(-40, W + 40, nb).astype(np.int32)
         adv_y[:6] = (-5, H - 3, 7, 9, -(10**6), 2**30)  # straddling each edge, odd, far outside
@@ -1773,7 +1775,8 @@ def main() -> None:
         err = 0
         for name, (c, p) in sets.items():
             curs = [c[t * h_t:(t + 1) * h_t] for t in range(N_TILES)]
-            gs, npass = fast_chain([e.chain_tile for e in engines], curs, [p] * N_TILES, [None] * N_TILES)  # a cold solve of the frame
+            # a cold solve of the frame
+            gs, npass = MO.fast_chain([e.motion for e in engines], curs, [p] * N_TILES, [None] * N_TILES)
             conv = [g.reshape(S_t, L, 3)[:, 0].contiguous() for g in gs]
             if name == "clip":
                 tiles[fme] = {"curs": curs, "p": p, "gs": gs, "seeds": conv, "passes": npass}
@@ -1797,7 +1800,7 @@ def main() -> None:
                     for t in range(N_TILES)]
         pass_ms, _ = _time_ms(lambda: [K.rowscan_pass(curs[t], p, tl["seeds"][t], BS_, fme, **kws[t])
                                        for t in range(N_TILES)], 20, cyc)
-        origins = [FM.region_base(g, e.by + e.g_row0, e.bx, fme) for g, e in zip(tl["gs"], engines)]
+        origins = [FM.region_base(g, e.motion.by + e.g_row0, e.motion.bx, fme) for g, e in zip(tl["gs"], engines)]
         wt = [_hold_window(f"tile {t} {mode}", flat, {"confirm_origins": origins[t]}, "confirm_origins", cyc)
               for t in range(N_TILES)]
         werr, wms = max(x["err"] for x in wt), [x["ms"] for x in wt]

@@ -20,11 +20,16 @@ scipy-exact float64 DCT and every reference quirk):
   line (``python -m streamoptima_tpu_torch``), the colour pipeline
   (``io.video``), ``profiling`` and ``viz``.
 
-Plain code is PyTorch.  The kernels (the whole-pel and half-pel searches,
-the prediction fetch, the fast-ME chain pass and its window gather, the
-compat engine's scipy-exact DCT) are
-hand-written CUDA C++ for ``sm_90a`` under ``csrc/``, built with ``nvcc``
-at first use (``_build.py``).  Tensors on the CPU take each kernel's plain
+Plain code is PyTorch.  The kernels are hand-written CUDA C++ for
+``sm_90a``, twelve sources under ``csrc/`` built with ``nvcc`` at first use
+(``_build.py``): the whole-pel and half-pel searches (``full_search``,
+``full_search_fme``), the prediction fetch (``pred_fetch``), fast ME's chain
+pass, region gather and confirm (``rowscan_pass``, ``window_fetch``,
+``fast_confirm``), the intra search and reconstruction (``intra_search``,
+``intra_recon``), the residual coding (``transform_select``,
+``residual_recon``), the binary container's RLE (``rle_pack``) and the
+compat engine's scipy-exact DCT (``dct_scipy``).  ``core/motion.py`` alone
+chooses and launches the search, fetch and fast-ME kernels of a tool set.  Tensors on the CPU take each kernel's plain
 PyTorch version instead, which is what the CPU tests hold against the JAX
 package.  Entry points run on the card unless the caller names the CPU.
 

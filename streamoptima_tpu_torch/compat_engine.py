@@ -30,10 +30,9 @@ COMPAT_NOTES.md included.  Where it differs from the native engine
   error on the device.
 
 Every search, fetch and transform is a kernel launch on a CUDA device
-(``core/kernels.py``): the full searches (``full_search``, or with VBS or
-FME the MVs-only searches and the ``pred_fetch`` kernel in the matching
-mode), fast ME's chain (``engine.fast_chain``: ``rowscan_pass``) and confirm
-(``window_fetch``, ``fast_confirm``), ``dct_scipy``, and each intra frame's
+(``core/kernels.py``): the searches, prediction fetches and fast ME's chain
+and confirm through the native engine's motion layer (``core/motion.py``),
+``dct_scipy``, and each intra frame's
 search and residuals (``intra_search``) and reconstruction
 (``intra_recon``), one launch each a frame.  On the CPU each takes its plain
 PyTorch version.  The package and the decoder's inputs are the JAX
@@ -44,17 +43,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from streamoptima_tpu_torch import engine as E
 from streamoptima_tpu_torch import rc
 from streamoptima_tpu_torch.config import CodecConfig
-from streamoptima_tpu_torch.core import fastme as FM
 from streamoptima_tpu_torch.core import kernels as K
 from streamoptima_tpu_torch.core.blocks import blockify, merge_quads, quads_px, split_quads, unblockify
-from streamoptima_tpu_torch.core.me import block_origins, fme_parity_planes
+from streamoptima_tpu_torch.core.motion import Motion
 from streamoptima_tpu_torch.core.pred import wrap_uint8
 from streamoptima_tpu_torch.core.quant import qp_minus_1, quantize, rescale
 from streamoptima_tpu_torch.core.zigzag import rle_length
-from streamoptima_tpu_torch.engine import fifo_push, mvs_to_list, pack_stream, res_to_list, unpack_payload
+from streamoptima_tpu_torch.engine import (fifo_push, mvs_to_list, pack_stream, res_to_list, unpack_payload,
+                                           upload_stream)
+from streamoptima_tpu_torch.profiling import to_device
 
 
 class CompatCodec:
@@ -68,16 +67,15 @@ class CompatCodec:
         self.cfg = cfg
         self.device = torch.device(device)
         self.y = None if y_frames is None else np.asarray(y_frames, dtype=np.uint8)
-        self._y_dev = None if self.y is None else torch.from_numpy(self.y).to(self.device)
+        self._y_dev = None if self.y is None else to_device(self.y, self.device, "clip")
         self.h, self.w = cfg.height, cfg.width
         self.bs, self.sbs = cfg.block_size, cfg.sub_block_size
         self.nbr, self.nbc = cfg.block_rows, cfg.blocks_per_row
         self.nb = self.nbr * self.nbc
         self.vbs, self.fme = cfg.vbs_enable, cfg.fme_enable
-        self._chain_tile = E.ChainTile(self.device, 0, self.nbr, (self.h, self.w), self.bs, self.fme)
-        bx, by = block_origins(self.h, self.w, self.bs, self.device)
-        self.bx, self.by = bx.to(torch.int32), by.to(torch.int32)
-        self.vbs_eligible = (bx != 0) & (by != 0)
+        #: the tool set's search, fetch and fast-ME kernels
+        self.motion = Motion(cfg, self.device)
+        self.vbs_eligible = (self.motion.bx != 0) & (self.motion.by != 0)
         #: every encoded frame's row QPs (the intra table's, K9/K10; [] without rate control) and block QPs
         self._row_qps = list(rc.row_qp_sequence(cfg)) if cfg.rc_active else []
         self._qps = self._block_qps(self._row_qps)
@@ -99,14 +97,6 @@ class CompatCodec:
         half-pel row pass does not wrap, K17)."""
         return torch.full((self.h, self.w), 128, dtype=torch.uint8, device=self.device), True
 
-    def _planes(self, refs: list) -> torch.Tensor:
-        """What the searches and fetches read from the references ``refs``
-        [(frame, is_128_plane)]: (nref, 4, h, w) parity planes under FME,
-        each reference with its own K17 wrap, else the (nref, h, w) frames."""
-        if self.fme:
-            return torch.cat([fme_parity_planes(f[None], wrap_row_pass=not flat) for f, flat in refs])
-        return torch.stack([f for f, _ in refs])
-
     def _block_qps(self, qp_rows: list) -> torch.Tensor:
         """Per-block QPs from per-row values, or ``cfg.qp`` for an empty list."""
         rows = qp_rows if len(qp_rows) else [self.cfg.qp] * self.nbr
@@ -124,20 +114,10 @@ class CompatCodec:
         the search's outputs and the residual path's predictions at its MVs
         ((nb, bs, bs) and (nb, 4, s, s) int64, None without VBS): a block
         without a valid candidate is predicted at mv (0, 0, 0)."""
-        sr, bs, s = self.cfg.search_range, self.bs, self.sbs
-        pred_q = None
-        if not (self.vbs or self.fme):
-            out = K.full_search(cur, planes, sr, bs)  # the winners' pixels, zeros where no candidate is valid
-            pred = out["pred"] if bool(out["ok"].all()) else K.pred_fetch(out["mv"], planes, bs)
-        elif not self.fme:
-            out = K.full_search_vbs(cur, planes, sr, bs)
-            pred, pred_q = K.pred_fetch_vbs(out["mv"], out["sub_mv"], planes, bs)
-        elif not self.vbs:
-            out = K.full_search_fme(cur, planes, sr, bs)
-            pred = K.pred_fetch_fme(out["mv"], planes, bs)
-        else:
-            out = K.full_search_fme_vbs(cur, planes, sr, bs)
-            pred, pred_q = K.pred_fetch_fme_vbs(out["mv"], out["sub_mv"], planes, bs)
+        bs, s = self.bs, self.sbs
+        out, pred, pred_q = self.motion.search(cur, planes)
+        if self.motion.search_name == "full_search" and not bool(out["ok"].all()):  # it gave zeros there
+            pred = self.motion.fetch(out["mv"], None, planes)[0]
         inf = torch.tensor(float("inf"), dtype=torch.float64, device=self.device)
         out["mae"] = torch.where(out["ok"], out["sad"].to(torch.float64) / (bs * bs), inf)
         if self.vbs:
@@ -148,43 +128,24 @@ class CompatCodec:
         return (blockify(pred, self.bs).to(torch.int64),
                 None if pred_q is None else quads_px(pred_q, self.bs).to(torch.int64))
 
-    def _fetch(self, mv: torch.Tensor, sub_mv: torch.Tensor | None, planes: torch.Tensor, quad_margin: int):
-        """Predictions at given MVs from the ``pred_fetch`` kernel in the
-        tool set's mode; ``quad_margin``: the quads' FME margin (K18)."""
-        bs = self.bs
-        if self.vbs and self.fme:
-            return self._as_blocks(*K.pred_fetch_fme_vbs(mv, sub_mv, planes, bs, quad_margin=quad_margin))
-        if self.vbs:
-            return self._as_blocks(*K.pred_fetch_vbs(mv, sub_mv, planes, bs))
-        return self._as_blocks((K.pred_fetch_fme if self.fme else K.pred_fetch)(mv, planes, bs), None)
-
-    def _fast_search(self, cur: torch.Tensor, planes: torch.Tensor, g0: torch.Tensor | None) -> dict:
-        """Fast ME (Encoder.py:549-581, :719-742): the 3x3 search around the
-        previous block's MV in raster order, its quads around the block's
-        MVP; parallel mode 2 takes mvp (0, 0, 0) for every block
-        (Encoder.py:641-642).  The chain is solved by ``engine.fast_chain``
-        (its one fixpoint, whatever the start ``g0``), then one confirm pass
-        reads every block's region through ``window_fetch`` and searches them
-        in one ``fast_confirm`` launch.  The MAE slot holds the winner's
+    def _fast_search(self, cur: torch.Tensor, planes: torch.Tensor, g0: torch.Tensor | None) -> tuple:
+        """Fast ME (Encoder.py:549-581, :719-742), ``_full_search``'s outputs:
+        the 3x3 search around the previous block's MV in raster order, its
+        quads around the block's MVP; parallel mode 2 takes mvp (0, 0, 0) for
+        every block (Encoder.py:641-642).  The MAE slot holds the winner's
         reference index (K6), 0 where no candidate is valid, and the MV is
         then the MVP itself (K8)."""
-        n, fme = self.bs, self.fme
+        cur_blocks = blockify(cur, self.bs).to(torch.int32, memory_format=torch.contiguous_format)
         if self.cfg.parallel_mode == 2:
-            g = torch.zeros((self.nb, 3), dtype=torch.int32, device=self.device)
+            out = self.motion.confirm(cur_blocks, planes, torch.zeros((self.nb, 3), dtype=torch.int32,
+                                                                      device=self.device))
         else:
-            (g,), passes = E.fast_chain([self._chain_tile], [cur], [planes], [g0])
+            out, passes = self.motion.fast_search(cur, cur_blocks, planes, g0)
             self.fast_me_passes.append(passes)
-        by0, bx0 = FM.region_base(g, self.by, self.bx, fme)
-        win = K.window_fetch(planes.reshape(-1, self.h, self.w), by0, bx0, n + 2)
-        scale = 2 if fme else 1
-        dims = (2 * self.h - 1, 2 * self.w - 1) if fme else (self.h, self.w)
-        cur_blocks = blockify(cur, n).to(torch.int32, memory_format=torch.contiguous_format)
-        out = K.fast_confirm(win, cur_blocks, g, scale * self.bx, scale * self.by, n, dims, fme, self.vbs)
-        out["g_next"] = g
         out["mae"] = torch.where(out["ok"], out["mv"][:, 2], 0).to(torch.float64)
         if self.vbs:
             out["sub_mae"] = torch.where(out["sub_ok"], out["sub_mv"][..., 2], 0).to(torch.float64)
-        return out
+        return out, *self._as_blocks(*self.motion.fetch(out["mv"], out.get("sub_mv"), planes))
 
     # ------------------------------------------------------------ RD + quant
     def _split_decision(self, tf, tq, mae_full, mae_quads, frame_type: int):
@@ -234,18 +195,14 @@ class CompatCodec:
     # ------------------------------------------------------------ frames
     def _inter_flow(self, cur: torch.Tensor, refs: list, g0) -> dict:
         """One inter frame (complete_inter_flow, Encoder.py:1644-1709)."""
-        planes = self._planes(refs)
-        if self.fast:
-            s = self._fast_search(cur, planes, g0)
-            pred_full, pred_q = self._fetch(s["mv"], s.get("sub_mv"), planes, self.sbs)
-        else:
-            s, pred_full, pred_q = self._full_search(cur, planes)
+        planes = self.motion.planes(*zip(*refs))  # each reference with its own K17 wrap
+        s, pred_full, pred_q = self._fast_search(cur, planes, g0) if self.fast else self._full_search(cur, planes)
         cur_blocks = blockify(cur, self.bs).to(torch.int64)
         res_q = split_quads(cur_blocks) - pred_q if self.vbs else None
         out = self._code(cur_blocks - pred_full, res_q, s["mae"], s.get("sub_mae"), 1)
         sub_mv = s["sub_mv"] if self.vbs else torch.zeros((self.nb, 4, 3), dtype=torch.int32, device=self.device)
         if self.vbs and self.fme:  # the reconstruction's quads see the parent block's margin (K18)
-            _, pred_q = self._fetch(s["mv"], sub_mv, planes, self.bs)
+            _, pred_q = self._as_blocks(*self.motion.fetch(s["mv"], sub_mv, planes, quad_margin=self.bs))
         out.update(mv=s["mv"], sub_mv=sub_mv,
                    recon=self._recon_inter(pred_full, pred_q, out["split"], out["qtc_full"], out["qtc_quads"],
                                            out["qps"]))
@@ -343,30 +300,32 @@ class CompatCodec:
         gives them, else ``cfg.qp``."""
         cfg = self.cfg
         n = len(frame_types)
-        mv_all, smv_all, split_all, pay_all, _ = pack_stream(cfg, frame_types, qblocks_per_frame, mvs_per_frame)
-        d_mv, d_smv, d_split, d_pay = (torch.from_numpy(a).to(self.device)
-                                       for a in (mv_all, smv_all, split_all, pay_all))
+        # the row QPs are the stream's where it gives them, without the rate control rule
+        d_mv, d_smv, d_split, d_pay, _ = upload_stream(
+            pack_stream(cfg, frame_types, qblocks_per_frame, mvs_per_frame), self.device, self.vbs, False)
         out = []
         refs = [self._plane128()]
         for i in range(n):
             qf, qq = unpack_payload(d_split[i], d_pay[i], self.vbs)
             qps = self._block_qps(list(qp_rows_per_frame[i]))
+            smv = d_smv[i] if self.vbs else None
             if cfg.parallel_mode == 1:  # every frame inter against the all-128 plane
-                f = self._decode_inter(d_mv[i], d_smv[i], d_split[i], qf, qq, qps, [self._plane128()])
+                f = self._decode_inter(d_mv[i], smv, d_split[i], qf, qq, qps, [self._plane128()])
             elif int(frame_types[i]) == 0:
-                f = self._recon_intra(d_mv[i, :, 0], d_split[i], d_smv[i, :, :, 0], qf, qq, qps)
+                f = self._recon_intra(d_mv[i, :, 0], d_split[i], None if smv is None else smv[:, :, 0], qf, qq, qps)
                 refs = []
             else:
                 if cfg.parallel_mode == 3:
                     refs = [self._plane128()]
-                f = self._decode_inter(d_mv[i], d_smv[i], d_split[i], qf, qq, qps, refs)
+                f = self._decode_inter(d_mv[i], smv, d_split[i], qf, qq, qps, refs)
             out.append(f)
             if i < n - 1 and cfg.parallel_mode != 1:
                 fifo_push(refs, (f, False), cfg.n_ref_frames)
         return out
 
     def _decode_inter(self, mv, sub_mv, split, qf, qq, qps, refs) -> torch.Tensor:
-        pred_full, pred_q = self._fetch(mv, sub_mv, self._planes(refs), self.bs)  # K18 on the quads
+        planes = self.motion.planes(*zip(*refs))
+        pred_full, pred_q = self._as_blocks(*self.motion.fetch(mv, sub_mv, planes, quad_margin=self.bs))  # K18
         return self._recon_inter(pred_full, pred_q, split, qf, qq, qps)
 
 

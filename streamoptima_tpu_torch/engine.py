@@ -7,16 +7,11 @@ intra mode 0 or 1 (mode 1 is mode 0 on the transposed frame), VBS and
 half-pel FME each on or off, full search or fast ME, the three parallel
 modes' semantics, and rate control.
 
-The full search is one kernel launch per inter frame, by tool set:
-``full_search`` (whole-pel, which also returns the winners' pixels),
-``full_search_vbs``, ``full_search_fme`` or ``full_search_fme_vbs``.  Under
-FME each reference's four parity planes are computed once per frame and
-serve the search and the fetch.  The winners' pixels (and decode's, from the
-transmitted MVs) come from the ``pred_fetch`` kernel in the matching mode:
-``pred_fetch``, ``pred_fetch_vbs``, ``pred_fetch_fme`` or
-``pred_fetch_fme_vbs``, block and quad planes in one launch.  Every intra
-frame, in encode and decode and in either intra mode, is reconstructed by
-one launch of the ``intra_recon`` kernel (the sequential column scan).
+An inter frame's search and prediction fetch are the kernels
+``core/motion.py`` chooses for the tool set (one full-search launch, or fast
+ME's chain and confirm, and ``pred_fetch`` in the matching mode).  Every
+intra frame, in encode and decode and in either intra mode, is
+reconstructed by one launch of the ``intra_recon`` kernel.
 
 The residual coding is three kernels a frame: ``intra_search`` (an intra
 frame's search and residuals, either intra mode), ``transform_select``
@@ -26,15 +21,12 @@ inter frame's reconstruction from the prediction planes in the same
 launch).
 
 Fast ME (``fast_me``: a 3x3 search around the previous block's MV, chained
-in raster order) solves the chain per block row (``fast_chain``): the
+in raster order) solves the chain per block row (``motion.fast_chain``: the
 ``rowscan_pass`` kernel walks every row exactly from a guessed seed MV, and
-the seeds (each row's is the last MV of the row above) are iterated until
-they stop changing, starting from the previous frame's.  One confirm pass at
-the converged MVPs then reads every block's candidate region through the
-``window_fetch`` kernel, and the ``fast_confirm`` kernel derives the block
-and quad winners from those regions (``core/fastme.py`` ``confirm`` is its
-plain version).  Decode is the same as for the full search: a fast-ME
-stream is an ordinary MV stream.
+the seeds are iterated until they stop changing, starting from the previous
+frame's), then confirms at the converged MVPs (``Motion.confirm``:
+``window_fetch`` and ``fast_confirm``).  Decode is the same as for the full
+search: a fast-ME stream is an ordinary MV stream.
 
 Parallel modes (the reference's multiprocessing modes, run in order on one
 device): mode 1 codes every frame as an inter frame against the all-128
@@ -64,8 +56,6 @@ and every bound is evaluated at frame rows.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import numpy as np
 import torch
 
@@ -73,11 +63,10 @@ from streamoptima_tpu_torch import metrics
 from streamoptima_tpu_torch import rc
 from streamoptima_tpu_torch.bitstream import FrameMVArrays, FrameResArrays, widen_mvs
 from streamoptima_tpu_torch.config import CodecConfig
-from streamoptima_tpu_torch.core import fastme as FM
 from streamoptima_tpu_torch.core import kernels as K
 from streamoptima_tpu_torch.core.blocks import blockify, quads_px, split_quads
-from streamoptima_tpu_torch.core.me import block_origins, fme_parity_planes, valid_candidates
-from streamoptima_tpu_torch.profiling import host_flag, to_device, to_host, traced, tracer
+from streamoptima_tpu_torch.core.motion import Motion
+from streamoptima_tpu_torch.profiling import to_device, to_host, traced, tracer
 
 #: per-frame arrays that cross between this engine and the JAX engine
 STATE_KEYS = ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "recon")
@@ -106,22 +95,20 @@ class TorchCodec:
         check_slice(cfg)
         self.cfg = cfg
         self.vbs = cfg.vbs_enable
-        self.fme = cfg.fme_enable
         self.device = torch.device(device)
         self.y = None if y_frames is None else np.asarray(y_frames, dtype=np.uint8)
         # the clip is uploaded once; frames are device slices
         self._y_dev = None if self.y is None else to_device(self.y, self.device, "clip")
-        self.H, self.w = cfg.height, cfg.width
-        # the frame rows [g_row0, g_row0 + h) this instance codes: the frame, or a mesh tile's band
-        self.g_row0, r1 = (0, self.H) if rows is None else rows
-        self.h = r1 - self.g_row0
+        #: the tool set's search, fetch and fast-ME kernels for the frame rows [g_row0, g_row0 + h) this
+        #: instance codes: the frame, or a mesh tile's band
+        self.motion = Motion(cfg, self.device, rows)
+        self.g_row0, self.h, self.w = self.motion.g_row0, self.motion.h, cfg.width
         if rows is not None and cfg.parallel_mode:
             raise ValueError("a tile (rows=...) codes without parallel modes")
         self.bs = cfg.block_size
         self.sbs = cfg.sub_block_size
         self.nbr, self.nbc = self.h // self.bs, cfg.blocks_per_row
         self.nb = self.nbr * self.nbc
-        self.chain_tile = ChainTile(self.device, self.g_row0, self.nbr, (self.H, self.w), self.bs, self.fme)
         rows_blk = slice(self.g_row0 // self.bs, self.g_row0 // self.bs + self.nbr)
         #: the frame's per-row QPs of each frame type, on the host (two-pass falls back to them)
         self.row_qps_np = row_qps_of(cfg)
@@ -142,8 +129,6 @@ class TorchCodec:
         border[:, 0] = True
         self.vbs_eligible = ~border.reshape(-1)
         self.vbs_eligible_t = ~border.T.reshape(-1)
-        bx, by = block_origins(self.h, self.w, self.bs, self.device)
-        self.bx, self.by = bx.to(torch.int32), by.to(torch.int32)
         # parallel mode 1 searches every frame in full (jax_engine.py:714)
         self.fast = cfg.fast_me and cfg.parallel_mode != 1
         #: fast ME: ``rowscan_pass`` launches of each inter frame of the last encode
@@ -183,34 +168,11 @@ class TorchCodec:
             return [self._plane128()], True
         return refs, initial
 
-    def _planes(self, refs: list, initial: bool) -> torch.Tensor:
-        """The stack the searches and fetches read: (nref, 4, h, w) parity
-        planes under FME (wrap quirk K17: no wrap only for the synthetic
-        all-128 initial reference), else the (nref, h, w) frames."""
-        stack = torch.stack(refs)
-        return fme_parity_planes(stack, wrap_row_pass=not initial) if self.fme else stack
-
     def _select(self, res_full, res_quads, sad, sub_sad, ftype: int, qps, ok=None, sub_ok=None, transposed=False):
         return K.transform_select(res_full, res_quads, sad, sub_sad, ftype, qps,
                                   qp_nominal=int(self.cfg.qp), lam=self.cfg.lam, vbs_enable=self.vbs,
                                   vbs_eligible=self.vbs_eligible_t if transposed else self.vbs_eligible,
                                   bs=self.bs, sbs=self.sbs, ok_full=ok, ok_quads=sub_ok)
-
-    def _band(self, band_row0: int) -> dict:
-        """The kernels' band arguments: this instance's rows at ``band_row0``
-        of the references (0 for whole frames)."""
-        return {"band_row0": band_row0, "g_row0": self.g_row0, "grid": (self.H, self.w)}
-
-    @traced("engine.fetch")
-    def _fetch(self, mv, sub_mv, planes, band_row0: int = 0):
-        """Each block's, and under VBS each quad's, prediction plane at the
-        given MVs: (h, w) int16 each (the quads' None without VBS), from the
-        ``pred_fetch`` kernel in the tool set's mode."""
-        band = self._band(band_row0)
-        if self.vbs:
-            fetch = K.pred_fetch_fme_vbs if self.fme else K.pred_fetch_vbs
-            return fetch(mv, sub_mv, planes, self.bs, **band)
-        return (K.pred_fetch_fme if self.fme else K.pred_fetch)(mv, planes, self.bs, **band), None
 
     def _pred_blocks(self, pf, pq, ok=None, sub_ok=None):
         """The residual's predictions from the planes: (nb, bs, bs) and (nb,
@@ -228,7 +190,7 @@ class TorchCodec:
 
     def _recon_inter(self, pf, pq, split, qtc_full, qtc_quads, qps=None, ok=None, sub_ok=None) -> torch.Tensor:
         """An inter frame's (h, w) uint8 reconstruction from its prediction
-        planes (``_fetch``'s, or the whole-pel search's; 128 where ``ok`` /
+        planes (``Motion.fetch``'s, or the whole-pel search's; 128 where ``ok`` /
         ``sub_ok`` is False), in one ``residual_recon`` launch."""
         return K.residual_recon(qtc_full, qtc_quads if self.vbs else None,
                                 self.qps_by_type[1] if qps is None else qps, pf, pq, split if self.vbs else None,
@@ -276,75 +238,34 @@ class TorchCodec:
         row_bits = sel[3].reshape(self.nbc, self.nbr).sum(dim=0) if mode1 else None
         return self._outputs(mv, sub_mv, sel, recon, row_bits)
 
-    @traced("engine.confirm")
-    def _confirm(self, cur_blocks: torch.Tensor, planes: torch.Tensor, g: torch.Tensor) -> dict:
-        """The fast-ME 3x3 searches around MVPs ``g`` (nb, 3), block and
-        quads, from one ``window_fetch`` read of every block's region of the
-        whole-frame ``planes``, at frame rows (mesh.py:553-584), and one
-        ``fast_confirm`` launch over those regions."""
-        n, fme = self.bs, self.fme
-        y = self.by + self.g_row0
-        by0, bx0 = FM.region_base(g, y, self.bx, fme)
-        win = K.window_fetch(planes.reshape(-1, self.H, self.w), by0, bx0, n + 2)
-        scale = 2 if fme else 1
-        dims = (2 * self.H - 1, 2 * self.w - 1) if fme else (self.H, self.w)
-        return K.fast_confirm(win, cur_blocks, g, scale * self.bx, scale * y, n, dims, fme, self.vbs)
-
-    def _fast_search_rowscan(self, cur: torch.Tensor, cur_blocks: torch.Tensor, planes: torch.Tensor,
-                             g0: torch.Tensor | None) -> dict:
-        """The fast-ME chain of one frame (``JaxCodec._fast_search_rowscan``):
-        ``fast_chain`` on this one tile, then the confirm pass at the
-        converged MVPs, which re-derives the same MVs.  planes: the parity
-        planes (nref, 4, H, w) under FME, else the references."""
-        (g,), passes = fast_chain([self.chain_tile], [cur], [planes], [g0])
-        self.fast_me_passes.append(passes)
-        out = self._confirm(cur_blocks, planes, g)
-        out["g_next"] = g
-        return out
-
-    def _full_search(self, cur: torch.Tensor, planes: torch.Tensor, band_row0: int = 0):
-        """One full-search launch and the winners' prediction planes (``_fetch``'s
-        layout); blocks and quads without a valid candidate (``ok`` /
-        ``sub_ok`` False) take mv = (0, 0, 0) and are predicted by 128s."""
-        sr, bs = self.cfg.search_range, self.bs
-        search = {(False, False): K.full_search, (False, True): K.full_search_vbs, (True, False): K.full_search_fme,
-                  (True, True): K.full_search_fme_vbs}[self.fme, self.vbs]
-        with tracer.span("engine.search"):
-            if tracer.on:  # from the shapes alone: no sync
-                tracer.set("refs", planes.shape[0])
-                tracer.search_positions[search.__name__] += planes.shape[0] * valid_candidates(
-                    self.h, self.w, bs, sr, fme=self.fme, vbs=self.vbs, row0=self.g_row0, H=self.H)
-            s = search(cur, planes, sr, bs, **self._band(band_row0))
-            if search is K.full_search:  # returns the winners' pixels itself
-                return s, s["pred"], None
-            return (s, *self._fetch(s["mv"], s.get("sub_mv"), planes, band_row0))
-
     @traced("engine.inter_step")
     def _inter_step(self, cur: torch.Tensor, planes: torch.Tensor, g0: torch.Tensor | None = None,
                     band_row0: int = 0, qps: torch.Tensor | None = None, mvp: torch.Tensor | None = None) -> dict:
-        """One inter frame against ``planes`` (``_planes`` of the references,
+        """One inter frame against ``planes`` (``Motion.planes`` of the references,
         or of bands of them holding this instance's rows at ``band_row0``),
         at block QPs ``qps`` (default: the table rows').  Fast ME solves the
         chain from ``g0``, or confirms at MVPs ``mvp`` a caller has already
         solved (a mesh tile: ``fast_chain`` over its data row's tiles)."""
         qps = self.qps_by_type[1] if qps is None else qps
+        mo = self.motion
         # contiguous for the confirm kernel (a one-row frame or tile blockifies to a strided view)
         cur_blocks = blockify(cur, self.bs).to(torch.int32, memory_format=torch.contiguous_format)
         if self.fast:
             if self.cfg.parallel_mode == 2:  # every block's MVP is zero (jax_engine.py:237-295)
-                s = self._confirm(cur_blocks, planes, torch.zeros((self.nb, 3), dtype=torch.int32,
-                                                                  device=self.device))
+                s = mo.confirm(cur_blocks, planes, torch.zeros((self.nb, 3), dtype=torch.int32, device=self.device))
             elif mvp is not None:
-                s = self._confirm(cur_blocks, planes, mvp)
+                s = mo.confirm(cur_blocks, planes, mvp)
                 s["g_next"] = mvp
             else:
-                s = self._fast_search_rowscan(cur, cur_blocks, planes, g0)
+                s, passes = mo.fast_search(cur, cur_blocks, planes, g0)
+                self.fast_me_passes.append(passes)
             # a block without a valid candidate keeps its MVP as MV (K8) and is
             # predicted at that MV like any other: no 128 mask here
-            pf, pq = self._fetch(s["mv"], s.get("sub_mv"), planes, band_row0)
+            pf, pq = mo.fetch(s["mv"], s.get("sub_mv"), planes, band_row0)
             mask = (None, None)
         else:
-            s, pf, pq = self._full_search(cur, planes, band_row0)
+            # a block or quad without a valid candidate is predicted by 128s
+            s, pf, pq = mo.search(cur, planes, band_row0)
             mask = (s["ok"], s.get("sub_ok"))
         pred_full, pred_q = self._pred_blocks(pf, pq, *mask)
         with tracer.span("engine.residual"):
@@ -387,7 +308,7 @@ class TorchCodec:
                 if intra:
                     out, ftype = self._intra_step(cur, qps(0)), 0
                 else:
-                    out, ftype = self._inter_step(cur, self._planes(*self._inter_refs(refs, initial)), g_carry,
+                    out, ftype = self._inter_step(cur, self.motion.planes(*self._inter_refs(refs, initial)), g_carry,
                                                   qps=qps(1)), 1
                     # scene-change promotion (jax_engine.py:959-963): one size read per inter frame
                     if promote and int(to_host(out["size"], "promote_size")) > cfg.intra_thresh:
@@ -433,12 +354,9 @@ class TorchCodec:
         # parallel mode 1 decodes every frame as an inter frame against the
         # all-128 plane (jax_engine.py:1180-1196)
         all_inter = cfg.parallel_mode == 1
-        mv_all, smv_all, split_all, pay_all, rqp_all = pack_stream(cfg, frame_types, residuals_per_frame,
-                                                                   mvs_per_frame, qp_rows_per_frame)
-        with tracer.span("engine.upload_stream"):
-            d_mv, d_split, d_pay = (to_device(a, self.device, "stream") for a in (mv_all, split_all, pay_all))
-            d_smv = to_device(smv_all, self.device, "stream") if self.vbs else None  # read only under VBS
-            d_rqp = to_device(rqp_all, self.device, "stream") if cfg.rc_active else None
+        d_mv, d_smv, d_split, d_pay, d_rqp = upload_stream(
+            pack_stream(cfg, frame_types, residuals_per_frame, mvs_per_frame, qp_rows_per_frame), self.device,
+            self.vbs, cfg.rc_active)
 
         out = []
         refs = [self._plane128()]
@@ -455,8 +373,8 @@ class TorchCodec:
                                           qf, qq, qps)
                     refs = []
                 else:
-                    pf, pq = self._fetch(d_mv[i], d_smv[i] if self.vbs else None,
-                                         self._planes(*self._inter_refs(refs, initial)))
+                    pf, pq = self.motion.fetch(d_mv[i], d_smv[i] if self.vbs else None,
+                                               self.motion.planes(*self._inter_refs(refs, initial)))
                     f = self._recon_inter(pf, pq, d_split[i], qf, qq, qps)
                 out.append(f)
                 if i < n - 1:
@@ -500,61 +418,6 @@ def fifo_push(refs: list, frame: torch.Tensor, nref: int) -> None:
     if len(refs) >= nref:
         refs.pop(0)
     refs.append(frame)
-
-
-class ChainTile(NamedTuple):
-    """What ``fast_chain`` reads of one tile: its device, the frame row it
-    starts at, its block rows, the whole frame's (H, W), the block size and
-    whether the chain runs on the half-pel grid."""
-    device: torch.device
-    g_row0: int
-    nbr: int
-    frame: tuple[int, int]
-    bs: int
-    fme: bool
-
-
-@traced("engine.fast_chain")
-def fast_chain(tiles: list, curs: list, planes: list, g0s: list) -> tuple[list, int]:
-    """Solve one frame's fast-ME MVP chain over its tiles, top to bottom
-    (``JaxCodec._fast_search_rowscan``; on a mesh ``_fast_tile_rowscan``).
-
-    ``tiles``: the frame's tiles' ``ChainTile`` (one for the whole frame),
-    each with its rows of the frame in ``curs``, the whole frame's
-    ``planes`` on its device and the previous frame's converged MVPs or None
-    in ``g0s``.  Each pass launches ``rowscan_pass`` once per tile: every
-    block row is solved exactly from its seed.  The next seeds are the
-    frame's rows' last MVs shifted down one row: within a tile the row
-    above's, for a tile's first row the last MV of the tile above, copied
-    across devices (tile 0's first row: zero).  The chain's solution is the
-    one fixpoint of that map, so any start gives it; ``g0s`` only save
-    passes.  Convergence is tested on the frame's whole seed vector, one flag
-    read per pass.  (The JAX mesh tests it over the whole mesh, since its
-    seed exchange is one SPMD collective for every data row; here data rows
-    run in turn, so the frame's own test is the one that applies, and with
-    a unique fixpoint the MVs are the same.)  At most the frame's block rows
-    + 2 passes, the JAX bound.  Returns (each tile's (nb_t, 3) converged
-    MVPs, the passes)."""
-    e0 = tiles[0]
-    bs, fme, (fh, fw) = e0.bs, e0.fme, e0.frame
-    nbc = fw // bs
-    zeros = [torch.zeros((1, 3), dtype=torch.int32, device=e.device) for e in tiles]
-    seeds = [z.expand(e.nbr, 3).contiguous() if g is None else g.reshape(e.nbr, nbc, 3)[:, 0].contiguous()
-             for e, z, g in zip(tiles, zeros, g0s)]
-    passes, changed = 0, True
-    while changed and passes <= fh // bs + 1:
-        mvs = [K.rowscan_pass(c, p, s, bs, fme, g_row0=e.g_row0, grid=e.frame)
-               for e, c, p, s in zip(tiles, curs, planes, seeds)]
-        passes += 1
-        nxt = [torch.cat([z if t == 0 else mvs[t - 1][-1, -1:].to(e.device), m[:-1, -1]])
-               for t, (e, z, m) in enumerate(zip(tiles, zeros, mvs))]
-        changed = host_flag(torch.stack([(a != b).any().to(e0.device) for a, b in zip(nxt, seeds)]).any(),
-                            "chain_flag")
-        seeds = nxt
-    # each block's MVP: the MV before it in raster order, a tile's first the converged seed
-    gs = [torch.cat([s[:1], m.reshape(-1, 3)[:-1]]) for s, m in zip(seeds, mvs)]
-    tracer.set("passes", passes)
-    return gs, passes
 
 
 @traced("engine.package")
@@ -636,6 +499,18 @@ def pack_stream(cfg: CodecConfig, frame_types, residuals_per_frame, mvs_per_fram
             rqp_all[i] = np.asarray(qp_rows_per_frame[i], dtype=np.int32)
         nref = 1 if ft == 0 else min(nref + 1, cfg.n_ref_frames)
     return mv_all, smv_all, split_all, pay_all, rqp_all
+
+
+@traced("engine.upload_stream")
+def upload_stream(packed: tuple, device, vbs: bool, rc_active: bool) -> tuple:
+    """Every decoder's device input: ``pack_stream``'s arrays on ``device``,
+    one copy each (site ``stream``), the sub-MVs only under ``vbs`` and the
+    row QPs only under ``rc_active`` (else None)."""
+    mv, smv, split, pay, rqp = packed
+    d_mv, d_split, d_pay = (to_device(a, device, "stream") for a in (mv, split, pay))
+    d_smv = to_device(smv, device, "stream") if vbs else None
+    d_rqp = to_device(rqp, device, "stream") if rc_active else None
+    return d_mv, d_smv, d_split, d_pay, d_rqp
 
 
 # ------------------------------------------------ interchange (module level)

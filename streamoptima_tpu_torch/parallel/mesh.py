@@ -18,8 +18,8 @@ configurations.  A ``Mesh`` lays devices out on two axes:
 Fast ME always reads whole reference frames: its MVP walk is not bounded by
 the search range (mesh.py:613-617 of the JAX package).  The chain crosses
 tiles: each pass launches ``rowscan_pass`` on every tile of the data row,
-and a tile's first seed is the last MV of the tile above (``fast_chain``,
-shared with ``TorchCodec``).
+and a tile's first seed is the last MV of the tile above
+(``motion.fast_chain``, shared with ``TorchCodec``).
 
 A device may appear more than once: ``make_mesh(cfg, devices=[cuda0] * 6)``
 runs a (2, 3) mesh on one card, as the JAX package's 8 virtual CPU devices
@@ -57,8 +57,10 @@ import torch
 
 from streamoptima_tpu_torch import metrics
 from streamoptima_tpu_torch.config import CodecConfig
-from streamoptima_tpu_torch.engine import (TorchCodec, build_package, encode_passes, fast_chain, fifo_push,
-                                           pack_stream, promotes, unpack_payload)
+from streamoptima_tpu_torch.core import motion as MO
+from streamoptima_tpu_torch.engine import (TorchCodec, build_package, encode_passes, fifo_push, pack_stream,
+                                           promotes, unpack_payload, upload_stream)
+from streamoptima_tpu_torch.profiling import to_device
 
 #: per-frame outputs that concatenate over tiles, in block raster or row order
 _TILED_KEYS = ("mv", "split", "sub_mv", "qtc_full", "qtc_quads", "row_bits", "recon", "mae")
@@ -202,12 +204,12 @@ class ShardedCodec:
             return [_all_gather([f[r] for f in fifos], dev) for r in range(len(fifos[t]))], t * self.h_t
         return [_halo_band([f[r] for f in fifos], t, self.halo, dev) for r in range(len(fifos[t]))], self.halo
 
-    def _tile_rows(self, rows: np.ndarray, d: int, frames: range) -> list:
+    def _tile_rows(self, rows: torch.Tensor, d: int, frames: range) -> list:
         """Each tile's block rows of ``frames``' row QPs (an (n, block_rows)
-        host array), on its device on data row ``d``: one upload per tile."""
+        tensor on the first device), on its device on data row ``d``: views
+        where it is the first device, else one copy per tile."""
         sl = slice(frames[0], frames[-1] + 1)
-        return [torch.from_numpy(np.ascontiguousarray(rows[sl, t * self.nbr_t:(t + 1) * self.nbr_t])).to(dev)
-                for t, dev in enumerate(self.mesh.devices[d])]
+        return [rows[sl, t * self.nbr_t:(t + 1) * self.nbr_t].to(dev) for t, dev in enumerate(self.mesh.devices[d])]
 
     def _size(self, outs: list) -> torch.Tensor:
         """One frame's size: its tiles' sizes summed, on the first device."""
@@ -232,7 +234,7 @@ class ShardedCodec:
             idx = [i for i in range(n) if (i // gl) % self.ndata == d]
             for t in range(self.ntile):
                 part = np.ascontiguousarray(self.y[idx, t * self.h_t:(t + 1) * self.h_t])
-                self._frames_dev[d][t] = torch.from_numpy(part).to(self.mesh.devices[d, t])
+                self._frames_dev[d][t] = to_device(part, self.mesh.devices[d, t], "clip")
 
     def _inter_tiles(self, d: int, curs: list, fifos: list, qps: list) -> list:
         """One inter frame on data row ``d``: each tile's step against its
@@ -243,25 +245,25 @@ class ShardedCodec:
         engines = self._tiles[d]
         comm = "all_gather" if self.fast else self.tile_comm
         refs = [self._bands(fifos, d, t, comm) for t in range(self.ntile)]
-        planes = [e._planes(bands, False) for e, (bands, _) in zip(engines, refs)]
+        planes = [e.motion.planes(bands) for e, (bands, _) in zip(engines, refs)]
         mvps = [None] * self.ntile
         if self.fast:
-            mvps, passes = fast_chain([e.chain_tile for e in engines], curs, planes, self._g_carry[d])
+            mvps, passes = MO.fast_chain([e.motion for e in engines], curs, planes, self._g_carry[d])
             self.fast_me_passes.append(passes)
             self._g_carry[d] = mvps
         return [e._inter_step(c, p, band_row0=b0, qps=q, mvp=g)
                 for e, c, p, (_, b0), q, g in zip(engines, curs, planes, refs, qps, mvps)]
 
     def _encode_gop_local(self, d: int, frames: range, ftypes_fixed: list | None = None,
-                          rqps: np.ndarray | None = None, light: bool = False) -> tuple[list, list]:
+                          rqps: torch.Tensor | None = None, light: bool = False) -> tuple[list, list]:
         """Encode one GOP on data row ``d``: the intra frame, then each inter
         frame against the tiles' reference FIFOs.  Under promotion an inter
         frame whose merged size exceeds ``intra_thresh`` is coded again intra
         on every tile, and the FIFOs start over from it.  ``ftypes_fixed`` /
         ``rqps``: two-pass's second pass, with pass 1's frame types and the
-        clip's (n, block_rows) row QPs.  ``light`` keeps only each frame's row
-        bits (pass 1).  Returns the merged per-frame outputs and the frame
-        types."""
+        clip's (n, block_rows) row QPs on the first device.  ``light`` keeps
+        only each frame's row bits (pass 1).  Returns the merged per-frame
+        outputs and the frame types."""
         cfg, engines, gl = self.cfg, self._tiles[d], self.gl
         promote = promotes(cfg, ftypes_fixed)
         rows = None if rqps is None else self._tile_rows(rqps, d, frames)
@@ -299,13 +301,15 @@ class ShardedCodec:
                           light: bool = False) -> tuple[list, list]:
         """Every GOP's merged per-frame outputs and frame types: GOPs in
         batches of ``ndata``, GOP g on data row g % ndata (arguments: those
-        of ``_encode_gop_local``).  The last batch and the last GOP run only
+        of ``_encode_gop_local``, but ``rqps`` on the host, uploaded here in
+        one copy).  The last batch and the last GOP run only
         their real frames: the JAX mesh pads them with the last frame to keep
         its compiled shapes and drops the padding's outputs."""
         n, gl = self.cfg.frames, self.gl
         per_frame, ftypes = [], []
         self.fast_me_passes = []
         self._g_carry = [[None] * self.ntile for _ in range(self.ndata)]
+        rqps = None if rqps is None else to_device(rqps, self.home, "row_qps")
         for g in range(math.ceil(n / gl)):
             outs, types = self._encode_gop_local(g % self.ndata, range(g * gl, min(n, (g + 1) * gl)), ftypes_fixed,
                                                  rqps, light)
@@ -343,19 +347,18 @@ class ShardedCodec:
         max_dy = max(int(np.abs(mv_all[..., 1]).max(initial=0)), int(np.abs(smv_all[..., 1]).max(initial=0)))
         return "all_gather" if max_dy > bound else "halo"
 
-    def _decode_gop_local(self, d: int, frames: range, frame_types, packed: tuple, rqp_all, comm: str) -> list:
+    def _decode_gop_local(self, d: int, frames: range, frame_types, stream: tuple, rqp_all, comm: str) -> list:
         """Decode one GOP on data row ``d``; frame-type driven, so an intra
         frame inside the GOP resets the FIFOs as ``TorchCodec.decode`` does.
-        ``rqp_all``: the stream's (n, block_rows) row QPs under rate control
-        (None: the table QPs)."""
+        ``stream``, ``rqp_all``: ``upload_stream``'s tensors (the row QPs
+        None without rate control: the table QPs)."""
         engines = self._tiles[d]
         vbs = self.cfg.vbs_enable
         sl = slice(frames[0], frames[-1] + 1)
-        shards = []  # per tile: its blocks of the GOP's mv, sub_mv (under VBS), split and payload, one upload each
+        shards = []  # per tile: its blocks of the GOP's arrays, views where its device is the first, else a copy
         for t, e in enumerate(engines):
             blocks = slice(t * self.nb_t, (t + 1) * self.nb_t)
-            shards.append([None if a is None else torch.from_numpy(np.ascontiguousarray(a[sl, blocks])).to(e.device)
-                           for a in packed])
+            shards.append([None if a is None else a[sl, blocks].to(e.device) for a in stream])
         rows = None if rqp_all is None else self._tile_rows(rqp_all, d, frames)
         fifos = [[] for _ in engines]
         out = []
@@ -370,7 +373,7 @@ class ShardedCodec:
                     f = e._recon_intra(mv[:, 0], split, smv[:, :, 0] if vbs else None, qf, qq, qps)
                 else:
                     bands, band_row0 = self._bands(fifos, d, t, comm)
-                    pf, pq = e._fetch(mv, smv, e._planes(bands, False), band_row0)
+                    pf, pq = e.motion.fetch(mv, smv, e.motion.planes(bands), band_row0)
                     f = e._recon_inter(pf, pq, split, qf, qq, qps)
                 tiles.append(f)
             for fifo, f in zip(fifos, tiles):
@@ -391,20 +394,20 @@ class ShardedCodec:
     def decode(self, frame_types, residuals_per_frame, qp_rows_per_frame, mvs_per_frame) -> list:
         """Sharded decode of list- or array-form interchange (the bitstream
         readers' output) into a list of (h, w) uint8 tensors on the mesh's
-        first device.  Every GOP must open intra (``gop_regular``): the
+        first device, where the stream is uploaded once.  Every GOP must open intra (``gop_regular``): the
         "data" axis relies on GOP independence."""
         gl = self.gl
         if not self.gop_regular(frame_types):
             i = next(i for i in range(0, len(frame_types), gl) if int(frame_types[i]) != 0)
             raise ValueError(f"frame {i} has type {frame_types[i]} but every GOP must open intra "
                              "(i % intra_dur == 0): the sharded decoder relies on GOP independence")
-        mv_all, smv_all, split_all, pay_all, rqp_all = pack_stream(self.cfg, frame_types, residuals_per_frame,
-                                                                   mvs_per_frame, qp_rows_per_frame)
-        comm = self._decode_comm(mv_all, smv_all)
-        packed = (mv_all, smv_all if self.cfg.vbs_enable else None, split_all, pay_all)
+        cfg = self.cfg
+        packed = pack_stream(cfg, frame_types, residuals_per_frame, mvs_per_frame, qp_rows_per_frame)
+        comm = self._decode_comm(packed[0], packed[1])
+        d_mv, d_smv, d_split, d_pay, d_rqp = upload_stream(packed, self.home, cfg.vbs_enable, cfg.rc_active)
         n = len(frame_types)
         out = []
         for g in range(math.ceil(n / gl)):
             out += self._decode_gop_local(g % self.ndata, range(g * gl, min(n, (g + 1) * gl)), frame_types,
-                                          packed, rqp_all if self.cfg.rc_active else None, comm)
+                                          (d_mv, d_smv, d_split, d_pay), d_rqp, comm)
         return out

@@ -250,11 +250,11 @@ def main() -> None:
     g0 = None
     if args.fast:
         print(f"[fast ME] rowscan_pass passes per inter frame of the encode: {pkg['fast_me_passes']}")
-        g0 = codec._inter_step(y1, codec._planes(refs, False))["g_next"]
+        g0 = codec._inter_step(y1, codec.motion.planes(refs))["g_next"]
 
     steps = (("intra step (1 frame)", lambda: codec._intra_step(y0), args.reps),
              (f"inter step (1 frame, {args.nref} reference(s))",
-              lambda: codec._inter_step(y1, codec._planes(refs, False), g0), args.reps),
+              lambda: codec._inter_step(y1, codec.motion.planes(refs), g0), args.reps),
              (f"encode, {n} frames", lambda: codec.encode(package=False), max(args.reps // 2, 1)),
              (f"device decode, {n} frames", lambda: codec.decode(fts, res, qps, mvs), max(args.reps // 2, 1)))
     if args.mesh:

@@ -43,10 +43,10 @@ Spans (``engine`` is ``TorchCodec``, ``codec`` the ``VideoCodec`` facade):
 - ``engine.intra_step``, ``engine.inter_step``; in them ``engine.fast_chain``
   (attribute ``passes``), ``engine.confirm``, ``engine.search`` (a full
   search's launch and its winners' fetch; attribute ``refs``, the
-  references searched), ``engine.fetch`` (the prediction planes) and
-  ``engine.residual`` (transform, selection and reconstruction);
+  references searched), ``engine.fetch`` (the prediction planes), all four
+  ``core/motion.py``'s, and ``engine.residual``;
 - ``engine.package`` (``build_package``), ``engine.pack_stream`` and
-  ``engine.upload_stream`` (the decode's host pass and its uploads);
+  ``engine.upload_stream`` (every decoder's host pass and its uploads);
 - ``codec.fetch`` (the last encode's per-frame arrays, copied to the host
   for the writers), ``codec.finish`` (decoded frames to the host);
 - ``binstream.write`` with ``binstream.rle_encode``, ``binstream.read``
@@ -72,7 +72,7 @@ confirm searched: ``kernel``, by the ``fast_confirm`` kernel on a card, and
 ``plain``, by its plain twin (``core.fastme.confirm``) on the CPU.
 ``search_positions``, by search wrapper (``full_search``,
 ``full_search_vbs``, ``full_search_fme``, ``full_search_fme_vbs``), counts
-the candidates a full search can pick, per block and reference: those of
+the candidates a full search of either engine can pick, per block and reference: those of
 the (2r + 1)^2 positions (r the search range on the whole-pel grid, twice it
 on the half-pel grid) that the search's bounds make valid for the block or,
 with VBS, for one of its quads (``core.me.valid_candidates``, from the
@@ -352,7 +352,7 @@ def time_steps(cfg, y_frames, warmup: int = 1, iters: int = 8, *, device="cuda")
     "decode_intra_s": [...]}, each a list of ``iters`` seconds (the
     reference's self.intraN/interN, Encoder.py:62-69).  The steps are the
     encode loop's: ``_intra_step``; the references' planes and
-    ``_inter_step``; the decode's planes, prediction fetch (``_fetch``) and
+    ``_inter_step``; the decode's planes, prediction fetch (``Motion.fetch``) and
     ``_recon_inter``; ``_recon_intra``.  Frame 1 (or 0) is coded against
     frame 0, at the table rows' QPs."""
     from streamoptima_tpu_torch.engine import TorchCodec
@@ -377,12 +377,13 @@ def time_steps(cfg, y_frames, warmup: int = 1, iters: int = 8, *, device="cuda")
         out[name] = times
 
     run("intra_s", lambda: codec._intra_step(cur))
-    run("inter_s", lambda: codec._inter_step(cur, codec._planes(refs, False)))
-    enc = codec._inter_step(cur, codec._planes(refs, False))
+    mo = codec.motion
+    run("inter_s", lambda: codec._inter_step(cur, mo.planes(refs)))
+    enc = codec._inter_step(cur, mo.planes(refs))
     sub_mv = enc["sub_mv"] if codec.vbs else None
 
     def decode_inter():
-        pred_full, pred_q = codec._fetch(enc["mv"], sub_mv, codec._planes(refs, False))
+        pred_full, pred_q = mo.fetch(enc["mv"], sub_mv, mo.planes(refs))
         return codec._recon_inter(pred_full, pred_q, enc["split"], enc["qtc_full"], enc["qtc_quads"])
 
     run("decode_inter_s", decode_inter)

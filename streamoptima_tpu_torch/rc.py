@@ -84,7 +84,7 @@ def measure_qp_tables(cfg, y_frames, sample_frames: int = 2, *, device="cuda"):
                 if ftype == 0:
                     out = codec._intra_step(cur)
                 else:
-                    out = codec._inter_step(cur, codec._planes([codec._y_dev[i - 1]], False))
+                    out = codec._inter_step(cur, codec.motion.planes([codec._y_dev[i - 1]]))
                 bits.append(8.0 * float(out["row_bits"].to(torch.float32).mean()))
             row.append(float(np.mean(bits)))
         tables.append(row)

@@ -7,6 +7,8 @@ decoded by it.  PSNR and MAE are float32 with reductions in another order:
 1e-4.  sr=8 runs the wavefront intra reconstruction, sr=16 the column scan.
 Each package's ``CodecConfig`` is built from one dict of keyword arguments.
 """
+import ast
+import re
 import subprocess
 import sys
 import textwrap
@@ -267,3 +269,50 @@ def test_port_runs_without_importing_jax(tmp_path):
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("OK")
+
+
+#: the search and fetch wrappers (their plain versions too), the window, confirm and chain-pass wrappers
+MOTION_CALLS = re.compile(r"^(full_search\w*|pred_fetch\w*|window_fetch|fast_confirm|rowscan_pass)$")
+#: ``TorchCodec``'s search and fetch methods before the motion layer held them
+ENGINE_MOTION = ("_planes", "_fetch", "_band", "_confirm", "_full_search", "_fast_search_rowscan")
+
+
+def _used_names(tree: ast.AST) -> set:
+    """The names a module reads, called or not: ``f``, ``X.f`` and
+    ``getattr(X, "f")`` (so that a dispatch table or a conditional
+    expression counts as a call)."""
+    used = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Name) and isinstance(node.ctx, ast.Load):
+            used.add(node.id)
+        elif isinstance(node, ast.Attribute) and isinstance(node.ctx, ast.Load):
+            used.add(node.attr)
+        elif isinstance(node, ast.Call) and isinstance(node.func, ast.Name) and node.func.id == "getattr" \
+                and len(node.args) > 1 and isinstance(node.args[1], ast.Constant):
+            used.add(node.args[1].value)
+    return used
+
+
+def test_only_the_motion_layer_launches_the_search_and_fetch_kernels():
+    """Among the package's modules, only ``core/motion.py`` (and the wrappers'
+    own ``core/kernels.py``) calls the search, fetch, window, confirm and chain
+    wrappers: each tool set's kernel choice is made in one place (the mesh
+    solves its tiles' chain through ``motion.fast_chain``), and no module
+    reaches into ``TorchCodec``'s search or fetch."""
+    pkg = REPO / "streamoptima_tpu_torch"
+    own = {pkg / "core" / "motion.py", pkg / "core" / "kernels.py"}
+    callers, private = {}, {}
+    for path in sorted(pkg.rglob("*.py")):
+        tree = ast.parse(path.read_text(), str(path))
+        hits = sorted(n for n in _used_names(tree) if MOTION_CALLS.match(n))
+        if hits and path not in own:
+            callers[str(path.relative_to(REPO))] = hits
+        reach = sorted({n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute) and n.attr in ENGINE_MOTION
+                        and not (isinstance(n.value, ast.Name) and n.value.id == "self")})
+        if reach and path not in own:
+            private[str(path.relative_to(REPO))] = reach
+    assert not callers, callers
+    assert not private, private
+    motion = _used_names(ast.parse((pkg / "core" / "motion.py").read_text()))
+    assert {"pred_fetch", "pred_fetch_vbs", "pred_fetch_fme", "pred_fetch_fme_vbs", "window_fetch", "fast_confirm",
+            "rowscan_pass", "fast_chain"} <= motion  # the layer holds what it says (the searches: by name)

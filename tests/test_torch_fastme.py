@@ -490,12 +490,12 @@ def test_search_matches_sequential_oracle_cold_and_warm(mode):
     cur = _t(clip[1])
     cur_b = TB.blockify(cur, BS).to(torch.int32)
     ref0 = tc.encode(package=False)["per_frame"][0]["recon"]
-    planes = tc._planes([ref0], False) if tc.vbs else ref0[None]
-    cold = tc._fast_search_rowscan(cur, cur_b, planes, None)
+    planes = tc.motion.planes([ref0], False) if tc.vbs else ref0[None]
+    cold, _ = tc.motion.fast_search(cur, cur_b, planes, None)
     rng = np.random.default_rng(8)
     wild = np.concatenate([rng.integers(-9, 10, (tc.nb, 2)), np.zeros((tc.nb, 1), int)], 1).astype(np.int32)
-    warm = tc._fast_search_rowscan(cur, cur_b, planes, _t(wild))
-    again = tc._fast_search_rowscan(cur, cur_b, planes, cold["g_next"])
+    warm, _ = tc.motion.fast_search(cur, cur_b, planes, _t(wild))
+    again, passes = tc.motion.fast_search(cur, cur_b, planes, cold["g_next"])
     assert set(cold) == set(warm)
     for k in cold:
         np.testing.assert_array_equal(cold[k].numpy(), warm[k].numpy(), err_msg=k)
@@ -503,4 +503,4 @@ def test_search_matches_sequential_oracle_cold_and_warm(mode):
     np.testing.assert_array_equal(cold["mv"].numpy(), frame["mv"].numpy())
     # the MVPs are the MVs shifted one block: the confirm re-derived the chain
     np.testing.assert_array_equal(cold["g_next"][1:].numpy(), cold["mv"][:-1].numpy())
-    assert tc.fast_me_passes[-1] == 1  # started at the fixpoint: one pass confirms it
+    assert passes == 1  # started at the fixpoint: one pass confirms it

@@ -298,7 +298,7 @@ CONFIRM_CASES = ([(fme, vbs, nref, bs, "random") for fme in (False, True) for vb
 
 
 def _confirm_case(cuda, fme, vbs, nref, bs, case):
-    """The confirm's arguments as ``TorchCodec._confirm`` builds them on the
+    """The confirm's arguments as ``Motion.confirm`` builds them on the
     card (``region_base``, one ``window_fetch`` of the whole frame's planes),
     for a case: random content and MVPs of either sign and parity, some far
     outside (K8); ``drift``, MVPs that walk one step a block from the origin

@@ -9,6 +9,7 @@ copied, the outputs are the same as with the tracer off, and
 ``profiling.trace`` exports the spans beside the profiler's events.  The
 per-frame launch counts need the card (``tests/test_torch_gpu.py``).
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 from streamoptima_tpu_torch import CodecConfig, VideoCodec, binstream, profiling, synthetic_clip
 from streamoptima_tpu_torch.core import kernels as K
 from streamoptima_tpu_torch.engine import pack_stream
+from streamoptima_tpu_torch.parallel import make_mesh
 from streamoptima_tpu_torch.profile_main_path import _idle_by_span, _union
 from streamoptima_tpu_torch.profiling import host_flag, to_device, to_host, tracer
 
@@ -186,14 +188,26 @@ def test_confirm_blocks_by_route(clip):
     assert sum(s["name"] == "engine.confirm" for s in _spans()) == n_inter
 
 
-def test_upload_counter_equals_the_packed_stream(clip, tmp_path):
-    enc = VideoCodec(CFG, clip, device="cpu")
-    enc.encode(compute_ssim=False, package=False)
-    enc.transmit_bitstream_binary(tmp_path / "c.sob")
-    fts, mvs, qps, res = binstream.read_binary(tmp_path / "c.sob", CFG)
-    mv_all, smv_all, split_all, pay_all, _ = pack_stream(CFG, fts, res, mvs, qps)
+@pytest.mark.parametrize("decoder", ["torch", "compat", "mesh"])
+def test_upload_counter_equals_the_packed_stream(clip, tmp_path, decoder):
+    """Every decoder (``TorchCodec``, ``CompatCodec``, ``ShardedCodec`` on a
+    (2, 2) CPU mesh) uploads the packed stream once, through
+    ``engine.upload_stream``: its bytes under ``h2d_bytes["stream"]``."""
+    cfg = dataclasses.replace(CFG, engine="compat") if decoder == "compat" else CFG
+    enc = VideoCodec(cfg, clip, device="cpu")
+    if decoder == "compat":  # the reference-exact engine has no binary container: its list forms
+        pkg = enc.encode(compute_ssim=False)
+        fts, mvs, qps, res = (pkg[k] for k in ("frame_type_seq", "MVS per Frame", "Qp_per_row_per_frame",
+                                               "approx residual"))
+    else:
+        enc.encode(compute_ssim=False, package=False)
+        enc.transmit_bitstream_binary(tmp_path / "c.sob")
+        fts, mvs, qps, res = binstream.read_binary(tmp_path / "c.sob", cfg)
+    mv_all, smv_all, split_all, pay_all, _ = pack_stream(cfg, fts, res, mvs, qps)
+    dec = VideoCodec(cfg, mesh=make_mesh(cfg, devices=["cpu"] * 4)) if decoder == "mesh" else VideoCodec(cfg,
+                                                                                                          device="cpu")
     tracer.enable()
-    frames = VideoCodec(CFG, device="cpu").decode(fts, res, qps, mvs)
+    frames = dec.decode(fts, res, qps, mvs)
     snap = tracer.snapshot()
     assert snap["h2d_bytes"] == {"stream": sum(a.nbytes for a in (mv_all, smv_all, split_all, pay_all))}
     assert snap["host_syncs"] == {"finish": 1} and snap["d2h_bytes"] == {"finish": frames.nbytes}
