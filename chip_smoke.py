@@ -86,10 +86,15 @@ all-gather mesh):
 ``[mesh-rc]``'s and its single-device twin's: each pair of files is
 byte-equal, and each file decodes on one device and on the mesh to the
 reconstructions.  Each write codes the coefficients on the card: two
-``rle_pack`` launches.  ``[rle-pack]`` (after ``[main-fast-vbs-fme]``)
+``rle_pack`` launches; each decode decodes them on the card: one
+``rle_unpack`` launch.  ``[rle-pack]`` (after ``[main-fast-vbs-fme]``)
 holds that kernel to its plain version on that path's 16 frames, the
 encode cell's shapes, with every block split, with none, and at a short
-capacity, and times it beside its plain version and its byte bound.  ``[dryrun]`` runs ``parallel.dryrun.dryrun_multichip(8)`` on an
+capacity, and times it beside its plain version and its byte bound.
+``[rle-unpack]`` holds the decode's kernel to its plain version and to the
+host route's payload on that path's container (the decode cell's shapes),
+and times it beside its byte bound, its plain version and the host RLE it
+replaces (``native``).  ``[dryrun]`` runs ``parallel.dryrun.dryrun_multichip(8)`` on an
 8-shard mesh of the card: the six feature sets of the JAX package's
 multi-chip dry run at 64x64, each bit for bit with one device and its
 sharded decode closed, with the launches each makes.
@@ -249,6 +254,7 @@ import numpy as np
 import torch
 
 from streamoptima_tpu_torch import CodecConfig, _build, metrics, native, profiling, synthetic_clip
+from streamoptima_tpu_torch import binstream as BIN
 from streamoptima_tpu_torch import bitstream as BS
 from streamoptima_tpu_torch.core import motion as MO
 from streamoptima_tpu_torch.compat_engine import CompatCodec
@@ -259,7 +265,7 @@ from streamoptima_tpu_torch.core import me as M
 from streamoptima_tpu_torch.core import transform as T
 from streamoptima_tpu_torch.core.blocks import blockify
 from streamoptima_tpu_torch.core.pred import gather_predictions
-from streamoptima_tpu_torch.engine import TorchCodec, frame_arrays_of
+from streamoptima_tpu_torch.engine import TorchCodec, frame_arrays_of, pack_stream
 from streamoptima_tpu_torch.main import main as cli_main
 from streamoptima_tpu_torch.parallel import ShardedCodec, make_mesh
 from streamoptima_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -294,7 +300,7 @@ TOOLS = {
 KERNELS = {name: getattr(K, name) for name in (
     "full_search", "full_search_vbs", "full_search_fme", "full_search_fme_vbs", "pred_fetch", "pred_fetch_vbs",
     "pred_fetch_fme", "pred_fetch_fme_vbs", "rowscan_pass", "window_fetch", "fast_confirm", "dct_scipy",
-    "intra_recon", "transform_select", "residual_recon", "intra_search", "rle_pack")}
+    "intra_recon", "transform_select", "residual_recon", "intra_search", "rle_pack", "rle_unpack")}
 #: the wrappers a frame step's residual coding calls, whose real arguments the kernel phase reads off a step
 STEP_WRAPPERS = ("intra_search", "transform_select", "residual_recon", "intra_recon")
 FP64_LANES_PER_SM = 64  # Hopper: one float64 add or multiply per lane and cycle (an FMA counts two in data sheets)
@@ -950,6 +956,47 @@ def _rle_phase(dev, pkg: dict, cyc: float) -> dict:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def _unpack_phase(dev, codec: VideoCodec, cyc: float) -> dict:
+    """``[rle-unpack]``: the container's decoding kernel against its plain
+    version on the card, exactly, and against the host route's payload, on
+    ``codec``'s container (``[main-fast-vbs-fme]``'s 16 frames: the decode
+    cell's shapes), over the buffer the decoders upload; then its time, the
+    plain version's, the host RLE's (``native``, the route it replaces, over
+    the same lists) and the bound (bytes).  Returns its row without its
+    launches."""
+    cfg = codec.cfg
+    with tempfile.TemporaryDirectory() as d:
+        codec.transmit_bitstream_binary(Path(d) / "u.sob")
+        fts, mvs, _, res = BIN.read_binary(Path(d) / "u.sob", cfg)
+    pay = pack_stream(cfg, fts, res, mvs)[3]
+    host = np.zeros(pay.nbytes, np.uint8)
+    pay.fill(host)
+    buf = torch.from_numpy(host).to(dev)
+    shape = (cfg.frames, cfg.n_blocks, cfg.block_size)
+    got = K.rle_unpack(buf, *shape)
+    err = _check_equal("[rle-unpack] segment", got, K.rle_unpack_plain(buf, *shape))
+    dense = pack_stream(cfg, fts, [BS.FrameResArrays(r.split, r.qf, r.qq) for r in res], mvs)[3]
+    _require(np.array_equal(got.cpu().numpy(), dense), "[rle-unpack] the payload differs from the host route's")
+    ms, host_ms = _time_ms(lambda: K.rle_unpack(buf, *shape), 50, cyc)
+    plain_ms, _ = _time_ms(lambda: K.rle_unpack_plain(buf, *shape), 2, cyc)
+    t0 = time.perf_counter()
+    for r in res:
+        native.rle_decode_blocks(r.vals_f, r.offs_f, cfg.block_size)
+        native.rle_decode_blocks(r.vals_q, r.offs_q, cfg.sub_block_size)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = pay.nbytes + 2 * got.numel()  # the buffer read once, the payload written once
+    bound_ms, bound_by = _bound(nbytes, 0, 1.0)
+    symbols = sum(len(r.vals_f) + len(r.vals_q) for r in res)
+    print(f"[rle-unpack] {cfg.frames} frames 720p, {symbols} symbols: {ms:.4f} ms a segment (one launch) vs plain "
+          f"{plain_ms:.4f} ms (host enqueue {host_ms:.4f} ms per call) and the host RLE (native) {native_ms:.4f} ms; "
+          f"bound {bound_ms:.5f} ms by {bound_by} ({nbytes} bytes); kernel == plain version on the card and == the "
+          "host route's payload, bit for bit", flush=True)
+    return {"name": "rle_unpack", "route": "cuda", "source": "streamoptima_tpu_torch/csrc/rle_unpack.cu",
+            "replaces": "streamoptima_tpu/native/entropy.cpp:209 (host)", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "native_ms": native_ms}
+
+
 def _compat_phase(dev) -> dict:
     """The compat engine's paths, each run on the card with every kernel's
     launches counted from 0 just before it, and again on the CPU (the plain
@@ -1223,16 +1270,17 @@ def _check_mesh(label: str, extra: dict, clip: np.ndarray, dev, run: dict, frame
     return one
 
 
-def _binary_phase(dev, pairs: dict) -> None:
+def _binary_phase(dev, pairs: dict) -> dict:
     """The binary container: ``pairs``: label -> (the single-device codec,
     the mesh codec, the mesh's package) of one whole-pel config, each codec
     after its encode.  Each writes the container; the two files are
     byte-equal, and each decodes, on one device and on the mesh, to the
     reconstructions, with one fetch per inter frame (on the mesh one per
-    tile).  Each write codes the encode's coefficients on the card: two
-    ``rle_pack`` launches and no other kernel.  Returns the writes' ``rle_pack``
-    launches."""
-    rle_launches = 0
+    tile) and one ``rle_unpack`` launch.  Each write codes the encode's
+    coefficients on the card: two ``rle_pack`` launches and no other kernel.
+    Returns the writes' ``rle_pack`` launches and the decodes'
+    ``rle_unpack`` launches."""
+    rle_launches = unpack_launches = 0
     with tempfile.TemporaryDirectory() as d:
         for label, (one, on_mesh, pkg) in pairs.items():
             cfg = one.cfg
@@ -1264,13 +1312,15 @@ def _binary_phase(dev, pairs: dict) -> None:
                              "differs from the reconstructions")
                     want = {"pred_fetch": n_inter * (N_TILES if mesh else 1),
                             "intra_recon": pkg["frame_type_seq"].count(0) * (N_TILES if mesh else 1),
-                            "residual_recon": cfg.frames * (N_TILES if mesh else 1)}
+                            "residual_recon": cfg.frames * (N_TILES if mesh else 1), "rle_unpack": 1}
                     _require(launches == want, f"[binary] {label}: decode launches {launches}, expected {want}")
+                    unpack_launches += 1
             print(f"[binary] {label}: 720p {cfg.frames} frames, SOTPB1 {files[0].stat().st_size} bytes written in "
                   f"{write_s[0]:.3f} s (one device) and {write_s[1]:.3f} s (mesh), byte-equal; decode_bitstream_binary "
                   f"of each file on one device and on the mesh == recon ({', '.join(f'{x:.3f}' for x in decodes)} s); "
-                  "coefficients coded on the card (rle_pack, two launches a write)", flush=True)
-    return rle_launches
+                  "coefficients coded on the card (rle_pack, two launches a write) and decoded there (rle_unpack, one "
+                  "launch a decode)", flush=True)
+    return {"rle_pack": rle_launches, "rle_unpack": unpack_launches}
 
 
 def _dryrun_launches(summary: dict) -> dict:
@@ -1387,7 +1437,7 @@ def _cli_phase(clip: np.ndarray, main_run: dict) -> None:
         # the encode's intra frames, then each decode's; the encode's frame steps, then each decode's frames
         want = {"full_search": main_run["launches"]["full_search"], "pred_fetch": 2 * main_run["n_inter"],
                 "intra_recon": 3 * (FRAMES // INTRA_DUR), "intra_search": FRAMES // INTRA_DUR,
-                "transform_select": FRAMES, "residual_recon": 3 * FRAMES}
+                "transform_select": FRAMES, "residual_recon": 3 * FRAMES, "rle_unpack": 1}
         _require(rc_a == 0, f"[cli] run A exited {rc_a}")
         closed("a")
         _require((d / "arec.yuv").read_bytes() == main_run["pkg"]["reconstructed frames"].tobytes(),
@@ -1425,7 +1475,8 @@ def _cli_phase(clip: np.ndarray, main_run: dict) -> None:
         # those and each decode's frames
         want = {"rowscan_pass": sum(chained), "window_fetch": n_steps, "fast_confirm": n_steps,
                 "pred_fetch_fme_vbs": n_steps + 2 * (n_b - 1), "intra_recon": 12 * 2 + 2 + 2,
-                "intra_search": 12 * 2 + 2, "transform_select": 48 + 2 * n_b, "residual_recon": 48 + 4 * n_b}
+                "intra_search": 12 * 2 + 2, "transform_select": 48 + 2 * n_b, "residual_recon": 48 + 4 * n_b,
+                "rle_unpack": 1}
         _require(launches == want, f"[cli] run B's launches {launches}, expected {want}")
         t0 = time.perf_counter()
         rc_ref = cli_main(argv_b + ["--vbs-overlay", str(d / "cov.yuv"), "--device", "cpu"] + outputs("c"))
@@ -1897,6 +1948,7 @@ def main() -> None:
     _require(sum(int(o["split"].sum()) for o in fast["main-fast-vbs-fme"]["pkg"]["per_frame"]) > 0,
              "the fast-ME VBS + FME path split no block")
     rle_row = _rle_phase(dev, fast["main-fast-vbs-fme"]["pkg"], cyc)
+    unpack_row = _unpack_phase(dev, fast["main-fast-vbs-fme"]["codec"], cyc)
     tools = {
         "main-vbs": _drive("main-vbs", TOOLS["main-vbs"], clip, dev, full_search_vbs=N_INTER,
                            pred_fetch_vbs=2 * N_INTER),
@@ -1995,9 +2047,10 @@ def main() -> None:
 
     # the binary container from [main] and [mesh]'s encodes (one config, one device and the mesh), and from
     # [mesh-rc]'s and its single-device twin's
-    rle_row["launches"] = _binary_phase(
+    binary = _binary_phase(
         dev, {"main": (whole["codec"], mesh_runs["mesh"]["codec"], mesh_runs["mesh"]["pkg"]),
               "mesh-rc": (singles["mesh-rc"], mesh_runs["mesh-rc"]["codec"], mesh_runs["mesh-rc"]["pkg"])})
+    rle_row["launches"], unpack_row["launches"] = binary["rle_pack"], binary["rle_unpack"]
 
     # the dry run: __graft_entry__.dryrun_multichip's six feature sets at 64x64 on an 8-shard mesh of the card
     _zero_counts()
@@ -2082,6 +2135,7 @@ def main() -> None:
         row["launches"] = fast["main-fast-vbs-fme"]["launches"][name]
         kernels.append(row)
     kernels.append(rle_row)  # its launches: the [binary] phase's container writes
+    kernels.append(unpack_row)  # its launches: the [binary] phase's decodes
     # the two fast-ME kernels: the FME mode's numbers, the whole-pel mode's under whole_pel_* keys
     rows = {}
     for fme, label in ((True, "main-fast-vbs-fme"), (False, "main-fast")):

@@ -137,4 +137,7 @@ def library() -> ctypes.CDLL:
     # table, frames, nb, n, scan_full, scan_quad, out, out elements, stream
     lib.so_rle_pack.argtypes = [p, i, i, i, p, p, p, ctypes.c_longlong, p]
     lib.so_rle_pack.restype = i
+    # buf, frames, nb, n, scan_full, scan_quad, out, stream
+    lib.so_rle_unpack.argtypes = [p, i, i, i, p, p, p, p]
+    lib.so_rle_unpack.restype = i
     return lib

@@ -29,6 +29,16 @@ twin in ``core/zigzag.py`` where the library does not build.  The tracer's
 ``rle_frames`` counter counts each route's frames (sites ``device`` and
 ``host``).  Both routes give the same bytes.
 
+The read mirrors it.  ``read_binary`` leaves each frame's coefficients as
+the container codes them (``CodedResiduals``: the split flags and views of
+the RLE lists in the file's bytes).  The decoders take those lists to the
+device undecoded, in one copy, and one ``K.rle_unpack`` launch writes their
+payload there (``engine.pack_stream`` / ``upload_stream``).  Any other
+consumer of the array interchange reads a frame's ``qf`` / ``qq``, which
+the host RLE (``native``, or its Python twin) decodes on first access.  The
+tracer's ``rle_decoded_frames`` counter counts each route's frames (sites
+``device`` and ``host``).
+
 Layout (little-endian):
 
     magic  b"SOTPB1\\n"
@@ -158,6 +168,49 @@ def _rle_decode_batch(vals, offs, n: int) -> np.ndarray:
     ])
 
 
+class CodedResiduals(FrameResArrays):
+    """One frame's residuals as the container codes them (``read_binary``'s):
+    the split flags, and the unsplit blocks' and the split blocks' RLE lists
+    (``offs_f`` / ``offs_q`` int64, checked; ``vals_f`` / ``vals_q`` int16
+    views of the file's bytes).  ``data`` is the file, ``chunk`` the byte
+    range of the frame's four fields in it, ``fields`` where each starts in
+    that range.  ``qf`` and ``qq`` are decoded on the host on first access
+    and kept, so the frame serves wherever the array interchange
+    (``FrameResArrays``) does; the decoders take its lists to the device
+    undecoded (``engine.pack_stream``)."""
+
+    def __new__(cls, split, data: bytes, chunk: tuple, offs_f, vals_f, offs_q, vals_q, bs: int):
+        self = super().__new__(cls, split, None, None)
+        self.data, self.chunk, self.bs = data, chunk, bs
+        self.offs_f, self.vals_f, self.offs_q, self.vals_q = offs_f, vals_f, offs_q, vals_q
+        a = 4 * len(offs_f)
+        self.fields = (0, a, a + 2 * len(vals_f), a + 2 * len(vals_f) + 4 * len(offs_q))
+        self._dense = None
+        return self
+
+    def _arrays(self) -> tuple:
+        if self._dense is None:
+            nb, bs, sbs = len(self.split), self.bs, self.bs // 2
+            qf = np.zeros((nb, bs, bs), np.int16)
+            qq = np.zeros((nb, 4, sbs, sbs), np.int16)
+            qf[~self.split] = _rle_decode_batch(self.vals_f, self.offs_f, bs).astype(np.int16)
+            quads = _rle_decode_batch(self.vals_q, self.offs_q, sbs)
+            qq[self.split] = quads.reshape(-1, 4, sbs, sbs).astype(np.int16)
+            if tracer.on:
+                tracer.rle_decoded_frames["host"] += 1
+            self._dense = (qf, qq)
+        return self._dense
+
+    qf = property(lambda self: self._arrays()[0])
+    qq = property(lambda self: self._arrays()[1])
+
+    def __iter__(self):
+        return iter((self.split, self.qf, self.qq))
+
+    def __getitem__(self, key):
+        return tuple(self)[key]
+
+
 def _i16(a, what: str) -> np.ndarray:
     a = np.asarray(a)
     if a.size and (a.min() < -32768 or a.max() > 32767):
@@ -260,11 +313,13 @@ def write_binary(path, frame_types, mvs_per_frame, qp_rows_per_frame,
 @traced("binstream.read")
 def read_binary(path, cfg):
     """Read the container -> (frame_types, mvs, qps, residuals) in the array
-    interchange (mvs: FrameMVArrays, residuals: FrameResArrays) — the same
-    contract as bitstream.read_bitstream.  ROI is reconciled with cfg
-    exactly like the text reader (adopt / loud mismatch).  Dimension or
-    block-size disagreement with cfg raises."""
-    nb, bs, sbs = cfg.n_blocks, cfg.block_size, cfg.sub_block_size
+    interchange (mvs: FrameMVArrays, residuals: FrameResArrays, here their
+    ``CodedResiduals``, decoded on first access) — the same contract as
+    bitstream.read_bitstream.  ROI is reconciled with cfg exactly like the
+    text reader (adopt / loud mismatch).  Dimension or block-size
+    disagreement with cfg, and RLE offsets that do not start at 0 or fall,
+    raise here."""
+    nb, bs = cfg.n_blocks, cfg.block_size
     with open(path, "rb") as f:
         buf = f.read()
     if buf[: len(MAGIC)] != MAGIC:
@@ -307,16 +362,13 @@ def read_binary(path, cfg):
                 raise ValueError("corrupt binary bitstream: non-monotone RLE offsets")
             return o
 
+        chunk0 = r.pos
         offs_f = _offsets(nb - n_split + 1)
         vals_f = r.arr("<i2", int(offs_f[-1]))
         offs_q = _offsets(4 * n_split + 1)
         vals_q = r.arr("<i2", int(offs_q[-1]))
-        qf = np.zeros((nb, bs, bs), np.int16)
-        qq = np.zeros((nb, 4, sbs, sbs), np.int16)
-        qf[~split] = _rle_decode_batch(vals_f, offs_f, bs).astype(np.int16)
-        qq[si] = _rle_decode_batch(vals_q, offs_q, sbs).reshape(-1, 4, sbs, sbs).astype(np.int16)
         frame_types.append(ft)
         mvs.append(FrameMVArrays(ft, m3, split, s3))
         qps.append(qp)
-        residuals.append(FrameResArrays(split, qf, qq))
+        residuals.append(CodedResiduals(split, buf, (chunk0, r.pos), offs_f, vals_f, offs_q, vals_q, bs))
     return frame_types, mvs, qps, residuals

@@ -20,7 +20,9 @@ copied to the host) and the container the coded interchange: one
 card, its plain twin on the CPU) and one copy of the coded buffer
 (``binstream.coded_frames_of``).  After a ``package=True`` encode both get
 the list interchange, and the container's lists are coded on the host
-(``native``).
+(``native``).  ``decode_bitstream_binary`` hands the decoder the
+container's lists as read (``binstream.CodedResiduals``), which the decoder
+copies to its device in one piece and decodes there (``rle_unpack``).
 
 ``device`` defaults to ``"cuda"``; the CPU runs only when asked for
 (``device="cpu"``).  With ``mesh=`` in place of ``device=``

@@ -54,6 +54,12 @@
                             flags and MVs, into one buffer (csrc/rle_pack.cu;
                             no TPU kernel: the JAX package codes them on the
                             host, native/entropy.cpp rle_encode_blocks).
+``rle_unpack``           -- the binary container's run-length decoding of a
+                            stream's coefficient lists, as they lie in the
+                            file, into the decoders' merged payload
+                            (csrc/rle_unpack.cu; no TPU kernel: the JAX
+                            package decodes them on the host,
+                            native/entropy.cpp rle_decode_blocks).
 
 The searches and fetches also take a band of the frame in place of the
 whole frame (a mesh tile's, ``parallel/mesh.py``; me_pallas's ``read_row0``,
@@ -1286,3 +1292,114 @@ def rle_pack(split: list, mv: list, sub_mv: list, qtc_full: list, qtc_quads: lis
 
 #: kernel launches: two a call (the count and the write)
 rle_pack.launches = 0
+
+
+# ------------------------------------------------ the container's run-length decoding
+def rle_unpack_head(frames: int, nb: int) -> int:
+    """Bytes of ``rle_unpack``'s buffer before the container's fields: the
+    frames' table and the blocks' unit indices."""
+    return 32 * frames + 4 * frames * nb
+
+
+def rle_unpack_plain(buf: torch.Tensor, frames: int, nb: int, bs: int) -> torch.Tensor:
+    """Plain PyTorch version of the ``rle_unpack`` kernel (any device): every
+    unit's walk in step, one header of each unit still walking at a time."""
+    dev, nn, s = buf.device, bs * bs, bs // 2
+    b = buf.to(torch.int64)
+    tab = buf[: 32 * frames].view(torch.int64).reshape(frames, 4)
+    index = buf[32 * frames: rle_unpack_head(frames, nb)].view(torch.int32).reshape(frames, nb).to(torch.int64)
+
+    def u32(pos):
+        return b[pos] | b[pos + 1] << 8 | b[pos + 2] << 16 | b[pos + 3] << 24
+
+    def i16(pos):
+        v = b[pos] | b[pos + 1] << 8
+        return v - (v >> 15 << 16)
+
+    # the units: each unsplit block, then each split block's four quads; where each list starts, its length,
+    # its positions and its slot
+    f_u, b_u = torch.nonzero(index >= 0, as_tuple=True)
+    at = tab[f_u, 0] + 4 * index[f_u, b_u]
+    o0, o1 = u32(at), u32(at + 4)
+    f_q, b_q = torch.nonzero(index < 0, as_tuple=True)
+    q = torch.arange(4, device=dev)
+    at = tab[f_q, 2][:, None] + 4 * (4 * ~index[f_q, b_q][:, None] + q)
+    p0, p1 = u32(at), u32(at + 4)
+    start = torch.cat([tab[f_u, 1] + 2 * o0, (tab[f_q, 3][:, None] + 2 * p0).reshape(-1)])
+    length = torch.cat([o1 - o0, (p1 - p0).reshape(-1)])
+    m = torch.cat([torch.full_like(o0, nn), torch.full_like(p0.reshape(-1), s * s)])
+    slot = torch.cat([(f_u * nb + b_u) * nn, ((f_q * nb + b_q) * nn)[:, None].expand(-1, 4).reshape(-1)])
+    kind = torch.cat([torch.zeros_like(o0), (q + 1).expand(f_q.numel(), 4).reshape(-1)])
+    # each kind's slot element of a scan position: the block's, then quad q's in its (q // 2, q % 2) tile
+    sq = scan_indices(s, dev)
+    dst = torch.zeros((5, nn), dtype=torch.int64, device=dev)
+    dst[0] = scan_indices(bs, dev)
+    for k in range(4):
+        dst[k + 1, : s * s] = ((k // 2) * s + sq // s) * bs + (k % 2) * s + sq % s
+
+    out = torch.zeros(frames * nb * nn, dtype=torch.int16, device=dev)
+    i, pos = torch.zeros_like(length), torch.zeros_like(length)
+    live = torch.nonzero(length > 0).reshape(-1)
+    while live.numel():
+        ln, il, sl, ml = length[live], i[live], pos[live], m[live]
+        c = i16(start[live] + 2 * il)
+        neg = c < 0
+        run = torch.minimum(-c, ln - il)
+        cnt = torch.where(neg, torch.minimum(torch.minimum(run, ln - il - 1), ml - sl), 0)
+        width = int(cnt.max())
+        if width > 0:
+            u, k = torch.nonzero(torch.arange(width, device=dev) < cnt[:, None], as_tuple=True)
+            g = live[u]
+            out[slot[g] + dst[kind[g], sl[u] + k]] = i16(start[g] + 2 * (il[u] + 1 + k)).to(torch.int16)
+        sl = sl + torch.where(neg, cnt, torch.where(c > 0, torch.minimum(c, ml), 0))
+        il = il + torch.where(neg, run, 0) + 1
+        i[live], pos[live] = il, sl
+        live = live[(c != 0) & (il < ln) & (sl < ml)]
+    return out.reshape(frames, nb, bs, bs)
+
+
+def rle_unpack(buf: torch.Tensor, frames: int, nb: int, bs: int) -> torch.Tensor:
+    """The container's coefficient lists of F frames of nb blocks, run-length
+    decoded into the decoders' merged payload: (F, nb, bs, bs) int16, an
+    unsplit block's slot its coefficients, a split block's its four quads as
+    its 2 x 2 tiles (``engine.pack_stream``'s payload, ``unpack_payload``'s
+    input).
+
+    ``buf``: a contiguous uint8 tensor, 16-byte aligned, laid out as
+    ``csrc/rle_unpack.cu`` says: per frame four int64, the byte positions of
+    the container's offs_f, vals_f, offs_q and vals_q fields (each at an
+    even position); the (F, nb) int32 unit index of each
+    block (r >= 0, the r-th unsplit block of its frame; r < 0, the ~r-th
+    split block); then the fields (``rle_unpack_head``).  The fields'
+    offsets must start at 0, never fall and end at their value count, and
+    every position lie inside ``buf``: the container's reader checks them
+    (``binstream.read_binary``), this wrapper does not.  Each unit's list
+    decodes as ``native/entropy.cpp`` ``rle_decode_blocks``, adversarial
+    lists included.  The kernel takes bs in {4, 8, 16}: one launch.  The
+    plain version is ``rle_unpack_plain``.
+    """
+    if not isinstance(buf, torch.Tensor) or buf.dtype != torch.uint8 or buf.dim() != 1 or not buf.is_contiguous():
+        raise ValueError("rle_unpack: buf must be a contiguous 1-D uint8 tensor")
+    if frames < 1 or nb < 1 or buf.numel() < rle_unpack_head(frames, nb):
+        raise ValueError(f"rle_unpack: {buf.numel()} bytes hold no table of {frames} frames of {nb} blocks")
+    dev = buf.device
+    if dev.type == "cpu":
+        return rle_unpack_plain(buf, frames, nb, bs)
+    if dev.type != "cuda":
+        raise ValueError(f"rle_unpack runs on cpu or cuda tensors, not {dev}")
+    if bs not in _TRANSFORM_SIZES or buf.data_ptr() % 16:
+        raise ValueError(f"the rle_unpack kernel takes bs in {_TRANSFORM_SIZES} and a 16-byte aligned buffer, got "
+                         f"bs={bs}")
+    from streamoptima_tpu_torch._build import library
+
+    out = torch.empty((frames, nb, bs, bs), dtype=torch.int16, device=dev)
+    with torch.cuda.device(dev):
+        rc = library().so_rle_unpack(buf.data_ptr(), frames, nb, bs, _table("scan", bs, dev).data_ptr(),
+                                     _table("scan", bs // 2, dev).data_ptr(), out.data_ptr(), _stream(dev))
+    _launch_check(rc, "rle_unpack")
+    rle_unpack.launches += 1
+    return out
+
+
+#: kernel launches: one a call
+rle_unpack.launches = 0

@@ -18,7 +18,9 @@ frame's search and residuals, either intra mode), ``transform_select``
 (every encoded frame's DCT, RD split, quantization and coded lengths) and
 ``residual_recon`` (every encoded and decoded frame's dequantization; an
 inter frame's reconstruction from the prediction planes in the same
-launch).
+launch).  A decode uploads its stream once (``upload_stream``); a binary
+container's coefficient lists go in undecoded, from a pinned stage the
+decoder keeps, and one ``rle_unpack`` launch writes their payload.
 
 Fast ME (``fast_me``: a 3x3 search around the previous block's MV, chained
 in raster order) solves the chain per block row (``motion.fast_chain``: the
@@ -55,6 +57,8 @@ reference band around the tile, or under fast ME the whole reference frames,
 and every bound is evaluated at frame rows.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -97,6 +101,7 @@ class TorchCodec:
         self.vbs = cfg.vbs_enable
         self.device = torch.device(device)
         self.y = None if y_frames is None else np.asarray(y_frames, dtype=np.uint8)
+        self._stage = PinnedStage()  # the decode's staging of a container's coded lists (nothing until used)
         # the clip is uploaded once; frames are device slices
         self._y_dev = None if self.y is None else to_device(self.y, self.device, "clip")
         #: the tool set's search, fetch and fast-ME kernels for the frame rows [g_row0, g_row0 + h) this
@@ -356,7 +361,7 @@ class TorchCodec:
         all_inter = cfg.parallel_mode == 1
         d_mv, d_smv, d_split, d_pay, d_rqp = upload_stream(
             pack_stream(cfg, frame_types, residuals_per_frame, mvs_per_frame, qp_rows_per_frame), self.device,
-            self.vbs, cfg.rc_active)
+            self.vbs, cfg.rc_active, self._stage)
 
         out = []
         refs = [self._plane128()]
@@ -457,6 +462,67 @@ def build_package(cfg: CodecConfig, per_frame: list, ftypes: list, fetch: str = 
     return pkg, recon
 
 
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+class CodedPayload(NamedTuple):
+    """``pack_stream``'s coefficients where the stream holds the container's
+    coded lists: each frame's ``binstream.CodedResiduals`` and each block's
+    unit index (n, nb) int32 (r >= 0, the r-th unsplit block of its frame;
+    r < 0, the ~r-th split one), for ``K.rle_unpack``."""
+    frames: list
+    index: np.ndarray
+    bs: int
+
+    @property
+    def nbytes(self) -> int:
+        """The bytes of the one upload (``fill``'s layout)."""
+        return _align16(K.rle_unpack_head(*self.index.shape)) + sum(_align16(r.chunk[1] - r.chunk[0])
+                                                                     for r in self.frames)
+
+    def fill(self, host: np.ndarray) -> None:
+        """Lay the upload out in ``host`` (``nbytes`` uint8), as ``K.rle_unpack``
+        reads it: the frames' table, the unit indices, then each frame's four
+        fields as the file holds them, at a multiple of 16 bytes."""
+        n, nb = self.index.shape
+        tab = host[: 32 * n].view(np.int64).reshape(n, 4)
+        host[32 * n: K.rle_unpack_head(n, nb)].view(np.int32)[:] = self.index.reshape(-1)
+        pos = _align16(K.rle_unpack_head(n, nb))
+        for f, r in enumerate(self.frames):
+            a, e = r.chunk
+            host[pos: pos + e - a] = np.frombuffer(r.data, np.uint8, e - a, a)
+            tab[f] = np.asarray(r.fields) + pos
+            pos += _align16(e - a)
+
+
+class PinnedStage:
+    """The pinned host buffer a decoder stages its stream's coded lists in
+    for their one upload: grown when a stream needs more, and refilled only
+    once the copy out of it has run (an event recorded behind the copy).  On
+    the CPU, a fresh array each stream."""
+
+    def __init__(self):
+        self.buf, self.copied = None, None
+
+    def take(self, nbytes: int, device: torch.device) -> torch.Tensor:
+        if device.type != "cuda":
+            return torch.empty(nbytes, dtype=torch.uint8)
+        if self.copied is not None:
+            self.copied.synchronize()
+        if self.buf is None or self.buf.numel() < nbytes:
+            self.buf = torch.empty(nbytes + nbytes // 4, dtype=torch.uint8, pin_memory=True)
+        return self.buf[:nbytes]
+
+    def upload(self, host: torch.Tensor, device: torch.device, site: str) -> torch.Tensor:
+        if device.type != "cuda":
+            return to_device(host, device, site)
+        out = to_device(host, device, site, pinned=True)
+        self.copied = torch.cuda.Event()
+        self.copied.record(torch.cuda.current_stream(device))
+        return out
+
+
 @traced("engine.pack_stream")
 def pack_stream(cfg: CodecConfig, frame_types, residuals_per_frame, mvs_per_frame, qp_rows_per_frame=None):
     """The decoders' host pass: the clip's MVs, sub-MVs, split flags,
@@ -465,14 +531,19 @@ def pack_stream(cfg: CodecConfig, frame_types, residuals_per_frame, mvs_per_fram
     component 0.  Row QPs are ``cfg.qp`` but where rate control is on and the
     stream gives a frame's rows (jax_engine.py:1108-1109).  A
     block is split or not, so its full-block and quad coefficients share one
-    (bs, bs) payload slot.  A frame that references a frame outside the
-    decoder's FIFO raises ``ValueError`` before anything is launched."""
+    (bs, bs) payload slot.  Where every frame's residuals are the
+    container's coded lists (``binstream.CodedResiduals``, with the MVs'
+    split flags), the coefficients stay coded: a ``CodedPayload``, which
+    ``upload_stream`` decodes on the device; any other input is decoded here.
+    A frame that references a frame outside the decoder's FIFO raises
+    ``ValueError`` before anything is launched."""
+    from streamoptima_tpu_torch.binstream import CodedResiduals  # binstream imports this module
+
     n, bs, s = len(frame_types), cfg.block_size, cfg.sub_block_size
     nb = cfg.block_rows * cfg.blocks_per_row
     mv_all = np.zeros((n, nb, 3), np.int32)
     smv_all = np.zeros((n, nb, 4, 3), np.int32)
     split_all = np.zeros((n, nb), bool)
-    pay_all = np.zeros((n, nb, bs, bs), np.int16)
     rqp_all = np.full((n, cfg.block_rows), cfg.qp, np.int32)
     nref = 1  # length of the decoder's reference FIFO at frame i
     for i in range(n):
@@ -490,24 +561,44 @@ def pack_stream(cfg: CodecConfig, frame_types, residuals_per_frame, mvs_per_fram
             mv_all[i] = mv_np
             smv_all[i] = smv_np
         split_all[i] = split_np
-        qf, qq = list_to_res_np(residuals_per_frame[i], nb, bs, s)
-        pay_all[i] = qf
-        if split_np.any():
-            merged = qq.reshape(nb, 2, 2, s, s).swapaxes(2, 3).reshape(nb, bs, bs)
-            pay_all[i][split_np] = merged[split_np]
         if cfg.rc_active and qp_rows_per_frame is not None and len(qp_rows_per_frame[i]):
             rqp_all[i] = np.asarray(qp_rows_per_frame[i], dtype=np.int32)
         nref = 1 if ft == 0 else min(nref + 1, cfg.n_ref_frames)
+    if n and all(isinstance(r, CodedResiduals) and r.bs == bs and np.array_equal(r.split, split_all[i])
+                 for i, r in enumerate(residuals_per_frame)):
+        split_rank = np.cumsum(split_all, axis=1, dtype=np.int32)
+        index = np.where(split_all, -split_rank, np.arange(nb, dtype=np.int32) - split_rank)
+        return mv_all, smv_all, split_all, CodedPayload(list(residuals_per_frame), index, bs), rqp_all
+    pay_all = np.zeros((n, nb, bs, bs), np.int16)
+    for i in range(n):
+        qf, qq = list_to_res_np(residuals_per_frame[i], nb, bs, s)
+        pay_all[i] = qf
+        if split_all[i].any():
+            merged = qq.reshape(nb, 2, 2, s, s).swapaxes(2, 3).reshape(nb, bs, bs)
+            pay_all[i][split_all[i]] = merged[split_all[i]]
     return mv_all, smv_all, split_all, pay_all, rqp_all
 
 
 @traced("engine.upload_stream")
-def upload_stream(packed: tuple, device, vbs: bool, rc_active: bool) -> tuple:
+def upload_stream(packed: tuple, device, vbs: bool, rc_active: bool, stage: PinnedStage | None = None) -> tuple:
     """Every decoder's device input: ``pack_stream``'s arrays on ``device``,
     one copy each (site ``stream``), the sub-MVs only under ``vbs`` and the
-    row QPs only under ``rc_active`` (else None)."""
+    row QPs only under ``rc_active`` (else None).  A ``CodedPayload`` is
+    laid out in ``stage``'s pinned buffer (the decoder's; a new one if
+    None), copied in one piece (site ``container``) and decoded there by one
+    ``K.rle_unpack`` launch (its plain version on the CPU)."""
     mv, smv, split, pay, rqp = packed
-    d_mv, d_split, d_pay = (to_device(a, device, "stream") for a in (mv, split, pay))
+    device = torch.device(device)
+    d_mv, d_split = (to_device(a, device, "stream") for a in (mv, split))
+    if isinstance(pay, CodedPayload):
+        stage = stage or PinnedStage()
+        host = stage.take(pay.nbytes, device)
+        pay.fill(host.numpy())
+        d_pay = K.rle_unpack(stage.upload(host, device, "container"), *pay.index.shape, pay.bs)
+        if tracer.on:
+            tracer.rle_decoded_frames["device"] += len(pay.frames)
+    else:
+        d_pay = to_device(pay, device, "stream")
     d_smv = to_device(smv, device, "stream") if vbs else None
     d_rqp = to_device(rqp, device, "stream") if rc_active else None
     return d_mv, d_smv, d_split, d_pay, d_rqp

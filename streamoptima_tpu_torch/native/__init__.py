@@ -15,7 +15,10 @@ arrays only: the list package of a ``package=True`` encode, the compat
 engine's, and streams read back by ``read_binary`` or ``read_bitstream``.
 A ``package=False`` encode's tensors are coded where they lie by the
 ``rle_pack`` kernel (``core/kernels.py``, ``binstream.coded_frames_of``),
-which writes the same lists.
+which writes the same lists.  Its decode (``rle_decode_blocks``) runs where
+a frame ``read_binary`` returns is densified on the host
+(``binstream.CodedResiduals``); the decoders decode the lists on the device
+(the ``rle_unpack`` kernel), to the same coefficients.
 """
 from __future__ import annotations
 

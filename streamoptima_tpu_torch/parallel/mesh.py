@@ -58,8 +58,8 @@ import torch
 from streamoptima_tpu_torch import metrics
 from streamoptima_tpu_torch.config import CodecConfig
 from streamoptima_tpu_torch.core import motion as MO
-from streamoptima_tpu_torch.engine import (TorchCodec, build_package, encode_passes, fifo_push, pack_stream,
-                                           promotes, unpack_payload, upload_stream)
+from streamoptima_tpu_torch.engine import (PinnedStage, TorchCodec, build_package, encode_passes, fifo_push,
+                                           pack_stream, promotes, unpack_payload, upload_stream)
 from streamoptima_tpu_torch.profiling import to_device
 
 #: per-frame outputs that concatenate over tiles, in block raster or row order
@@ -175,6 +175,7 @@ class ShardedCodec:
         if self.ntile > 1 and tile_comm == "halo" and self.halo > self.h_t:
             raise ValueError(f"the search halo {self.halo} exceeds the {self.h_t}-row tile; lower the tile count")
         self.home = mesh.devices[0, 0]
+        self._stage = PinnedStage()  # the decode's staging of a container's coded lists, for home
         # one engine per shard: its device and its tile's rows
         self._tiles = [[TorchCodec(cfg, device=mesh.devices[d, t], rows=(t * self.h_t, (t + 1) * self.h_t))
                         for t in range(self.ntile)] for d in range(self.ndata)]
@@ -404,7 +405,8 @@ class ShardedCodec:
         cfg = self.cfg
         packed = pack_stream(cfg, frame_types, residuals_per_frame, mvs_per_frame, qp_rows_per_frame)
         comm = self._decode_comm(packed[0], packed[1])
-        d_mv, d_smv, d_split, d_pay, d_rqp = upload_stream(packed, self.home, cfg.vbs_enable, cfg.rc_active)
+        d_mv, d_smv, d_split, d_pay, d_rqp = upload_stream(packed, self.home, cfg.vbs_enable, cfg.rc_active,
+                                                           self._stage)
         n = len(frame_types)
         out = []
         for g in range(math.ceil(n / gl)):

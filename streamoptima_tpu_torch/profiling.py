@@ -61,13 +61,19 @@ reached pageable host memory).  The read sites are ``chain_flag`` (fast
 ME's convergence flag, one a pass), ``promote_size`` (scene-change
 promotion's size read), ``package`` (the package's three copies),
 ``fetch`` (the per-frame arrays), ``two_pass_bits`` and ``finish``; the
-upload sites ``clip``, ``stream``, ``row_qps`` and ``rle_table`` (the
-``rle_pack`` kernel's table of the frames' tensors).  The helpers count on
+upload sites ``clip``, ``stream``, ``row_qps``, ``rle_table`` (the
+``rle_pack`` kernel's table of the frames' tensors) and ``container`` (a
+binary container's coded lists, from the decoder's pinned stage, for
+``rle_unpack``).  The helpers count on
 the CPU too.  ``rle_frames``, by site, counts the frames the binary
 container's writer codes: ``device``, the frames of a package's tensors
 coded by ``rle_pack`` (the kernel on a card, its plain twin on the CPU),
 and ``host``, the frames of host arrays coded by ``native`` (or its Python
-twin).  ``confirm_blocks``, by route, counts the blocks the fast-ME
+twin).  ``rle_decoded_frames``, by site, counts the frames of a binary
+container whose lists are decoded: ``device``, by ``rle_unpack`` in a
+decoder's upload (the kernel on a card, its plain twin on the CPU), and
+``host``, by ``native`` (or its Python twin) where a reader's frame is
+densified (``binstream.CodedResiduals.qf``).  ``confirm_blocks``, by route, counts the blocks the fast-ME
 confirm searched: ``kernel``, by the ``fast_confirm`` kernel on a card, and
 ``plain``, by its plain twin (``core.fastme.confirm``) on the CPU.
 ``search_positions``, by search wrapper (``full_search``,
@@ -79,7 +85,7 @@ with VBS, for one of its quads (``core.me.valid_candidates``, from the
 shapes: no sync), summed over the blocks and the references searched.
 
 ``tracer.snapshot()`` returns {"spans": {name: {"seconds", "count"}},
-"host_syncs", "d2h_bytes", "h2d_bytes", "rle_frames": {site: count},
+"host_syncs", "d2h_bytes", "h2d_bytes", "rle_frames": {site: count}, "rle_decoded_frames": {site: count},
 "pageable_bytes": {"d2h", "h2d"}, "search_positions": {wrapper: count},
 "confirm_blocks": {route: count}};
 ``tracer.reset()`` empties the spans and the counters;
@@ -226,6 +232,7 @@ class Tracer:
         self.h2d_bytes: Counter = Counter()
         self.pageable_bytes: Counter = Counter()
         self.rle_frames: Counter = Counter()
+        self.rle_decoded_frames: Counter = Counter()
         self.search_positions: Counter = Counter()
         self.confirm_blocks: Counter = Counter()
 
@@ -271,7 +278,8 @@ class Tracer:
             s["count"] += 1
         return {"spans": spans, "host_syncs": dict(self.host_syncs), "d2h_bytes": dict(self.d2h_bytes),
                 "h2d_bytes": dict(self.h2d_bytes), "pageable_bytes": dict(self.pageable_bytes),
-                "rle_frames": dict(self.rle_frames), "search_positions": dict(self.search_positions),
+                "rle_frames": dict(self.rle_frames), "rle_decoded_frames": dict(self.rle_decoded_frames),
+                "search_positions": dict(self.search_positions),
                 "confirm_blocks": dict(self.confirm_blocks)}
 
     def write(self, path, first_id: int = 0) -> None:
@@ -333,16 +341,20 @@ def host_flag(t: torch.Tensor, site: str) -> bool:
     return flag
 
 
-def to_device(a: np.ndarray, device, site: str, pinned: bool = False) -> torch.Tensor:
+def to_device(a, device, site: str, pinned: bool = False) -> torch.Tensor:
     """``torch.from_numpy(a).to(device)``, or with ``pinned`` (a CUDA
     device) staged in pinned memory and copied without waiting for the
     device's queue (the caching host allocator holds the stage until the
     copy has run); with the tracer on, its bytes counted at ``site``
-    (pageable unless ``pinned``)."""
+    (pageable unless ``pinned``).  ``a``: a numpy array, or a host tensor
+    (with ``pinned``, one already in pinned memory is copied from where it
+    lies: a stage its caller keeps)."""
     if tracer.on:
         _count(tracer.h2d_bytes, "h2d", site, a.nbytes, pinned)
-    t = torch.from_numpy(a)
-    return t.pin_memory().to(device, non_blocking=True) if pinned else t.to(device)
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
+    if not pinned:
+        return t.to(device)
+    return (t if t.is_pinned() else t.pin_memory()).to(device, non_blocking=True)
 
 
 def time_steps(cfg, y_frames, warmup: int = 1, iters: int = 8, *, device="cuda") -> dict:

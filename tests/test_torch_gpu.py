@@ -1868,6 +1868,158 @@ def test_container_write_codes_on_the_card_in_one_copy(cuda, segment_720p, tmp_p
     np.testing.assert_array_equal(dec, pkg["reconstructed frames"])
 
 
+# --------------------------------------------- the container's run-length decoding (rle_unpack)
+def _unpack_buffer(cfg, res, mvs, cuda):
+    """The decoders' device buffer of a read container (``pack_stream``'s
+    coded payload, laid out and copied as ``upload_stream`` does), and the
+    host route's payload of the same frames."""
+    from streamoptima_tpu_torch.bitstream import FrameResArrays
+    from streamoptima_tpu_torch.engine import CodedPayload, pack_stream
+
+    fts = [m.ftype for m in mvs]
+    pay = pack_stream(cfg, fts, res, mvs)[3]
+    assert isinstance(pay, CodedPayload)
+    host = np.zeros(pay.nbytes, np.uint8)
+    pay.fill(host)
+    dense = pack_stream(cfg, fts, [FrameResArrays(r.split, r.qf, r.qq) for r in res], mvs)[3]
+    return torch.from_numpy(host).to(cuda), pay, dense
+
+
+def _unpack_equal(buf, frames: int, nb: int, bs: int) -> torch.Tensor:
+    """The kernel's payload against the plain version's on the same device buffer, exactly."""
+    n0 = K.rle_unpack.launches
+    got = K.rle_unpack(buf, frames, nb, bs)
+    torch.cuda.synchronize()
+    assert K.rle_unpack.launches == n0 + 1
+    assert torch.equal(got, K.rle_unpack_plain(buf, frames, nb, bs))
+    return got
+
+
+@pytest.fixture(scope="module")
+def segment_1088p_nref4():
+    """A 1088p half-pel full search + VBS encode over four references, 8 frames, its container read back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import tempfile
+    from pathlib import Path
+
+    from streamoptima_tpu_torch import VideoCodec, binstream
+
+    cfg = CodecConfig(height=1088, width=1920, frames=8, search_range=16, qp=4, intra_dur=8, lam=0.015,
+                      vbs_enable=True, fme_enable=True, fast_me=False, n_ref_frames=4)
+    codec = VideoCodec(cfg, synthetic_clip(1088, 1920, 8, seed=19), device="cuda")
+    pkg = codec.encode(compute_ssim=False, package=False)
+    with tempfile.TemporaryDirectory() as d:
+        codec.transmit_bitstream_binary(Path(d) / "b.sob")
+        return cfg, pkg, binstream.read_binary(Path(d) / "b.sob", cfg)
+
+
+@pytest.mark.parametrize("shape", ["720p", "1088p-nref4"])
+def test_rle_unpack_kernel_matches_plain_on_a_container(cuda, shape, request, tmp_path):
+    """The decode cell's container (720p, 16 frames, fast ME + VBS + FME)
+    and a 1088p one over four references: kernel == plain == the host
+    route's payload, and the decode of its payload is the reconstruction."""
+    from streamoptima_tpu_torch import binstream
+
+    if shape == "720p":
+        cfg, codec, pkg = request.getfixturevalue("segment_720p")
+        codec.transmit_bitstream_binary(tmp_path / "c.sob")
+        fts, mvs, qps, res = binstream.read_binary(tmp_path / "c.sob", cfg)
+    else:
+        cfg, pkg, (fts, mvs, qps, res) = request.getfixturevalue("segment_1088p_nref4")
+    assert any(int(m.split.sum()) for m in mvs) and not all(bool(m.split.all()) for m in mvs)
+    buf, _, dense = _unpack_buffer(cfg, res, mvs, cuda)
+    got = _unpack_equal(buf, cfg.frames, cfg.n_blocks, cfg.block_size)
+    np.testing.assert_array_equal(got.cpu().numpy(), dense)
+    dec = TorchCodec(cfg, device=cuda).decode(fts, res, qps, mvs)
+    np.testing.assert_array_equal(torch.stack(dec).cpu().numpy(), pkg["reconstructed frames"])
+
+
+@pytest.mark.parametrize("bs", [4, 8, 16])
+def test_rle_unpack_kernel_matches_plain_and_native_on_adversarial_lists(cuda, bs):
+    """Random symbol lists, not an encoder's: headers -1 to -(m + 5) and
+    -32768, zero runs of 1 to m + 5 and 32767, early 0s, values of either
+    sign, lists of 0 to 2m + 40 symbols, some past the unit's end and some
+    short of their runs; no, every and some blocks split, each frame's
+    fields at another file offset.  Kernel == plain == ``native``."""
+    from streamoptima_tpu_torch import binstream, native
+    from streamoptima_tpu_torch.bitstream import FrameMVArrays
+
+    rng = np.random.default_rng(bs)
+    cfg = CodecConfig(height=8 * bs, width=12 * bs, frames=3, block_size=bs, search_range=4, qp=4, intra_dur=3,
+                      vbs_enable=True)
+    nb, s = cfg.n_blocks, bs // 2
+
+    def unit(m):
+        out = []
+        for _ in range(int(rng.integers(0, 2 * m + 41))):
+            r = rng.random()
+            out.append(int(-rng.integers(1, m + 6) if r < 0.25 else rng.integers(1, m + 6) if r < 0.35 else
+                           -32768 if r < 0.37 else 32767 if r < 0.39 else 0 if r < 0.41 else
+                           rng.integers(-4080, 4081)))
+        return out
+
+    res = []
+    for f, split in enumerate([np.zeros(nb, bool), np.ones(nb, bool), rng.random(nb) < 0.4]):
+        fields = []
+        for lists in ([unit(bs * bs) for _ in range(int((~split).sum()))],
+                      [unit(s * s) for _ in range(4 * int(split.sum()))]):
+            offs = np.zeros(len(lists) + 1, "<u4")
+            np.cumsum([len(x) for x in lists], out=offs[1:])
+            fields += [offs, np.asarray([v for x in lists for v in x], "<i2")]
+        data = b"\x01" * (2 * f + 1) + b"".join(a.tobytes() for a in fields)
+        at = np.cumsum([2 * f + 1] + [a.nbytes for a in fields[:3]])
+        view = [np.frombuffer(data, a.dtype, len(a), int(o)) for a, o in zip(fields, at)]
+        res.append(binstream.CodedResiduals(split, data, (2 * f + 1, len(data)), view[0].astype(np.int64), view[1],
+                                            view[2].astype(np.int64), view[3], bs))
+    mvs = [FrameMVArrays(0, np.zeros((nb, 3), np.int32), r.split, np.zeros((nb, 4, 3), np.int32)) for r in res]
+    buf, _, dense = _unpack_buffer(cfg, res, mvs, cuda)
+    got = _unpack_equal(buf, 3, nb, bs).cpu().numpy()
+    np.testing.assert_array_equal(got, dense)
+    for r, pay in zip(res, got):
+        if (~r.split).any():
+            np.testing.assert_array_equal(pay[~r.split], native.rle_decode_blocks(r.vals_f, r.offs_f, bs))
+
+
+def test_binary_decode_decodes_on_the_card_in_one_launch(cuda, segment_720p, tmp_path):
+    """``decode_bitstream_binary`` of the decode cell's container: one
+    ``rle_unpack`` launch, every frame decoded on the card, no host RLE, the
+    container's one copy pinned; the traced two-step call (``read_binary``,
+    then ``VideoCodec.decode``, as the benchmark's traced decode calls it)
+    takes the same route.  Both decodes are the reconstructions."""
+    from streamoptima_tpu_torch import VideoCodec, binstream
+    from streamoptima_tpu_torch.profiling import tracer
+
+    cfg, codec, pkg = segment_720p
+    codec.transmit_bitstream_binary(tmp_path / "c.sob")
+    dec = VideoCodec(cfg, device=cuda)
+    dec.decode_bitstream_binary(tmp_path / "c.sob")  # the stage's first use
+    snaps, launches = [], []
+    for two_step in (False, True):
+        n0 = K.rle_unpack.launches
+        tracer.reset()
+        tracer.enable()
+        try:
+            if two_step:
+                fts, mvs, qps, res = binstream.read_binary(tmp_path / "c.sob", dec.cfg)
+                frames = dec.decode(fts, res, qps, mvs)
+            else:
+                frames = dec.decode_bitstream_binary(tmp_path / "c.sob")
+        finally:
+            tracer.disable()
+        snaps.append(tracer.snapshot())
+        launches.append(K.rle_unpack.launches - n0)
+        np.testing.assert_array_equal(frames, pkg["reconstructed frames"])
+    tracer.reset()
+    for snap in snaps:
+        assert snap["rle_decoded_frames"] == {"device": cfg.frames}
+        assert "binstream.rle_decode" not in snap["spans"]
+        stream = snap["h2d_bytes"]["stream"]
+        assert set(snap["h2d_bytes"]) == {"stream", "container"}
+        assert snap["pageable_bytes"]["h2d"] == stream  # the container's copy is pinned
+    assert launches == [1, 1] and snaps[0]["h2d_bytes"] == snaps[1]["h2d_bytes"]
+
+
 # ------------------- the half-pel full search at class B size, four references
 H_B, W_B = 1088, 1920
 

@@ -61,8 +61,8 @@ def test_off_records_nothing(clip, tmp_path):
     _round_trip(clip, tmp_path / "c.sob")
     snap = tracer.snapshot()
     assert tracer.records == [] and snap == {"spans": {}, "host_syncs": {}, "d2h_bytes": {}, "h2d_bytes": {},
-                                             "pageable_bytes": {}, "rle_frames": {}, "search_positions": {},
-                                             "confirm_blocks": {}}
+                                             "pageable_bytes": {}, "rle_frames": {}, "rle_decoded_frames": {},
+                                             "search_positions": {}, "confirm_blocks": {}}
 
 
 @pytest.mark.parametrize("on", [False, True])
@@ -192,7 +192,9 @@ def test_confirm_blocks_by_route(clip):
 def test_upload_counter_equals_the_packed_stream(clip, tmp_path, decoder):
     """Every decoder (``TorchCodec``, ``CompatCodec``, ``ShardedCodec`` on a
     (2, 2) CPU mesh) uploads the packed stream once, through
-    ``engine.upload_stream``: its bytes under ``h2d_bytes["stream"]``."""
+    ``engine.upload_stream``: its bytes under ``h2d_bytes["stream"]``, but
+    for a binary container's coded lists (``torch`` and ``mesh``), which go
+    in one copy under ``h2d_bytes["container"]`` and are decoded there."""
     cfg = dataclasses.replace(CFG, engine="compat") if decoder == "compat" else CFG
     enc = VideoCodec(cfg, clip, device="cpu")
     if decoder == "compat":  # the reference-exact engine has no binary container: its list forms
@@ -209,7 +211,16 @@ def test_upload_counter_equals_the_packed_stream(clip, tmp_path, decoder):
     tracer.enable()
     frames = dec.decode(fts, res, qps, mvs)
     snap = tracer.snapshot()
-    assert snap["h2d_bytes"] == {"stream": sum(a.nbytes for a in (mv_all, smv_all, split_all, pay_all))}
+    if decoder == "compat":
+        assert snap["h2d_bytes"] == {"stream": sum(a.nbytes for a in (mv_all, smv_all, split_all, pay_all))}
+        assert snap["rle_decoded_frames"] == {}
+    else:  # the container's fields as the file holds them, each frame's at a multiple of 16 bytes
+        symbols = sum(len(r.data[r.chunk[0]:r.chunk[1]]) for r in res)
+        head = K.rle_unpack_head(CFG.frames, CFG.n_blocks)
+        assert symbols <= pay_all.nbytes <= head + symbols + 16 * (CFG.frames + 1)
+        assert snap["h2d_bytes"] == {"stream": sum(a.nbytes for a in (mv_all, smv_all, split_all)),
+                                     "container": pay_all.nbytes}
+        assert snap["rle_decoded_frames"] == {"device": CFG.frames}
     assert snap["host_syncs"] == {"finish": 1} and snap["d2h_bytes"] == {"finish": frames.nbytes}
     names = [s["name"] for s in _spans()]
     assert names.count("engine.pack_stream") == names.count("engine.upload_stream") == 1
