@@ -7,6 +7,13 @@ container's bytes (the serializer, and through it every MV, split flag and
 coefficient), the encoder's reconstructions (the frames later frames
 predict from) and, in the decode traffic, the decoded frames.  The codec
 is bit-exact by its configuration, so every limit is 0.
+
+The configurations the reference runs: intra mode 0, one to eight
+references, VBS and half-pel FME each on or off, full search or fast ME,
+at a constant QP or under rate control (per-row QPs, scene-change
+promotion, two-pass), on traffic with or without scene cuts.  It refuses
+ROI maps, the parallel modes, intra mode 1 and the compat engine, so a
+configuration that states one of those cannot have a cell yet.
 """
 from __future__ import annotations
 

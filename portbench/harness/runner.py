@@ -126,6 +126,8 @@ def run_cell(args, t_start: float, root: Path | None = None, device: str = "cuda
 
     ref_slots = reference_slots(traffic, args.seed)
     order = schedule(traffic, args.seed)
+    gc.collect()
+    gc.freeze()  # set-up's objects leave the collector's scans for the window
     window = run_window(driver, order, args.seconds, sample_picker(traffic, ref_slots, args.seed), spans)
     profile = None
     if args.trace:
@@ -140,6 +142,7 @@ def run_cell(args, t_start: float, root: Path | None = None, device: str = "cuda
     observed = [(slot, _read_containers(o)) for slot, o in observed]
     driver.close()
     driver = None  # the program's state goes before the reference runs
+    gc.unfreeze()
     gc.collect()
     if device.startswith("cuda"):
         torch.cuda.empty_cache()

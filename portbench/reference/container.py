@@ -3,13 +3,15 @@
 The layout is the port's ``binstream`` format (little-endian)::
 
     magic  b"SOTPB1\\n"
-    u32    height, width, frames, block_size, flags (0: no rate control, no ROI map)
+    u32    height, width, frames, block_size, flags
+           (bit 0: rate control, so row QPs follow; bit 1, an ROI map, is never set here)
     per frame:
       u8   frame_type
       u8   split bitmap  (ceil(nb/8) bytes, np.packbits order)
       i16  mv[nb*3]      (intra: component 0, rest 0; split blocks 0)
       u32  n_split
       i16  smv[n_split*4*3]            (split blocks, raster order)
+      [i16 row_qps[block_rows]]        (flags bit 0)
       u32  offs_f[n_unsplit+1]; i16 vals_f   (full-block RLE lists)
       u32  offs_q[4*n_split+1]; i16 vals_q   (quad RLE lists, Z order)
 
@@ -66,13 +68,14 @@ def _i16(a) -> bytes:
     return a.astype("<i2").tobytes()
 
 
-def write_container(h: int, w: int, bs: int, ftypes: list, outs: list) -> bytes:
+def write_container(h: int, w: int, bs: int, ftypes: list, outs: list, row_qps: list | None = None) -> bytes:
     """The container of a segment.  ``outs``: per frame, numpy arrays "mv"
     ((nb,) intra scalars or (nb, 3)), "sub_mv" ((nb, 4) or (nb, 4, 3)),
-    "split" (nb,), "qtc_full" (nb, bs, bs), "qtc_quads" (nb, 4, s, s)."""
+    "split" (nb,), "qtc_full" (nb, bs, bs), "qtc_quads" (nb, 4, s, s).
+    ``row_qps``: under rate control, each frame's QP of each block row."""
     s = bs // 2
-    parts = [MAGIC, np.asarray([h, w, len(ftypes), bs, 0], "<u4").tobytes()]
-    for ft, o in zip(ftypes, outs):
+    parts = [MAGIC, np.asarray([h, w, len(ftypes), bs, 0 if row_qps is None else 1], "<u4").tobytes()]
+    for i, (ft, o) in enumerate(zip(ftypes, outs)):
         split = np.asarray(o["split"], bool)
         nb = split.shape[0]
         mv, smv = np.asarray(o["mv"], np.int64), np.asarray(o["sub_mv"], np.int64)
@@ -88,6 +91,10 @@ def write_container(h: int, w: int, bs: int, ftypes: list, outs: list) -> bytes:
         vals_f, offs_f = rle_encode_blocks(np.asarray(o["qtc_full"])[~split])
         vals_q, offs_q = rle_encode_blocks(np.asarray(o["qtc_quads"])[si].reshape(-1, s, s))
         parts += [np.uint8(ft).tobytes(), np.packbits(split).tobytes(), _i16(m3.reshape(-1)),
-                  np.asarray([si.size], "<u4").tobytes(), _i16(s3[si].reshape(-1)),
-                  offs_f.astype("<u4").tobytes(), _i16(vals_f), offs_q.astype("<u4").tobytes(), _i16(vals_q)]
+                  np.asarray([si.size], "<u4").tobytes(), _i16(s3[si].reshape(-1))]
+        if row_qps is not None:
+            if len(row_qps[i]) != h // bs:
+                raise ValueError(f"frame {i} has {len(row_qps[i])} row QPs for {h // bs} block rows")
+            parts.append(_i16(row_qps[i]))
+        parts += [offs_f.astype("<u4").tobytes(), _i16(vals_f), offs_q.astype("<u4").tobytes(), _i16(vals_q)]
     return b"".join(parts)

@@ -2,11 +2,22 @@
 
 A frozen copy of the native engine's single-device encode loop (the port's
 ``engine.TorchCodec``: its intra and inter steps, the fast-ME chain and
-confirm, the reference FIFO) over the plain kernels of ``plain.py``, for the
-tool sets the benchmark's configurations state: intra mode 0, one to eight
-references, VBS and half-pel FME each on or off, full search or fast ME, a
-constant QP.  Rate control, ROI maps, the parallel modes and intra mode 1
-are refused: no configuration here states them.
+confirm, the reference FIFO) over the plain kernels of ``plain.py``, for
+intra mode 0, one to eight references, VBS and half-pel FME each on or off,
+full search or fast ME, at a constant QP or under rate control (``rc.py``):
+
+- ``rc_flag`` >= 1: every block takes its row's QP, from the rate table of
+  the frame's type, and the container carries each frame's row QPs;
+- ``rc_flag`` > 1, scene-change promotion (Encoder.py:1851-1856): an inter
+  frame whose coded length, the sum of its blocks' RLE lengths, exceeds
+  ``intra_thresh`` is coded again as an intra frame, which empties the
+  reference FIFO as any intra frame does;
+- ``two_pass``: pass 1 codes the segment at the table QPs and decides the
+  promotions, pass 2 codes it again with pass 1's frame types and the row
+  QPs ``rc.second_pass_row_qps`` gives from pass 1's bits of each row.
+
+ROI maps, the parallel modes, intra mode 1 and the compat engine are
+refused: no configuration here states them.
 
 ``encode`` takes the segment's frames as the benchmark generated them and
 works out everything the program derives again: it shares nothing with the
@@ -19,13 +30,13 @@ import torch
 
 from . import fastme as FM
 from . import plain as P
+from . import rc
 from .blocks import blockify, quads_px, split_quads
 from .container import write_container
 from .me import block_origins, fme_parity_planes
 
 #: CodecConfig fields this encoder reads; any other field must keep the default the encoder assumes
-_REFUSED = {"rc_flag": None, "roi_qp_map": None, "parallel_mode": 0, "intra_mode": 0, "two_pass": False,
-            "engine": "jax"}
+_REFUSED = {"roi_qp_map": None, "parallel_mode": 0, "intra_mode": 0, "engine": "jax"}
 
 
 class ReferenceEncoder:
@@ -53,7 +64,27 @@ class ReferenceEncoder:
         self.control = control
         self.nbr, self.nbc = self.h // self.bs, self.w // self.bs
         self.nb = self.nbr * self.nbc
-        self.qps = torch.full((self.nb,), self.qp, dtype=torch.int32, device=self.device)
+        rc_flag = cfg.get("rc_flag")
+        self.rc = rc_flag is not None and rc_flag > 0
+        self.promote = self.rc and rc_flag > 1
+        self.two_pass = bool(cfg.get("two_pass", False))
+        if self.two_pass and not self.rc:
+            raise ValueError("two_pass needs rate control (rc_flag > 0)")
+        self.intra_thresh = cfg.get("intra_thresh")
+        if self.promote and self.intra_thresh is None:
+            raise ValueError("scene-change promotion (rc_flag > 1) needs intra_thresh")
+        if self.rc:
+            if cfg.get("target_br") is None or cfg.get("qp_rate_tables") is None:
+                raise ValueError("rate control (rc_flag > 0) needs target_br and qp_rate_tables")
+            fps = int(cfg.get("frame_rate", 30))
+            self.tables = [list(cfg["qp_rate_tables"][t]) for t in (0, 1)]
+            self.frame_budget = rc.parse_bitrate(cfg["target_br"]) // fps
+            per_row = rc.bitrate_per_row(cfg["target_br"], fps, self.h, self.bs)
+            #: each frame type's row QPs (intra, inter)
+            self.table_rows = [rc.row_qps(table, per_row, self.nbr) for table in self.tables]
+        else:
+            self.table_rows = [[self.qp] * self.nbr] * 2
+        self.table_qps = [self._block_qps(rows) for rows in self.table_rows]
         border = torch.zeros((self.nbr, self.nbc), dtype=torch.bool, device=self.device)
         border[0, :] = True
         border[:, 0] = True
@@ -65,21 +96,26 @@ class ReferenceEncoder:
     def _zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=torch.int32, device=self.device)
 
-    def _select(self, res_full, res_quads, sad, sub_sad, ftype: int, ok=None, sub_ok=None):
-        return P.transform_select(res_full, res_quads, sad, sub_sad, ftype, self.qps, qp_nominal=self.qp,
+    def _block_qps(self, rows) -> torch.Tensor:
+        """(nb,) int32 block QPs in raster order: each block its row's QP."""
+        q = torch.as_tensor(rows, dtype=torch.int32, device=self.device)
+        return q[:, None].expand(self.nbr, self.nbc).reshape(-1).contiguous()
+
+    def _select(self, res_full, res_quads, sad, sub_sad, ftype: int, qps, ok=None, sub_ok=None):
+        return P.transform_select(res_full, res_quads, sad, sub_sad, ftype, qps, qp_nominal=self.qp,
                                   lam=self.lam, vbs_enable=self.vbs, vbs_eligible=self.vbs_eligible, bs=self.bs,
                                   sbs=self.sbs, ok_full=ok, ok_quads=sub_ok, control=self.control)
 
-    def _intra_step(self, cur: torch.Tensor) -> dict:
+    def _intra_step(self, cur: torch.Tensor, qps: torch.Tensor) -> dict:
         s, res_full, res_quads = P.intra_search(cur, self.bs, self.sr, self.w, self.vbs)
         sub_sad = s["sub_sad"].reshape(self.nb, 4) if self.vbs else None
-        split, qtc_full, qtc_quads, _, _ = self._select(res_full, res_quads, s["sad"].reshape(-1), sub_sad, 0)
+        split, qtc_full, qtc_quads, lens, _ = self._select(res_full, res_quads, s["sad"].reshape(-1), sub_sad, 0, qps)
         mv = s["mv"].reshape(-1)
         sub_mv = s["sub_mv"].reshape(self.nb, 4) if self.vbs else self._zeros(self.nb, 4)
-        rf, rq = P.residual_recon(qtc_full, qtc_quads if self.vbs else None, self.qps, control=self.control)
+        rf, rq = P.residual_recon(qtc_full, qtc_quads if self.vbs else None, qps, control=self.control)
         recon = P.intra_recon(rf, mv, self.h, self.w, self.bs, self.sr, rq, split, sub_mv)
         return {"mv": mv, "sub_mv": sub_mv, "split": split, "qtc_full": qtc_full, "qtc_quads": qtc_quads,
-                "recon": recon}
+                "recon": recon, "lens": lens}
 
     def _fetch(self, mv, sub_mv, planes):
         if self.vbs:
@@ -118,7 +154,7 @@ class ReferenceEncoder:
         dims = (2 * self.h - 1, 2 * self.w - 1) if fme else (self.h, self.w)
         return FM.confirm(win, cur_blocks, g, scale * self.bx, scale * self.by, n, dims, fme, self.vbs)
 
-    def _inter_step(self, cur, planes, g0) -> dict:
+    def _inter_step(self, cur, planes, g0, qps: torch.Tensor) -> dict:
         cur_blocks = blockify(cur, self.bs).to(torch.int32)
         g_next = None
         if self.fast:
@@ -138,34 +174,36 @@ class ReferenceEncoder:
             if sub_ok is not None:
                 pred_q = torch.where(sub_ok[:, :, None, None], pred_q, 128)
             res_q = (split_quads(cur_blocks) - pred_q).contiguous()
-        split, qtc_full, qtc_quads, _, _ = self._select((cur_blocks - pred_full).contiguous(), res_q, s["sad"],
-                                                        s.get("sub_sad"), 1, ok=s["ok"], sub_ok=s.get("sub_ok"))
-        recon = P.residual_recon(qtc_full, qtc_quads if self.vbs else None, self.qps, pf, pq,
+        split, qtc_full, qtc_quads, lens, _ = self._select((cur_blocks - pred_full).contiguous(), res_q, s["sad"],
+                                                           s.get("sub_sad"), 1, qps, ok=s["ok"], sub_ok=s.get("sub_ok"))
+        recon = P.residual_recon(qtc_full, qtc_quads if self.vbs else None, qps, pf, pq,
                                  split if self.vbs else None, ok, sub_ok, control=self.control)
         sub_mv = s["sub_mv"] if self.vbs else self._zeros(self.nb, 4, 3)
         return {"mv": s["mv"], "sub_mv": sub_mv, "split": split, "qtc_full": qtc_full, "qtc_quads": qtc_quads,
-                "recon": recon, "g_next": g_next}
+                "recon": recon, "lens": lens, "g_next": g_next}
 
     # ------------------------------------------------------------ encode
-    def encode(self, frames: np.ndarray) -> tuple[bytes, np.ndarray]:
-        """Encode one segment, (frames, h, w) uint8 on the host.  Returns the
-        SOTPB1 container's bytes and the (frames, h, w) uint8 reconstructions."""
-        frames = np.asarray(frames, dtype=np.uint8)
-        if frames.shape != (self.frames, self.h, self.w):
-            raise ValueError(f"a segment is {(self.frames, self.h, self.w)}, got {frames.shape}")
-        y = torch.from_numpy(frames).to(self.device)
+    def _pass(self, y: torch.Tensor, ftypes_fixed: list | None = None, rqps: list | None = None):
+        """One pass over the segment: (frame types, per-frame numpy outputs).
+        ``ftypes_fixed`` and ``rqps``, two-pass's second pass: pass 1's frame
+        types (no promotion is decided) and each frame's row QPs."""
         refs = [torch.full((self.h, self.w), 128, dtype=torch.uint8, device=self.device)]
         initial = True
         g_carry = None
         ftypes, outs = [], []
         for i in range(self.frames):
-            if i % self.intra_dur == 0:
-                out, ftype = self._intra_step(y[i]), 0
+            qps = self.table_qps if rqps is None else [self._block_qps(rqps[i])] * 2
+            if (i % self.intra_dur == 0) if ftypes_fixed is None else ftypes_fixed[i] == 0:
+                out, ftype = self._intra_step(y[i], qps[0]), 0
             else:
                 stack = torch.stack(refs)
                 planes = fme_parity_planes(stack, wrap_row_pass=not initial) if self.fme else stack
-                out, ftype = self._inter_step(y[i], planes, g_carry), 1
-                g_carry = out["g_next"] if out["g_next"] is not None else g_carry
+                out, ftype = self._inter_step(y[i], planes, g_carry, qps[1]), 1
+                if self.promote and ftypes_fixed is None and int(out["lens"].sum()) > self.intra_thresh:
+                    # the promoted frame's MVPs are dropped: they seed the next chain, whose result they cannot move
+                    out, ftype = self._intra_step(y[i], qps[0]), 0
+                elif out["g_next"] is not None:
+                    g_carry = out["g_next"]
             ftypes.append(ftype)
             outs.append({k: v.cpu().numpy() for k, v in out.items() if k != "g_next" and v is not None})
             if i < self.frames - 1:
@@ -175,5 +213,20 @@ class ReferenceEncoder:
                     refs.pop(0)
                 refs.append(out["recon"])
                 initial = False
+        return ftypes, outs
+
+    def encode(self, frames: np.ndarray) -> tuple[bytes, np.ndarray]:
+        """Encode one segment, (frames, h, w) uint8 on the host.  Returns the
+        SOTPB1 container's bytes and the (frames, h, w) uint8 reconstructions."""
+        frames = np.asarray(frames, dtype=np.uint8)
+        if frames.shape != (self.frames, self.h, self.w):
+            raise ValueError(f"a segment is {(self.frames, self.h, self.w)}, got {frames.shape}")
+        y = torch.from_numpy(frames).to(self.device)
+        ftypes, outs = self._pass(y)
+        rows = [self.table_rows[t] for t in ftypes]
+        if self.two_pass:
+            rows = [rc.second_pass_row_qps(o["lens"].reshape(self.nbr, self.nbc).sum(axis=1), self.tables[t],
+                                           self.frame_budget, self.table_rows[t]) for t, o in zip(ftypes, outs)]
+            ftypes, outs = self._pass(y, ftypes, rows)
         recon = np.stack([o["recon"] for o in outs])
-        return write_container(self.h, self.w, self.bs, ftypes, outs), recon
+        return write_container(self.h, self.w, self.bs, ftypes, outs, rows if self.rc else None), recon

@@ -10,10 +10,12 @@ import time
 from pathlib import Path
 
 import pytest
+import torch
 
 from portbench.control import control_numbers
 from portbench.harness.correct import LIMITS
 from portbench.harness.runner import run_cell
+from portbench.reference.zigzag import rle_length
 from streamoptima_tpu_torch import engine
 from streamoptima_tpu_torch.codec import VideoCodec
 from streamoptima_tpu_torch.core import kernels as K
@@ -37,6 +39,13 @@ def stale_fifo(monkeypatch):
     monkeypatch.setattr(engine, "fifo_push", push)
 
 
+def recount(split, qf, qq):
+    """Each block's coded length, counted again from its coefficients as they now stand:
+    an injection that alters them keeps the frame's sizes true to them, so that the
+    container's write takes the frame and only the comparison can catch the fault."""
+    return torch.where(split, rle_length(qq).sum(dim=1, dtype=torch.int32), rle_length(qf))
+
+
 def half_the_blocks(monkeypatch):
     """Half of the batch left out: the second half of each frame's blocks codes (or decodes) nothing."""
     select, recon = K.transform_select, K.residual_recon
@@ -46,7 +55,7 @@ def half_the_blocks(monkeypatch):
         qf, qq = qf.clone(), qq.clone()
         qf[qf.shape[0] // 2:] = 0
         qq[qq.shape[0] // 2:] = 0
-        return split, qf, qq, lens, mae
+        return split, qf, qq, recount(split, qf, qq), mae
 
     def recon_half(qf, qq, *a, **kw):
         qf = qf.clone()
@@ -73,6 +82,7 @@ def altered_answer(monkeypatch):
                 qf[int(whole[0, 0]), 0, 0] += 1
             else:
                 qq[0, 0, 0, 0] += 1
+            lens = recount(split, qf, qq)
         return split, qf, qq, lens, mae
 
     def finish_altered(self, frames):

@@ -77,8 +77,9 @@ def test_the_jax_benchmark_and_package_are_untouched():
 
 
 def test_without_a_card_the_command_exits_non_zero_and_prints_no_result():
-    out = subprocess.run([sys.executable, "portbench/run.py", "--workload", "fast-vbs-fme-720p.encode", "--seed", "1",
-                          "--seconds", "1", "--trace", "0"], cwd=REPO, capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "portbench/run.py", "--workload", "full-vbs-fme-nref4-1088p.encode",
+                          "--seed", "1", "--seconds", "1", "--trace", "0"], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
     if "torch.cuda.is_available() is True" in out.stderr:
         pytest.skip("a card is present")
     assert out.returncode != 0
@@ -91,7 +92,7 @@ def test_without_the_program_a_run_fails_and_prints_no_result(tmp_path):
 
     shutil.copytree(REPO / "portbench", tmp_path / "portbench", ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(REPO / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
-    code = cpu_run_script(tmp_path, "fast-vbs-fme-720p.encode", 1, 0.5, 0)
+    code = cpu_run_script(tmp_path, "full-vbs-fme-nref4-1088p.encode", 1, 0.5, 0)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=tmp_path)
     assert out.returncode != 0
     assert not any(line.startswith("{") for line in out.stdout.splitlines())

@@ -61,10 +61,11 @@ def test_reference_equals_program_on_other_tool_sets(over, tmp_path):
 
 
 def test_reference_refuses_what_it_does_not_run():
-    with pytest.raises(ValueError):
-        ReferenceEncoder(tiny_cfg("main-720p", rc_flag=1), "cpu")
-    with pytest.raises(ValueError):
-        ReferenceEncoder(tiny_cfg("main-720p", intra_mode=1), "cpu")
+    """Rate control it runs (``test_portbench_reference_rc.py``); an ROI map, a parallel mode and
+    intra mode 1 it refuses, and rate control without its rate."""
+    for over in (dict(roi_qp_map=[0] * 12), dict(parallel_mode=2), dict(intra_mode=1), dict(rc_flag=1)):
+        with pytest.raises(ValueError):
+            ReferenceEncoder(tiny_cfg("main-720p", **over), "cpu")
 
 
 @pytest.mark.parametrize("n", [4, 8, 16])
